@@ -1,0 +1,63 @@
+"""Carry weights and state across from the JAX package.
+
+``from_numpy`` takes one of the JAX package's NamedTuples whose leaves were
+mapped to numpy arrays (``jax.tree.map(np.asarray, obj)``) and returns the
+port's NamedTuple of tensors with the same field names.  This module never
+imports JAX: it matches the NamedTuple by class name.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .gait.mode_schedule import ModeSchedule
+from .models.robot import INDEX_FIELDS, RobotModel
+from .ocp.problem import OcpParams
+from .refs.swing_planner import PlannerState, SwingConfig
+from .refs.targets import CmdVelConfig, TargetTrajectories
+from .solver.mpc import MpcState
+
+_TYPES = {cls.__name__: cls for cls in (
+    RobotModel, OcpParams, SwingConfig, CmdVelConfig, ModeSchedule, TargetTrajectories,
+    MpcState, PlannerState)}
+
+
+def _leaf(v, dev, dtype):
+    a = np.asarray(v)
+    if a.dtype == np.bool_:
+        return torch.as_tensor(a, device=dev)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=dev)
+    return torch.as_tensor(a.astype(np.float64), dtype=dtype, device=dev)
+
+
+def from_numpy(obj, device=None, dtype=torch.float32):
+    """JAX NamedTuple with numpy leaves -> the port's NamedTuple of tensors.
+
+    Covers RobotModel (int index arrays stay int64, on the host), OcpParams
+    (``collision=None`` only), SwingConfig, CmdVelConfig, ModeSchedule,
+    TargetTrajectories and MpcState."""
+    dev = resolve_device(device)
+    name = type(obj).__name__
+    if name not in _TYPES:
+        raise TypeError(f"no port counterpart for {name}")
+    cls = _TYPES[name]
+    fields = {}
+    for field in cls._fields:
+        v = getattr(obj, field)
+        if name == "RobotModel" and field in ("nj", "n_links"):
+            fields[field] = int(v)
+        elif name == "RobotModel" and field.endswith("_names"):
+            fields[field] = tuple(str(s) for s in v)
+        elif name == "RobotModel" and field in INDEX_FIELDS:
+            fields[field] = torch.as_tensor(np.asarray(v).astype(np.int64))
+        elif field == "collision":
+            if v is not None:
+                raise NotImplementedError("self-collision parameters are not ported yet")
+            fields[field] = None
+        elif type(v).__name__ in _TYPES:
+            fields[field] = from_numpy(v, dev, dtype)
+        else:
+            fields[field] = _leaf(v, dev, dtype)
+    return cls(**fields)

@@ -1,0 +1,145 @@
+"""Build and bind the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by its own ``nvcc`` (all started together) for
+``sm_90a`` into an object, and the objects are linked into
+``build/torch_kernels/libhunter_kernels.so`` beside the package, at first
+use.  The library has a plain C interface, bound with ``ctypes``: every
+pointer and the stream travel as ``c_void_p``, every C function returns the
+``cudaError_t`` of its launch and the wrappers raise on a non-zero code.
+
+Nothing here runs at import: the CPU tests import every module on a
+machine without ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+LIB_PATH = os.path.join(BUILD_DIR, "libhunter_kernels.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+SIGNATURES = {
+    "hk_gj_inverse": [_P, _P, _I, _I, _I, _P],
+    # 12 inputs, 11 outputs, n_knots, proj_reg, hess_reg, pivot, stream
+    "hk_project_knot": [_P] * 23 + [_I, _F, _F, _I, _P],
+    # 12 inputs, 4 outputs, batch, n_knots, reg, stream
+    "hk_riccati_solve": [_P] * 16 + [_I, _I, _F, _P],
+}
+
+_lib = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the toolkit is")
+
+
+def _stamp(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    return h.hexdigest()
+
+
+def build() -> float:
+    """Compile (if the sources changed) and return the seconds it took."""
+    global build_log
+    t0 = time.perf_counter()
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    stamp = _stamp(sources)
+    stamp_path = LIB_PATH + ".stamp"
+    if os.path.exists(LIB_PATH) and os.path.exists(stamp_path):
+        with open(stamp_path) as f:
+            if f.read() == stamp:
+                return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tmp = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        procs = []
+        for src in sources:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {os.path.basename(src)}\n{out}")
+            if p.returncode != 0:
+                failed.append(src)
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        so_tmp = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, "-shared", "-o", so_tmp] + [o for _, o, _ in procs],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(so_tmp, LIB_PATH)
+        with open(stamp_path, "w") as f:
+            f.write(stamp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return time.perf_counter() - t0
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        build()
+        lib = ctypes.CDLL(LIB_PATH)
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        lib.hk_error_string.argtypes = [ctypes.c_int]
+        lib.hk_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if rc != 0:
+        msg = library().hk_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype, shape, device=None) -> None:
+    """Check what a kernel takes: a contiguous CUDA tensor of this dtype/shape."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: kernel input must be a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes a contiguous tensor")

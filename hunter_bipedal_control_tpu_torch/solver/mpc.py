@@ -1,0 +1,224 @@
+"""MPC orchestration: reference preparation + warm start + SQP solve.
+
+Port of ``hunter_bipedal_control_tpu/solver/mpc.py``: ``mpc_step`` runs a
+batch of B scenarios.  ``x_init`` (B, nx) sets B; the schedule, target,
+command, default joints and init time may be shared (no batch dim) or per
+scenario, and shared ones are broadcast.  ``Mpc`` wraps the step as an
+``nn.Module`` whose buffers hold the model, the OCP weights and the swing
+configuration.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..gait.mode_schedule import ModeSchedule, mode_at_time, mode_contacts
+from ..models.kinematics import contact_positions, fk
+from ..models.robot import RobotModel
+from ..models.spatial import rotation_zyx
+from ..ocp import problem as ocp
+from ..refs import ik as ik_mod
+from ..refs import swing_planner as swp
+from ..refs import targets as tg
+from . import sqp
+
+JOINT_REF_STEP = 0.15  # calculateJointRef sampling (SwitchedModelReferenceManager.cpp:262)
+
+
+class MpcState(NamedTuple):
+    """Carried across solves, per scenario."""
+
+    planner: swp.PlannerState
+    xs_ws: torch.Tensor     # (B, N+1, nx)
+    us_ws: torch.Tensor     # (B, N, nu)
+    ws_times: torch.Tensor  # (B, N+1)
+    has_ws: torch.Tensor    # (B,) bool
+
+
+def init_mpc_state(model: RobotModel, settings: sqp.SqpSettings, batch: int = 1, nx=None,
+                   device=None, dtype=torch.float32) -> MpcState:
+    dev = resolve_device(device)
+    nx = nx or (12 + model.nj)
+    nu = 12 + model.nj
+    N = settings.n_intervals
+    return MpcState(
+        planner=swp.init_planner_state(batch, dev, dtype),
+        xs_ws=torch.zeros((batch, N + 1, nx), dtype=dtype, device=dev),
+        us_ws=torch.zeros((batch, N, nu), dtype=dtype, device=dev),
+        ws_times=torch.zeros((batch, N + 1), dtype=dtype, device=dev),
+        has_ws=torch.zeros(batch, dtype=torch.bool, device=dev),
+    )
+
+
+def _linspace(start, stop, num: int):
+    """jnp.linspace's arithmetic, batched: start*(1-s) + stop*s, s = i/(num-1),
+    with the end point exact.  start/stop (B,) -> (B, num)."""
+    div = num - 1
+    step = (torch.arange(div, dtype=start.dtype, device=start.device) / div)
+    out = start[:, None] * (1 - step) + stop[:, None] * step
+    return torch.cat([out, stop[:, None]], dim=-1)
+
+
+def _joint_reference(model: RobotModel, target: tg.TargetTrajectories,
+                     refs: swp.SwingRefs, init_time, final_time, x_init,
+                     default_joints, n_samples: int):
+    """calculateJointRef (SwitchedModelReferenceManager.cpp:251-300) with the
+    JAX package's two parallel IK passes: all samples from the default pose,
+    then all samples warm-started by the first pass."""
+    nj = model.nj
+    Ts = _linspace(init_time, final_time, n_samples).to(target.times.dtype)   # (B, S)
+    states = tg.interp_state(target, Ts)
+    inputs = tg.interp_input(target, Ts)
+
+    R_des = rotation_zyx(x_init[:, 9:12])[:, None]                  # (B, 1, 3, 3)
+    des = swp.foot_reference(refs, [0, 1], Ts)[0]                    # (B, S, 2, 3)
+    poses = states[..., 6:12]
+
+    def solve_all(warm_joints):
+        q_ref = torch.cat([poses, warm_joints.expand(*poses.shape[:-1], nj)], dim=-1)
+        return ik_mod.compute_ik(model, q_ref, des, R_des, trans_it=3, rot_it=2)
+
+    qj1 = solve_all(default_joints[:, None, :])
+    joint_refs = solve_all(qj1)
+    states = torch.cat([states[..., :12], joint_refs, states[..., 12 + nj:]], dim=-1)
+    return tg.TargetTrajectories(times=Ts, states=states, inputs=inputs)
+
+
+def _current_feet(model: RobotModel, x_init):
+    return contact_positions(model, fk(model, x_init[..., 6:]))
+
+
+def prepare_references(model: RobotModel, settings: sqp.SqpSettings,
+                       planner_cfg: swp.SwingConfig, planner_state: swp.PlannerState,
+                       schedule: ModeSchedule, target: tg.TargetTrajectories,
+                       init_time, x_init, body_vel_cmd, default_joints):
+    """modifyReferences parity: swing planner update + joint refs + per-knot
+    reference bundle.  All arguments batched (B, ...)."""
+    N = settings.n_intervals
+    final_time = init_time + settings.horizon
+    dtype = x_init.dtype
+
+    refs, planner_state = swp.update_planner(
+        planner_cfg, planner_state, schedule, target, init_time, final_time,
+        body_vel_cmd, _current_feet(model, x_init), body_vel_meas=x_init[:, 0:3])
+
+    n_samples = int(settings.horizon / JOINT_REF_STEP) + 1
+    mod_target = _joint_reference(model, target, refs, init_time, final_time, x_init,
+                                  default_joints, n_samples)
+
+    times = init_time[:, None] + torch.arange(N + 1, dtype=dtype, device=x_init.device) * (
+        settings.horizon / N)
+    x_nom = tg.interp_state(mod_target, times)
+    flags = mode_contacts(dtype, x_init.device)[mode_at_time(schedule, times)]
+    pos, vel, _ = swp.foot_reference(refs, [0, 1, 2, 3], times)
+    bundle = sqp.ReferenceBundle(times=times, x_nom=x_nom, contact_flags=flags,
+                                 foot_pos_ref=pos, foot_vel_ref=vel)
+    return bundle, refs, mod_target, planner_state
+
+
+def _warm_start(model, settings, refs_bundle: sqp.ReferenceBundle, state: MpcState, x_init):
+    """Interpolate the previous solution onto the new grid where a scenario
+    has one (the JAX ``lax.cond`` on has_ws, per scenario), else the
+    initializer trajectories."""
+    xs0, us0 = sqp.initializer_trajectories(model, settings, refs_bundle, x_init)
+    xs = tg.interp_state(tg.TargetTrajectories(state.ws_times, state.xs_ws, state.xs_ws),
+                         refs_bundle.times)
+    xs = torch.cat([x_init[:, None], xs[:, 1:]], dim=1)
+    us = tg.interp_state(tg.TargetTrajectories(state.ws_times[:, :-1], state.us_ws,
+                                               state.us_ws), refs_bundle.times[:, :-1])
+    has = state.has_ws[:, None, None]
+    return torch.where(has, xs, xs0), torch.where(has, us, us0)
+
+
+def _batched(a, Bn: int, ndim: int):
+    """Broadcast a shared (un-batched) argument of ``ndim`` dims to (B, ...)."""
+    a = torch.as_tensor(a)
+    return a.expand(Bn, *a.shape) if a.ndim == ndim else a
+
+
+def mpc_step(model: RobotModel, settings: sqp.SqpSettings, params: ocp.OcpParams,
+             planner_cfg: swp.SwingConfig, state: MpcState,
+             schedule: ModeSchedule, target: tg.TargetTrajectories,
+             init_time, x_init, body_vel_cmd, default_joints):
+    """Full MPC advance for B scenarios (x_init (B, nx)).
+
+    Returns (SqpSolution, new MpcState, ReferenceBundle)."""
+    Bn = x_init.shape[0]
+    dtype, dev = x_init.dtype, x_init.device
+    # event times promote to the state dtype (the JAX package's float32
+    # templates meet float64 query times the same way)
+    schedule = ModeSchedule(_batched(schedule.event_times.to(dtype), Bn, 1),
+                            _batched(schedule.modes, Bn, 1))
+    target = tg.TargetTrajectories(*(_batched(a, Bn, n) for a, n in
+                                     zip(target, (1, 2, 2))))
+    init_time = _batched(torch.as_tensor(init_time, dtype=dtype, device=dev), Bn, 0)
+    body_vel_cmd = _batched(body_vel_cmd, Bn, 1)
+    default_joints = _batched(default_joints, Bn, 1)
+
+    bundle, _, _, planner_state = prepare_references(
+        model, settings, planner_cfg, state.planner, schedule, target,
+        init_time, x_init, body_vel_cmd, default_joints)
+    xs_ws, us_ws = _warm_start(model, settings, bundle, state, x_init)
+    sol = sqp.solve(model, settings, params, bundle, x_init, xs_ws, us_ws)
+    new_state = MpcState(
+        planner=planner_state,
+        xs_ws=sol.states,
+        us_ws=sol.inputs[:, :-1],
+        ws_times=sol.times,
+        has_ws=torch.ones(Bn, dtype=torch.bool, device=dev),
+    )
+    return sol, new_state, bundle
+
+
+def evaluate_policy(sol: sqp.SqpSolution, t):
+    """Linear interpolation of the latest primal solution at times t (B, K):
+    returns (x* (B, K, nx), u* (B, K, nu))."""
+    tt_x = tg.TargetTrajectories(sol.times, sol.states, sol.states)
+    tt_u = tg.TargetTrajectories(sol.times, sol.inputs, sol.inputs)
+    return tg.interp_state(tt_x, t), tg.interp_state(tt_u, t)
+
+
+class Mpc(nn.Module):
+    """The MPC step as a module: model, OCP weights and swing configuration
+    are buffers, so ``.to(device)`` moves them together; ``forward`` is
+    ``mpc_step``."""
+
+    def __init__(self, model: RobotModel, settings: sqp.SqpSettings, params: ocp.OcpParams,
+                 planner_cfg: swp.SwingConfig):
+        super().__init__()
+        self.settings = settings
+        self._static = {}
+        for prefix, tup in (("model", model), ("params", params), ("swing", planner_cfg)):
+            static = {}
+            for name, val in tup._asdict().items():
+                if torch.is_tensor(val) and val.is_floating_point():
+                    self.register_buffer(f"{prefix}_{name}", val)
+                else:
+                    static[name] = val
+            self._static[prefix] = (type(tup), static)
+
+    def _rebuild(self, prefix):
+        cls, static = self._static[prefix]
+        fields = {name: static[name] if name in static else getattr(self, f"{prefix}_{name}")
+                  for name in cls._fields}
+        return cls(**fields)
+
+    @property
+    def model(self) -> RobotModel:
+        return self._rebuild("model")
+
+    @property
+    def params(self) -> ocp.OcpParams:
+        return self._rebuild("params")
+
+    @property
+    def planner_cfg(self) -> swp.SwingConfig:
+        return self._rebuild("swing")
+
+    def forward(self, state: MpcState, schedule: ModeSchedule, target: tg.TargetTrajectories,
+                init_time, x_init, body_vel_cmd, default_joints):
+        return mpc_step(self.model, self.settings, self.params, self.planner_cfg, state,
+                        schedule, target, init_time, x_init, body_vel_cmd, default_joints)
