@@ -6,16 +6,28 @@
 Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the hand-written kernels (csrc/*.cu, nvcc for sm_90a);
-  3. each kernel against its plain PyTorch version on the card, at the
-     MPC step's shapes: B6 gj_inverse, B2 project_knot, B3 riccati_solve
-     (errors against the float32 and float64 plain versions; kernel /
-     plain / library times by CUDA events, medians of 15);
-  4. the main path: the flagship problem (B=128 scenarios, 66 knots over
+  3. each kernel against its plain PyTorch version on the card, at its
+     paths' shapes: B6 gj_inverse (IK 5x5, projection 16x16, the Kalman
+     filter's 28x28 innovation, the momentum observer's 5x5 leg systems),
+     B2 project_knot, B3 riccati_solve, B4 solve_qp on the WBC's own QPs at
+     B=4096, cold and warm (errors against the float32 and float64 plain
+     versions; kernel / plain / library times by CUDA events, medians of 15);
+  4. the MPC path: the flagship problem (B=128 scenarios, 66 knots over
      1.0 s, trot, 0.25 m/s) through ``Mpc``, one cold and one warm step, with
      every kernel's launch count read around it, held against the port's
      own CPU runs (plain versions: float32, and float64 with the exact Huu
      solve); then the product shape (B=1, 53 knots over 0.8 s);
-  5. the kernels line: launches, error, times and bound of each kernel.
+  4b. the tick path: 100 chained 500 Hz ticks (``entry.tick_chain``: Kalman
+     update, momentum observer, WBC, gains) on the product shape's cold
+     policy, launch counts read around it, every tick's command and WBC
+     solution and the final estimator and WBC states held against the
+     port's CPU float32 and float64 runs;
+  4c. the batched WBC (``entry.wbc_chain``): B=4096 standing states, one
+     cold tick, then a 6-tick warm chain, solves/s, solutions and accepted
+     QPs per tick held against CPU float32 and float64 runs of every 16th
+     scenario;
+  5. the kernels line: launches, error, times and bound of each kernel, B6
+     with one row per use (IK, Kalman, observer).
 The last line is {"ok": true, "device": {...}}.  Any failed check raises.
 Exits non-zero without a card, and outside the repository.
 """
@@ -38,7 +50,18 @@ REPS = 15
 # from the main path with condition numbers up to ~1e6 (toe and heel rows of
 # one leg are nearly dependent, proj_reg = 1e-6), where float32 itself
 # carries errors of ~1e-2 in some outputs (P, Qww, Qwx) and ~1e-4 in others.
-TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3}
+# B6 has two float32 plain versions: torch's separate multiply and subtract
+# (gj_inverse_plain), and the same elimination with each update rounded
+# once, as the kernel's fused multiply-add rounds it (gj_inverse_fma); its
+# float32 error is the larger of the two.  The Kalman filter's 28x28
+# innovation covariance mixes the covariance's 100 m^2 start with the
+# feet-height noise of 1e-2, so float32 carries ~1e-5 relative error in its
+# inverse either way.  A bfloat16 run of the plain version must land above
+# the limit: a check that cannot tell it from float32 is blind.  The QP's
+# primal residual is compared on the scale of the WBC's acceptance test,
+# 1 + max |b|, floored at 1 (float32 leaves ~1e-4 where float64 reaches
+# ~1e-11).
+TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4}
 TOL_FACTOR = 2.0
 # Card main path vs the port's CPU runs, on states, inputs and cost relative
 # to max(1, |cost|).  The Riccati kernel solves Huu exactly (Cholesky); the
@@ -55,6 +78,16 @@ TOL_FACTOR = 2.0
 ALGO_TOL = {"states": 0.1, "inputs": 5.0, "cost_rel": 0.15}
 MAIN_FACTOR = 3.0
 MAIN_FLOOR = {"states": 1e-3, "inputs": 0.1, "cost_rel": 1e-4}
+# The tick path: each tick's tau_ff, pos_des and WBC solution, and the
+# final Kalman, observer and WBC states, max |card - CPU float64| / max(1,
+# max |CPU float64|), within MAIN_FACTOR times the CPU float32 run's own
+# distance to the float64 run, or TICK_FLOOR; the WBC's acceptance flags
+# equal the CPU float32 run's tick by tick.  The batched WBC: every tick's
+# solution on every WBC_CPU_STRIDE-th scenario by the same rule, and the
+# accepted counts equal the CPU float32 run's.
+TICKS = 100
+TICK_FLOOR = 1e-4
+WBC_BATCH, WBC_TICKS, WBC_CPU_STRIDE = 4096, 6, 16
 
 
 def emit(obj):
@@ -78,16 +111,19 @@ def cuda_ms(fn, reps=REPS):
     return statistics.median(times)
 
 
-def rel_err(got, ref):
-    """(max |got - ref|, that over max |ref|)."""
+def rel_err(got, ref, floor=1e-30):
+    """(max |got - ref|, that over max(floor, max |ref|))."""
     diff = (got.double() - ref.double()).abs().max().item()
-    return diff, diff / max(ref.double().abs().max().item(), 1e-30)
+    return diff, diff / max(ref.double().abs().max().item(), floor)
 
 
-def errors(names, got, plain32, plain64):
+def errors(names, got, plain32, plain64, floors=None):
     """Per output: the kernel against the float32 plain version, the kernel
-    against the float64 plain version, float32 plain against float64 plain."""
-    return {n: (rel_err(a, b), rel_err(a, c), rel_err(b, c))
+    against the float64 plain version, float32 plain against float64 plain.
+    ``floors`` may floor an output's scale."""
+    floors = floors or {}
+    return {n: (rel_err(a, b, floors.get(n, 1e-30)), rel_err(a, c, floors.get(n, 1e-30)),
+                rel_err(b, c, floors.get(n, 1e-30)))
             for n, a, b, c in zip(names, got, plain32, plain64)}
 
 
@@ -135,6 +171,95 @@ def riccati_cost(batch, N, nx=22, nu=22):
     return batch * (n_in + n_out) * 4, batch * N * per_knot
 
 
+def qp_cost(batch, iters, n=38, me=28, mi=40):
+    """Bytes (QP data, start point and floors in; x, duals, residual out)
+    and flops of ``iters`` PDIP iterations (see csrc/solve_qp.cu).  The
+    symmetric products (Hbar, the Schur matrix) count one triangle."""
+    n_in = n * n + n + me * n + me + mi * n + mi + n + mi + me + 2
+    n_out = n + me + mi + 1
+    per_iter = (2 * n * n + 4 * me * n + 4 * mi * n             # residuals
+                + mi * n * (n + 1) + 3 * mi * n                 # Hbar, rbar
+                + n ** 3 // 3 + 2 * n * n * (me + 1)            # Cholesky 38, 2 sweeps
+                + me * (me + 1) * n + 2 * me * n                # Schur, its rhs
+                + me ** 3 // 3 + 2 * me * me                    # Cholesky 28, 2 sweeps
+                + 2 * n * me + 2 * mi * n + 20 * mi)            # dx, ds, dlam, step
+    return batch * (n_in + n_out) * 4, batch * (iters * per_iter + 2 * (me + mi) * n)
+
+
+def gj_inverse_fma(A, pivot):
+    """The plain Gauss-Jordan inverse (natural-order pivots) in float32 with
+    the kernel's rounding: each update M - col prow rounded once, as a fused
+    multiply-add rounds it (the product of two float32 values is exact in
+    float64)."""
+    import torch
+
+    n = A.shape[-1]
+    M = torch.cat([A, torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)], dim=-1)
+    for k in range(n):
+        pval = M[..., k, k:k + 1]
+        if pivot:
+            pval = pval + 1e-30
+        prow = M[..., k, :] / pval
+        col = M[..., :, k].clone()
+        col[..., k] = 0.0
+        M = (M.double() - col.double()[..., :, None] * prow.double()[..., None, :]).float()
+        M[..., k, :] = prow
+    return M[..., :, n:]
+
+
+def scaled(a, b):
+    """max |a - b| / max(1, max |b|)."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+
+def run_ticks(setup, policy, schedule, after_tick=None):
+    """``tick_chain`` over TICKS ticks; returns (outputs, final states, the
+    observer's state after every tick, stacked (B, K, ...)).
+    ``after_tick()``, if given, is called after each tick."""
+    import torch
+
+    from hunter_bipedal_control_tpu_torch.entry import tick_chain
+
+    obs = []
+
+    def on_tick(i, out, states):
+        obs.append(states[1])
+        if after_tick is not None:
+            after_tick()
+
+    outs, final = tick_chain(setup, policy, schedule, TICKS, on_tick=on_tick)
+    return outs, final, type(obs[0])(*(torch.stack(f, dim=1) for f in zip(*obs)))
+
+
+def tick_compare(card, cpu32, cpu64):
+    """``run_ticks``' results on the card and in the CPU float32 and float64
+    runs: per tick the command, the WBC solution and the observer's state
+    (its est_forces is that tick's 5x5 solve); at the end the Kalman and WBC
+    states.  Per quantity its distance to the float64 run, the float32
+    run's, and the limit."""
+    picks = {"tau_ff": lambda r: r[0].command.tau_ff,
+             "pos_des": lambda r: r[0].command.pos_des,
+             "wbc_solution": lambda r: r[0].wbc_solution}
+    for fld in card[2]._fields:
+        picks[f"observer.{fld}"] = lambda r, fld=fld: getattr(r[2], fld)
+    for i, st in ((0, "kalman"), (2, "wbc")):
+        for fld in card[1][i]._fields:
+            if getattr(card[1][i], fld).is_floating_point():
+                picks[f"{st}.{fld}"] = lambda r, i=i, fld=fld: getattr(r[1][i], fld)
+    out = {}
+    for name, pick in picks.items():
+        noise = scaled(pick(cpu32), pick(cpu64))
+        out[name] = {"vs_cpu_f64": scaled(pick(card), pick(cpu64)), "cpu_f32_vs_f64": noise,
+                     "limit": max(TICK_FLOOR, MAIN_FACTOR * noise)}
+    return out
+
+
+def to_device(tup, dev, dtype):
+    """A NamedTuple of tensors on another device / float dtype."""
+    return type(tup)(*(t.to(dev, dtype) if t.is_floating_point() else t.to(dev) for t in tup))
+
+
 def main():
     import torch
 
@@ -142,10 +267,14 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; needs a GPU", file=sys.stderr)
         return 2
 
-    from hunter_bipedal_control_tpu_torch.entry import build_flagship
+    from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
+                                                        build_wbc_batch, standing_sensors,
+                                                        wbc_chain)
+    from hunter_bipedal_control_tpu_torch.estim import contact, kalman
     from hunter_bipedal_control_tpu_torch.kernels import _build
-    from hunter_bipedal_control_tpu_torch.ops import linalg
+    from hunter_bipedal_control_tpu_torch.ops import linalg, qp
     from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
+    from hunter_bipedal_control_tpu_torch.wbc import wbc as wbc_mod
 
     # ---- 1. the card ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -183,6 +312,44 @@ def main():
               **extra})
         check(name, errs, tol)
 
+    def gj_case(A, pivot, row=None, use=None):
+        """B6 on A against its plain versions: float64 (the reference),
+        float32 by separate products and with the kernel's fused
+        multiply-adds (the larger error of the two sets the limit), and
+        bfloat16 (must land above the limit).  ``row`` names the kernels
+        line's row that takes this shape's figures; else a kernel_extra line."""
+        tol, n = TOL["gj_inverse"], A.shape[-1]
+        got = linalg.gj_inverse(A, pivot)
+        fma = gj_inverse_fma(A, pivot)
+        p64 = linalg.gj_inverse_plain(A.double(), pivot)
+        err = errors(["inverse"], [got], [linalg.gj_inverse_plain(A, pivot)], [p64])
+        e32, e64, p32 = err["inverse"]
+        e_fma = rel_err(fma, p64)[1]
+        err["inverse"] = (e32, e64, (p32[0], max(p32[1], e_fma)))
+        limit = max(tol, TOL_FACTOR * max(p32[1], e_fma))
+        e_bf16 = rel_err(linalg.gj_inverse_plain(A.bfloat16(), pivot), p64)[1]
+        info = {"use": use, "shape": list(A.shape), "pivot": pivot,
+                "plain_f32_rel_err_vs_f64": p32[1], "plain_fma_rel_err_vs_f64": e_fma,
+                "kernel_rel_err_vs_plain_fma": rel_err(got, fma)[1],
+                "plain_bf16_rel_err_vs_f64": e_bf16}
+        times = (cuda_ms(lambda: linalg.gj_inverse(A, pivot)),
+                 cuda_ms(lambda: linalg.gj_inverse_plain(A, pivot)),
+                 cuda_ms(lambda: torch.linalg.inv(A)))
+        cost = gj_cost(A.numel() // (n * n), n)
+        if row is not None:
+            record(row, "cuda", "hunter_bipedal_control_tpu_torch/csrc/gj_inverse.cu",
+                   "hunter_bipedal_control_tpu/ops/linalg.py:141", err, tol, *times, cost, info)
+            rows[row]["use"] = use
+        else:
+            b_ms, b_by = bound(*cost)
+            emit({"phase": "kernel_extra", "name": "gj_inverse", "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times[0], "plain_ms": times[1],
+                  "library_ms": times[2], "bound_ms": b_ms, "bound_by": b_by, **info})
+            check(f"gj_inverse {list(A.shape)}", err, tol)
+        if not e_bf16 > limit:
+            raise AssertionError(f"gj_inverse {list(A.shape)}: the bfloat16 plain version "
+                                 f"({e_bf16}) is within the limit ({limit})")
+
     # ---- 3. kernels vs plain versions at the main path's shapes ----
     B, N, H = 128, 66, 1.0
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -191,27 +358,11 @@ def main():
         X = torch.randn(batch, n, n, generator=gen)
         return (X @ X.transpose(1, 2) / n + 0.5 * torch.eye(n)).to(dev).contiguous()
 
-    A5 = spd(B * 7 * 2, 5)          # IK damped normal systems: 2 legs x 7 samples
-    err = errors(["inverse"], [linalg.gj_inverse(A5, True)], [linalg.gj_inverse_plain(A5, True)],
-                 [linalg.gj_inverse_plain(A5.double(), True)])
-    record("gj_inverse", "cuda", "hunter_bipedal_control_tpu_torch/csrc/gj_inverse.cu",
-           "hunter_bipedal_control_tpu/ops/linalg.py:141", err, TOL["gj_inverse"],
-           cuda_ms(lambda: linalg.gj_inverse(A5, True)),
-           cuda_ms(lambda: linalg.gj_inverse_plain(A5, True)),
-           cuda_ms(lambda: torch.linalg.inv(A5)), gj_cost(B * 7 * 2, 5),
-           {"shape": list(A5.shape), "pivot": True})
-    A16 = spd(B * N, 16)            # the projection's 16x16 Gram shape
-    err16 = errors(["inverse"], [linalg.gj_inverse(A16, False)],
-                   [linalg.gj_inverse_plain(A16, False)],
-                   [linalg.gj_inverse_plain(A16.double(), False)])
-    b16 = bound(*gj_cost(B * N, 16))
-    emit({"phase": "kernel_extra", "name": "gj_inverse", "shape": list(A16.shape),
-          "pivot": False, "tol": TOL["gj_inverse"], "outputs": per_output(err16, TOL["gj_inverse"]),
-          "kernel_ms": cuda_ms(lambda: linalg.gj_inverse(A16, False)),
-          "plain_ms": cuda_ms(lambda: linalg.gj_inverse_plain(A16, False)),
-          "library_ms": cuda_ms(lambda: torch.linalg.inv(A16)), "bound_ms": b16[0],
-          "bound_by": b16[1]})
-    check("gj_inverse 16x16", err16, TOL["gj_inverse"])
+    # B6, one kernels-line row per use: the IK's 5x5 damped normal systems
+    # (2 legs x 7 samples per scenario) on the MPC step here, the tick's two
+    # uses below; the projection's 16x16 Gram shape as an extra line
+    gj_case(spd(B * 7 * 2, 5), True, "gj_inverse", "IK 5x5 (refs/ik.py:50-58), mpc_step")
+    gj_case(spd(B * N, 16), False, use="projection Gram 16x16 shape (not on a path)")
 
     # B2 and B3 on the main path's own data: the first SQP iteration of the
     # flagship's cold step (reference prep, warm start, linearization)
@@ -258,13 +409,90 @@ def main():
            riccati_cost(B, N), {"scenarios": B, "knots": N})
     del lin, pin, got, ref, ref64, lq, lq64
 
-    # ---- 4. the main path ----
+    # B4 on the WBC's own QPs: bench.py's batched-WBC standing states at
+    # B=4096, 10 iterations, cold (x0 = 0, the WBC's first tick) and warm
+    # from the kernel's cold solution
+    wb = build_wbc_batch(WBC_BATCH, dev)
+    qdata = [t.contiguous() for t in wbc_mod.wbc_qp(wb.model, wb.params, wb.x_des, wb.u_des,
+                                                    wb.rbd, wb.contact_flags, wb.stance_mode)]
+    qkw = {"n_iters": wb.params.qp_iters_warm, "x0": torch.zeros(WBC_BATCH, 38, device=dev),
+           "lam0": torch.ones(WBC_BATCH, 40, device=dev),
+           "nu0": torch.zeros(WBC_BATCH, 28, device=dev), "warm_margin": 1.0}
+    qp_names = ("x", "eq_dual", "ineq_dual", "primal_residual")
+    res_scale = 1.0 + torch.maximum(qdata[3].abs().amax(-1), qdata[5].abs().amax(-1))
+
+    def qp_outputs(sol):
+        return [sol.x, sol.eq_dual, sol.ineq_dual, sol.primal_residual / res_scale]
+
+    qp_rows = {}
+    for start in ("cold", "warm"):
+        if start == "warm":
+            qkw["x0"] = qp_rows["cold"]["x"].contiguous()
+        kw64 = {k: (v.double() if torch.is_tensor(v) else v) for k, v in qkw.items()}
+        got = qp.solve_qp(*qdata, **qkw)
+        ref = qp.solve_qp_plain(*qdata, **qkw)
+        ref64 = qp.solve_qp_plain(*as64(qdata), **kw64)
+        err = errors(qp_names, qp_outputs(got), qp_outputs(ref), qp_outputs(ref64),
+                     {"primal_residual": 1.0})
+        qp_rows[start] = {"x": got.x, "err": err,
+                          "ms": cuda_ms(lambda: qp.solve_qp(*qdata, **qkw)),
+                          "plain_ms": cuda_ms(lambda: qp.solve_qp_plain(*qdata, **qkw))}
+    extra = {"batch": WBC_BATCH, "iterations": qkw["n_iters"], "start": "cold",
+             "warm": {"outputs": per_output(qp_rows["warm"]["err"], TOL["solve_qp"]),
+                      "kernel_ms": qp_rows["warm"]["ms"], "plain_ms": qp_rows["warm"]["plain_ms"]}}
+    record("solve_qp", "cuda", "hunter_bipedal_control_tpu_torch/csrc/solve_qp.cu",
+           "hunter_bipedal_control_tpu/ops/qp.py:32", qp_rows["cold"]["err"], TOL["solve_qp"],
+           qp_rows["cold"]["ms"], qp_rows["cold"]["plain_ms"], None,
+           qp_cost(WBC_BATCH, qkw["n_iters"]), extra)
+    check("solve_qp warm", qp_rows["warm"]["err"], TOL["solve_qp"])
+    del qdata, qp_rows, got, ref, ref64
+
+    # B6 on the Kalman filter's own 28x28 innovation covariance (the tick's
+    # first update, B=1), and 4096 copies of it for timing
+    tsetup = build_controller(1, dev)
+    *_, Ssy, _ = kalman.innovation(tsetup.controller.model, tsetup.kalman_params,
+                                   tsetup.kalman, **standing_sensors(tsetup), dt=TICK_DT)
+    kalman_use = "Kalman 28x28 innovation (estim/kalman.py:158-159), tick"
+    gj_case(Ssy.contiguous(), True, "gj_inverse_kalman", kalman_use)
+    gj_case(Ssy.expand(WBC_BATCH, 28, 28).contiguous(), True, use=kalman_use + ", x4096")
+    # the momentum observer's two 5x5 leg systems: they depend on the joint
+    # angles and the base orientation alone, which the standing tick holds
+    # at q0
+    _, AAt = contact.leg_systems(tsetup.controller.model, tsetup.q0[None])
+    gj_case(AAt, True, "gj_inverse_observer",
+            "momentum observer 2 x 5x5 (estim/contact.py:92-93), tick")
+
+    # ---- 4. the MPC path ----
     mpc = mpc_mod.Mpc(model, settings, params, flag.planner_cfg)
     args = (flag.schedule, flag.target, 0.0, flag.x0, z6, flag.default_joints)
     counters = {"gj_inverse": linalg.gj_inverse, "project_knot": sqp.project_knot,
-                "riccati_solve": riccati.riccati_solve}
-    for c in counters.values():
-        c.launches = 0
+                "riccati_solve": riccati.riccati_solve, "solve_qp": qp.solve_qp}
+    # the kernels line's B6 rows: each counts the launches of its matrix size
+    # on its path
+    gj_rows = {"gj_inverse": ("mpc_step", 5), "gj_inverse_kalman": ("tick", 28),
+               "gj_inverse_observer": ("tick", 5)}
+    path_launches, gj_by_n = {}, {}
+
+    def zero_counts():
+        for c in counters.values():
+            c.launches = 0
+        linalg.gj_inverse.launches_by_n.clear()
+
+    def read_counts(path, kernels):
+        """The launches of the path's run; raise if one of its kernels (or one
+        of its B6 rows) had none."""
+        counts = {n: c.launches for n, c in counters.items()}
+        path_launches[path] = counts
+        gj_by_n[path] = dict(linalg.gj_inverse.launches_by_n)
+        for n in kernels:
+            if counts[n] <= 0:
+                raise AssertionError(f"kernel {n} was not launched on the {path} path")
+        for row, (p, n) in gj_rows.items():
+            if p == path and gj_by_n[path].get(n, 0) <= 0:
+                raise AssertionError(f"{row} ({n}x{n}) was not launched on the {path} path")
+        return {**counts, "gj_inverse_by_n": gj_by_n[path]}
+
+    zero_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     cold, st1, _ = mpc(flag.state, *args)
@@ -272,11 +500,7 @@ def main():
     cold_s = time.perf_counter() - t
     warm, _, _ = mpc(st1, *args)
     torch.cuda.synchronize()
-    launches = {n: c.launches for n, c in counters.items()}
-    for n, c in launches.items():
-        rows[n]["launches"] = c
-        if c <= 0:
-            raise AssertionError(f"kernel {n} was not launched on the main path")
+    launches = read_counts("mpc_step", ("gj_inverse", "project_knot", "riccati_solve"))
     for name, sol in (("cold", cold), ("warm", warm)):
         for f in ("states", "inputs", "cost", "constraint_violation", "step_size"):
             if not torch.isfinite(getattr(sol, f)).all():
@@ -355,8 +579,99 @@ def main():
           "step_ms": statistics.median(ptimes) * 1e3, "cost": p2.cost.item(),
           "step_size": p2.step_size.item()})
 
+    # ---- 4b. the tick path: 100 chained ticks on the product shape's cold policy ----
+    stamps = []
+
+    def stamp():
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    zero_counts()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    tcard = run_ticks(tsetup, p1, pflag.schedule, stamp)
+    touts = tcard[0]
+    tick_counts = read_counts("tick", ("gj_inverse", "solve_qp"))
+    tick_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    for f in ("tau_ff", "pos_des"):
+        if not torch.isfinite(getattr(touts.command, f)).all():
+            raise AssertionError(f"tick path: non-finite {f}")
+
+    def cpu_ticks(dtype):
+        setup = build_controller(1, "cpu", dtype)
+        sched = type(pflag.schedule)(*(a.cpu() for a in pflag.schedule))
+        return run_ticks(setup, to_device(p1, "cpu", dtype), sched)
+
+    t = time.perf_counter()
+    tcpu32 = cpu_ticks(torch.float32)
+    tick_cpu_s = time.perf_counter() - t
+    tcpu64 = cpu_ticks(torch.float64)
+    tick_cmp = tick_compare(tcard, tcpu32, tcpu64)
+    same_flags = bool(torch.equal(touts.wbc_accepted.cpu(), tcpu32[0].wbc_accepted))
+    emit({"phase": "tick_path", "batch": 1, "ticks": TICKS, "launches": tick_counts,
+          "tick_ms_median": statistics.median(tick_ms), "tick_ms_first": tick_ms[0],
+          "tick_ms_max": max(tick_ms), "accepted": int(touts.wbc_accepted.sum()),
+          "accepted_equal_cpu_f32": same_flags, "card_vs_cpu": tick_cmp,
+          "cpu_run_s": tick_cpu_s})
+    bad = {n: c for n, c in tick_cmp.items() if c["vs_cpu_f64"] > c["limit"]}
+    if bad or not same_flags:
+        raise AssertionError(f"tick path: card vs CPU: {tick_cmp}, flags equal: {same_flags}")
+
+    # ---- 4c. the batched WBC: B=4096, one cold tick, then a 6-tick warm chain ----
+    zero_counts()
+    wxs, woks, _ = wbc_chain(wb, WBC_TICKS)
+    torch.cuda.synchronize()
+    wbc_counts = read_counts("wbc_batch", ("solve_qp",))
+    if not torch.isfinite(wxs).all():
+        raise AssertionError("batched WBC: non-finite solution")
+    wtimes = {}
+    for name, k in (("cold", 1), ("warm", WBC_TICKS)):
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            wbc_chain(wb, k)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        wtimes[name] = statistics.median(ts)
+    sub = slice(0, WBC_BATCH, WBC_CPU_STRIDE)
+
+    def cpu_wbc(dtype):
+        w = build_wbc_batch(WBC_BATCH, "cpu", dtype)
+        w = w._replace(**{f: getattr(w, f)[sub] for f in
+                          ("x_des", "u_des", "rbd", "contact_flags", "stance_mode")})
+        return wbc_chain(w, WBC_TICKS)
+
+    t = time.perf_counter()
+    cxs, coks, _ = cpu_wbc(torch.float32)
+    wbc_cpu_s = time.perf_counter() - t
+    cxs64 = cpu_wbc(torch.float64)[0]
+    card_acc = woks[sub].sum(0).cpu().tolist()
+    cpu_acc = coks.sum(0).tolist()
+    wbc_x = {"vs_cpu_f64": scaled(wxs[sub], cxs64), "cpu_f32_vs_f64": scaled(cxs, cxs64)}
+    wbc_x["limit"] = max(TICK_FLOOR, MAIN_FACTOR * wbc_x["cpu_f32_vs_f64"])
+    emit({"phase": "wbc_batch", "batch": WBC_BATCH, "ticks": WBC_TICKS, "launches": wbc_counts,
+          "cold_s": wtimes["cold"], "warm_chain_s": wtimes["warm"],
+          "wbc_solves_per_s_cold": WBC_BATCH / wtimes["cold"],
+          "wbc_solves_per_s_warm": WBC_BATCH * WBC_TICKS / wtimes["warm"],
+          "accepted_per_tick": woks.sum(0).cpu().tolist(),
+          "cpu_subset": {"stride": WBC_CPU_STRIDE, "card_accepted": card_acc,
+                         "cpu_f32_accepted": cpu_acc, "x_vs_cpu_f32": scaled(wxs[sub], cxs),
+                         "x": wbc_x, "cpu_run_s": wbc_cpu_s}})
+    if card_acc != cpu_acc:
+        raise AssertionError(f"batched WBC: accepted {card_acc} on the card, {cpu_acc} on CPU")
+    if wbc_x["vs_cpu_f64"] > wbc_x["limit"]:
+        raise AssertionError(f"batched WBC: solutions off the CPU float64 run: {wbc_x}")
+
     # ---- 5. kernels ----
-    emit({"kernels": [rows[n] for n in ("gj_inverse", "project_knot", "riccati_solve")]})
+    for n in ("project_knot", "riccati_solve", "solve_qp"):
+        rows[n]["launches"] = sum(c[n] for c in path_launches.values())
+        rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
+    for row, (path, n) in gj_rows.items():
+        rows[row]["launches"] = gj_by_n[path].get(n, 0)
+        rows[row]["launches_by_path"] = {path: rows[row]["launches"]}
+    emit({"kernels": [rows[n] for n in ("gj_inverse", "gj_inverse_kalman", "gj_inverse_observer",
+                                        "project_knot", "riccati_solve", "solve_qp")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

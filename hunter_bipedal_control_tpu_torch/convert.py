@@ -11,16 +11,24 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .estim.contact import ContactObserverParams, ContactObserverState
+from .estim.kalman import KalmanParams, KalmanState
 from .gait.mode_schedule import ModeSchedule
 from .models.robot import INDEX_FIELDS, RobotModel
 from .ocp.problem import OcpParams
 from .refs.swing_planner import PlannerState, SwingConfig
 from .refs.targets import CmdVelConfig, TargetTrajectories
+from .runtime.controller import GainConfig
 from .solver.mpc import MpcState
+from .solver.sqp import SqpSolution
+from .wbc.wbc import WbcParams, WbcState
 
 _TYPES = {cls.__name__: cls for cls in (
     RobotModel, OcpParams, SwingConfig, CmdVelConfig, ModeSchedule, TargetTrajectories,
-    MpcState, PlannerState)}
+    MpcState, PlannerState, WbcParams, WbcState, GainConfig, KalmanParams, KalmanState,
+    ContactObserverParams, ContactObserverState, SqpSolution)}
+# fields that stay Python values, with their types
+_SETTINGS = {"WbcParams": {f: type(d) for f, d in WbcParams._field_defaults.items()}}
 
 
 def _leaf(v, dev, dtype):
@@ -37,7 +45,10 @@ def from_numpy(obj, device=None, dtype=torch.float32):
 
     Covers RobotModel (int index arrays stay int64, on the host), OcpParams
     (``collision=None`` only), SwingConfig, CmdVelConfig, ModeSchedule,
-    TargetTrajectories and MpcState."""
+    TargetTrajectories, MpcState, SqpSolution (a policy), WbcParams (its
+    Python settings, the ``qp_*`` fields, stay Python values), WbcState,
+    GainConfig, KalmanParams, KalmanState, ContactObserverParams and
+    ContactObserverState."""
     dev = resolve_device(device)
     name = type(obj).__name__
     if name not in _TYPES:
@@ -50,6 +61,9 @@ def from_numpy(obj, device=None, dtype=torch.float32):
             fields[field] = int(v)
         elif name == "RobotModel" and field.endswith("_names"):
             fields[field] = tuple(str(s) for s in v)
+        elif field in _SETTINGS.get(name, {}):
+            # a Python setting (jax.tree.map made it a 0-d array)
+            fields[field] = _SETTINGS[name][field](np.asarray(v).item())
         elif name == "RobotModel" and field in INDEX_FIELDS:
             fields[field] = torch.as_tensor(np.asarray(v).astype(np.int64))
         elif field == "collision":

@@ -1,5 +1,6 @@
 // Gauss-Jordan elimination on an [A | I] tableau, shared by the B6
-// gj_inverse kernel (one thread per matrix, tableau in its registers/local
+// gj_inverse kernels (n <= 16: one thread per matrix, tableau in its
+// registers/local memory; n <= 32: one block per matrix, tableau in shared
 // memory) and the B2 project_knot kernel (one block per knot, tableau in
 // shared memory, the block's threads splitting each step).
 //
@@ -12,25 +13,33 @@
 
 #include <cuda_runtime.h>
 
-// M: N rows x 2N columns, row stride LD.  col (N) and prow (2N) are scratch.
+// M: n rows x 2n columns, row stride ld.  col (n) and prow (2n) are scratch.
 // COOP = true: called by all `nthr` threads of a block (thread `tid`), with
 // the tableau complete and visible on entry; returns after a barrier.
-template <int N, int LD, bool COOP>
-__device__ __forceinline__ void gj_eliminate(float* M, bool pivot, float* col, float* prow,
-                                             int tid, int nthr) {
-  constexpr int W = 2 * N;
+template <bool COOP>
+__device__ __forceinline__ void gj_eliminate_n(float* M, int n, int ld, bool pivot, float* col,
+                                               float* prow, int tid, int nthr) {
+  const int w = 2 * n;
 #pragma unroll 1
-  for (int k = 0; k < N; ++k) {
-    float pval = M[k * LD + k];
+  for (int k = 0; k < n; ++k) {
+    float pval = M[k * ld + k];
     if (pivot) pval = pval + 1e-30f;
-    for (int i = tid; i < N; i += nthr) col[i] = (i == k) ? 0.0f : M[i * LD + k];
-    for (int j = tid; j < W; j += nthr) prow[j] = M[k * LD + j] / pval;
+    for (int i = tid; i < n; i += nthr) col[i] = (i == k) ? 0.0f : M[i * ld + k];
+    for (int j = tid; j < w; j += nthr) prow[j] = M[k * ld + j] / pval;
     if (COOP) __syncthreads();
-    for (int idx = tid; idx < N * W; idx += nthr) {
-      const int i = idx / W;
-      const int j = idx - i * W;
-      M[i * LD + j] = (i == k) ? prow[j] : M[i * LD + j] - col[i] * prow[j];
+    for (int idx = tid; idx < n * w; idx += nthr) {
+      const int i = idx / w;
+      const int j = idx - i * w;
+      M[i * ld + j] = (i == k) ? prow[j] : M[i * ld + j] - col[i] * prow[j];
     }
     if (COOP) __syncthreads();
   }
+}
+
+// The same with the sizes known at compile time (a thread's own tableau
+// stays in registers).
+template <int N, int LD, bool COOP>
+__device__ __forceinline__ void gj_eliminate(float* M, bool pivot, float* col, float* prow,
+                                             int tid, int nthr) {
+  gj_eliminate_n<COOP>(M, N, LD, pivot, col, prow, tid, nthr);
 }

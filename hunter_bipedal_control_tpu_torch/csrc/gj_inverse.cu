@@ -1,15 +1,21 @@
-// B6: batched small (n <= 16) inverse by Gauss-Jordan.
+// B6: batched small (n <= 32) inverse by Gauss-Jordan.
 //
-// Replaces hunter_bipedal_control_tpu/ops/linalg.py::gj_inverse (on the MPC
-// step: the 5x5 damped normal systems of the leg IK, refs/ik.py:50-58).
+// Replaces hunter_bipedal_control_tpu/ops/linalg.py::gj_inverse.  Its uses:
+// the 5x5 damped normal systems of the leg IK on the MPC step
+// (refs/ik.py:50-58), and on the control tick the 28x28 Kalman innovation
+// covariance (estim/kalman.py:158-159) and the momentum observer's 5x5
+// per-leg systems (estim/contact.py:92-93).
 //
-// Bound on the card: at the main path's shape (B*7*2 = 1,792 matrices of
-// 5x5 per launch) the work is about 1 MFLOP and 0.36 MB of traffic, far
-// below both roofs: launch latency and one pass over the data dominate.  Design: one
-// thread per matrix, the n x 2n tableau in the thread's own registers or
-// local memory, no shared memory and no barrier.
-// Each thread reads its matrix row by row; at these sizes the loads are
-// not worth coalescing.
+// Bound on the card: far below both roofs at these shapes (IK: 1,792 5x5
+// matrices per launch, ~1 MFLOP and 0.36 MB; Kalman at B = 1: one 28x28,
+// ~0.09 MFLOP and 6 KB): launch latency and one pass over the data
+// dominate.  Design: for n <= 16, one thread per matrix, the n x 2n tableau
+// in the thread's own registers or local memory, no shared memory and no
+// barrier; each thread reads its matrix row by row, and at these sizes the
+// loads are not worth coalescing.  For 16 < n <= 32, one kernel for every
+// n: one block of 256 threads per matrix with the tableau in a fixed 32 x 64
+// shared array (8 KB), each elimination step split over the block (the
+// cooperative elimination that B2 uses too).
 #include <cuda_runtime.h>
 
 #include "gj.cuh"
@@ -41,6 +47,32 @@ __global__ void gj_inverse_kernel(const float* __restrict__ A, float* __restrict
   }
 }
 
+// The tableau of the block kernel: up to 32 rows of 64 columns (8 KB).
+constexpr int BLOCK_MAX_N = 32;
+constexpr int BLOCK_LD = 2 * BLOCK_MAX_N;
+
+__global__ void __launch_bounds__(256)
+gj_inverse_block_kernel(const float* __restrict__ A, float* __restrict__ out, int n, int pivot) {
+  __shared__ float M[BLOCK_MAX_N * BLOCK_LD];
+  __shared__ float col[BLOCK_MAX_N];
+  __shared__ float prow[BLOCK_LD];
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.x;
+  const float* a = A + b * n * n;
+  for (int idx = tid; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n, j = idx - i * n;
+    M[i * BLOCK_LD + j] = a[idx];
+    M[i * BLOCK_LD + n + j] = (i == j) ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  gj_eliminate_n<true>(M, n, BLOCK_LD, pivot != 0, col, prow, tid, blockDim.x);
+  float* o = out + b * n * n;
+  for (int idx = tid; idx < n * n; idx += blockDim.x) {
+    const int i = idx / n, j = idx - i * n;
+    o[idx] = M[i * BLOCK_LD + n + j];
+  }
+}
+
 template <int N>
 static void launch(const float* A, float* out, int batch, int pivot, cudaStream_t s) {
   const int threads = 128;
@@ -68,7 +100,9 @@ extern "C" int hk_gj_inverse(const float* A, float* out, int batch, int n, int p
     case 14: launch<14>(A, out, batch, pivot, s); break;
     case 15: launch<15>(A, out, batch, pivot, s); break;
     case 16: launch<16>(A, out, batch, pivot, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      if (n < 1 || n > BLOCK_MAX_N) return static_cast<int>(cudaErrorInvalidValue);
+      gj_inverse_block_kernel<<<batch, 256, 0, s>>>(A, out, n, pivot);
   }
   return static_cast<int>(cudaGetLastError());
 }

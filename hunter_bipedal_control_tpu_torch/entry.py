@@ -1,8 +1,19 @@
-"""The flagship MPC problem, built in the port: the counterpart of the JAX
-repository's ``__graft_entry__._build`` — nominal joints, trot schedule and
+"""The port's entry points.
+
+``build_flagship`` is the flagship MPC problem, the counterpart of the JAX
+repository's ``__graft_entry__._build``: nominal joints, trot schedule and
 a 0.25 m/s walking target.  ``Mpc(flag.model, flag.settings, flag.params,
 flag.planner_cfg)(flag.state, flag.schedule, flag.target, 0.0, flag.x0,
 zeros(6), flag.default_joints)`` runs one batched step.
+
+``build_controller`` and ``tick_chain`` run the 500 Hz control tick that
+consumes the MPC's plan: Kalman update -> momentum observer -> policy
+evaluation -> WBC -> gain schedule, with the standing robot's sensor
+readings of the repository's tick benchmark (``bench.py``).
+
+``build_wbc_batch`` and ``wbc_chain`` run the WBC alone on a batch of
+standing states, as the repository's batched-WBC benchmark does: ticks
+carrying the WBC state, the first one cold.
 """
 from __future__ import annotations
 
@@ -11,13 +22,19 @@ from typing import NamedTuple
 import torch
 
 from .device import resolve_device
+from .estim import contact as obs_mod
+from .estim import kalman as kf_mod
 from .gait import mode_schedule as ms
+from .models.centroidal import q_v_to_rbd_state
 from .models.robot import RobotModel, load_model
+from .models.spatial import zyx_to_quat
 from .ocp import problem as ocp
 from .refs import swing_planner as swp
 from .refs import targets as tg
+from .runtime.controller import Controller, JointCommand, TickOutput, default_gains
 from .solver import mpc as mpc_mod
 from .solver import sqp
+from .wbc import wbc as wbc_mod
 
 DEFAULT_JOINTS = [0.10, 0., 0.40, 0.93, 0.53, -0.10, 0., -0.40, 0.93, -0.53]
 
@@ -42,9 +59,8 @@ def build_flagship(n_intervals: int = 53, horizon: float = 0.8, batch: int = 1,
     dev = resolve_device(device)
     m = load_model(device=dev, dtype=dtype)
     settings = sqp.SqpSettings(n_intervals=n_intervals, horizon=horizon, lin_backend="dense")
-    dj = torch.tensor(DEFAULT_JOINTS, dtype=dtype, device=dev)
-    qnom = torch.cat([torch.tensor([0., 0., 0.63], dtype=dtype, device=dev),
-                      torch.zeros(3, dtype=dtype, device=dev), dj])
+    qnom = nominal_q(0.63, dev, dtype)
+    dj = qnom[6:]
     params = ocp.make_input_cost(m, ocp.default_ocp_params(m, dtype), qnom)
     pcfg = swp.default_swing_config(dev, dtype)
     x0 = torch.cat([torch.zeros(6, dtype=dtype, device=dev), qnom])
@@ -56,3 +72,133 @@ def build_flagship(n_intervals: int = 53, horizon: float = 0.8, batch: int = 1,
     state = mpc_mod.init_mpc_state(m, settings, batch, device=dev, dtype=dtype)
     return Flagship(m, settings, params, pcfg, dj, xs, sched, target, state)
 
+
+def nominal_q(base_z: float, device, dtype) -> torch.Tensor:
+    """(nq,) the base at (0, 0, base_z), level, on the nominal joints."""
+    return torch.cat([torch.tensor([0., 0., base_z], dtype=dtype, device=device),
+                      torch.zeros(3, dtype=dtype, device=device),
+                      torch.tensor(DEFAULT_JOINTS, dtype=dtype, device=device)])
+
+
+TICK_DT = 0.002      # 500 Hz
+TICK_BASE_Z = 0.624  # the standing base height of the tick benchmark
+
+
+class TickSetup(NamedTuple):
+    controller: Controller
+    kalman_params: kf_mod.KalmanParams
+    observer_params: obs_mod.ContactObserverParams
+    kalman: kf_mod.KalmanState
+    observer: obs_mod.ContactObserverState
+    wbc: wbc_mod.WbcState
+    q0: torch.Tensor              # (nq,) standing configuration
+    default_joints: torch.Tensor  # (nj,)
+
+
+def build_controller(batch: int = 1, device=None, dtype=torch.float32) -> TickSetup:
+    """The control tick's module, default parameters and cold states for
+    ``batch`` scenarios, standing at base height 0.624 m on the nominal joints."""
+    dev = resolve_device(device)
+    m = load_model(device=dev, dtype=dtype)
+    q0 = nominal_q(TICK_BASE_Z, dev, dtype)
+    ctrl = Controller(m, wbc_mod.default_wbc_params(dev, dtype), default_gains(dev, dtype))
+    return TickSetup(ctrl, kf_mod.default_kalman_params(dev, dtype),
+                     obs_mod.default_contact_params(dev, dtype),
+                     kf_mod.init_kalman_state(batch, dev, dtype),
+                     obs_mod.init_contact_observer(batch, dev, dtype),
+                     wbc_mod.init_wbc_state(batch, dev, dtype), q0, q0[6:])
+
+
+def standing_sensors(setup: TickSetup) -> dict:
+    """The Kalman filter's sensor inputs (B, ...) of a robot standing still at
+    ``setup.q0``: the keyword arguments of ``kalman_update`` but ``dt``."""
+    q0 = setup.q0
+    Bn, nj = setup.kalman.x_hat.shape[0], setup.default_joints.shape[0]
+    zyx = q0[3:6].expand(Bn, 3)
+    zeros3 = torch.zeros((Bn, 3), dtype=q0.dtype, device=q0.device)
+    return dict(zyx=zyx, joint_pos=q0[6:].expand(Bn, nj),
+                joint_vel=torch.zeros((Bn, nj), dtype=q0.dtype, device=q0.device),
+                omega_world=zeros3, quat_xyzw=zyx_to_quat(zyx),
+                linear_accel_local=torch.tensor([0., 0., 9.81], dtype=q0.dtype,
+                                                device=q0.device).expand(Bn, 3),
+                contact_flags=torch.ones((Bn, 4), dtype=q0.dtype, device=q0.device))
+
+
+def tick_chain(setup: TickSetup, policy: sqp.SqpSolution, schedule: ms.ModeSchedule,
+               n_ticks: int, dt: float = TICK_DT, on_tick=None):
+    """``n_ticks`` chained ticks (Kalman update -> momentum observer ->
+    ``control_tick``) at t = 0, dt, 2 dt, ..., carrying the estimator and
+    WBC states, walking on ``policy`` (B, N+1, ...) along ``schedule``.
+    ``on_tick(i, out, (kalman, observer, wbc))``, if given, is called after
+    each tick with its output and the states it carries on.
+
+    Returns (TickOutput whose fields are stacked over the ticks, (B, K, ...),
+    (kalman, observer, wbc) final states)."""
+    ctrl = setup.controller
+    m = ctrl.model
+    q0, dj = setup.q0, setup.default_joints
+    Bn = setup.kalman.x_hat.shape[0]
+    dtype, dev = q0.dtype, q0.device
+    sensors = standing_sensors(setup)
+    zyx, qj, zeros3 = sensors["zyx"], sensors["joint_pos"], sensors["omega_world"]
+    zeros_j = sensors["joint_vel"]
+    x_est = torch.cat([torch.zeros(6, dtype=dtype, device=dev), q0]).expand(Bn, -1)
+    walk = torch.ones(Bn, dtype=torch.bool, device=dev)
+    estop = torch.zeros(Bn, dtype=torch.bool, device=dev)
+    kf, obs, wst, last_tau = setup.kalman, setup.observer, setup.wbc, zeros_j
+    outs = []
+    for i in range(n_ticks):
+        t = torch.tensor(float(i), dtype=dtype, device=dev) * dt
+        kf, pos, vel = kf_mod.kalman_update(m, setup.kalman_params, kf, **sensors, dt=dt)
+        rbd = torch.cat([zyx, pos, qj, zeros3, vel, zeros_j], dim=-1)
+        obs, _ = obs_mod.momentum_observer_update(m, setup.observer_params, obs, rbd,
+                                                  last_tau, dt)
+        out, wst = ctrl(wst, policy, schedule, t, x_est, rbd, dj, walk, estop, dt)
+        last_tau = out.command.tau_ff
+        outs.append(out)
+        if on_tick is not None:
+            on_tick(i, out, (kf, obs, wst))
+    stacked = TickOutput(
+        command=JointCommand(*(torch.stack(f, dim=1) for f in zip(*(o.command for o in outs)))),
+        **{f: torch.stack([getattr(o, f) for o in outs], dim=1)
+           for f in TickOutput._fields if f != "command"})
+    return stacked, (kf, obs, wst)
+
+
+class WbcBatch(NamedTuple):
+    model: RobotModel
+    params: wbc_mod.WbcParams
+    x_des: torch.Tensor         # (B, 22) nominal standing state
+    u_des: torch.Tensor         # (B, 22) zero input
+    rbd: torch.Tensor           # (B, 32) measured states, scenario b offset by 1e-4 b
+    contact_flags: torch.Tensor  # (B, 4) all feet in contact
+    stance_mode: torch.Tensor   # (B,) False
+
+
+def build_wbc_batch(batch: int = 4096, device=None, dtype=torch.float32) -> WbcBatch:
+    """``batch`` WBC problems around the flagship's nominal standing state."""
+    dev = resolve_device(device)
+    m = load_model(device=dev, dtype=dtype)
+    q = nominal_q(0.63, dev, dtype)
+    x0 = torch.cat([torch.zeros(6, dtype=dtype, device=dev), q])
+    rbd = q_v_to_rbd_state(m, q, torch.zeros(16, dtype=dtype, device=dev))
+    rbds = rbd[None] + 1e-4 * torch.arange(batch, dtype=dtype, device=dev)[:, None]
+    return WbcBatch(m, wbc_mod.default_wbc_params(dev, dtype), x0.expand(batch, -1),
+                    torch.zeros((batch, 22), dtype=dtype, device=dev), rbds,
+                    torch.ones((batch, 4), dtype=dtype, device=dev),
+                    torch.zeros(batch, dtype=torch.bool, device=dev))
+
+
+def wbc_chain(wb: WbcBatch, n_ticks: int):
+    """``n_ticks`` chained WBC updates from the cold state, tick k measuring
+    rbd + 1e-5 k.  Returns (solutions (B, K, 38), accepted (B, K), final
+    WbcState); the first tick is the cold solve."""
+    Bn = wb.rbd.shape[0]
+    state = wbc_mod.init_wbc_state(Bn, wb.rbd.device, wb.rbd.dtype)
+    xs, oks = [], []
+    for k in range(n_ticks):
+        x, state, ok = wbc_mod.wbc_solve(wb.model, wb.params, state, wb.x_des, wb.u_des,
+                                         wb.rbd + 1e-5 * k, wb.contact_flags, wb.stance_mode)
+        xs.append(x)
+        oks.append(ok)
+    return torch.stack(xs, dim=1), torch.stack(oks, dim=1), state

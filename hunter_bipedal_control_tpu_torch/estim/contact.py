@@ -1,0 +1,116 @@
+"""Contact-force estimation (generalized-momentum disturbance observer) and
+contact-state classification / early-late contact detection, batched.
+
+Port of ``hunter_bipedal_control_tpu/estim/contact.py``.  The per-leg
+wrench is a damped least-squares solve whose 5 x 5 systems (two legs per
+scenario) go through ``ops/linalg.py::gj_inverse`` (kernel B6 on the card)
+in one launch.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..models.centroidal import rbd_to_q_v
+from ..models.dynamics import coriolis_matrix, gravity_vector, mass_matrix
+from ..models.kinematics import contact_jacobians, fk
+from ..models.robot import RobotModel
+from ..ops.linalg import gj_inverse
+
+NUM_FEET = 4
+NV = 16
+NJ = 10
+
+
+class ContactObserverParams(NamedTuple):
+    cutoff_frequency: torch.Tensor   # 250
+    contact_threshold: torch.Tensor  # 75
+
+
+def default_contact_params(device=None, dtype=torch.float32) -> ContactObserverParams:
+    return ContactObserverParams(
+        cutoff_frequency=torch.tensor(250.0, dtype=dtype, device=device),
+        contact_threshold=torch.tensor(75.0, dtype=dtype, device=device))
+
+
+class ContactObserverState(NamedTuple):
+    p_scg_z_last: torch.Tensor  # (B, 16) filtered momentum-rate integral
+    est_forces: torch.Tensor    # (B, 16) [wrench L (6), wrench R (6), |F| x 2, |W| x 2]
+
+
+def init_contact_observer(batch: int = 1, device=None,
+                          dtype=torch.float32) -> ContactObserverState:
+    return ContactObserverState(
+        p_scg_z_last=torch.zeros((batch, NV), dtype=dtype, device=device),
+        est_forces=torch.full((batch, 16), 50.0, dtype=dtype, device=device))
+
+
+def leg_systems(model: RobotModel, q):
+    """Per leg, the transposed toe Jacobian's joint block A (B, 2, 5, 6) and
+    the damped normal matrix A A' + 1e-6 I (B, 2, 5, 5) the wrench solve
+    inverts; legs 0 (L) and 1 (R) own joint columns 6..10 and 11..15."""
+    Jc = contact_jacobians(model, fk(model, q))               # (B, 4, 6, 16), toes first
+    A = torch.stack([Jc[:, 0, :, 6:11].transpose(-1, -2),
+                     Jc[:, 1, :, 11:16].transpose(-1, -2)], dim=1)
+    AAt = A @ A.transpose(-1, -2) + 1e-6 * torch.eye(5, dtype=q.dtype, device=q.device)
+    return A, AAt.contiguous()
+
+
+def momentum_observer_update(model: RobotModel, params: ContactObserverParams,
+                             state: ContactObserverState, rbd_measured, cmd_torque, dt):
+    """First-order disturbance observer on the generalized momentum; per-leg
+    wrench by min-norm least squares of S_l J' w = S_l tau_dist.  Returns
+    (new state, tau_dist (B, 16)).  ``dt`` is a Python float."""
+    dtype, dev = rbd_measured.dtype, rbd_measured.device
+    q, v = rbd_to_q_v(rbd_measured)
+    Bn = q.shape[0]
+    lam = params.cutoff_frequency
+    gama = torch.exp(-lam * dt)
+    beta = (1.0 - gama) / (gama * dt)
+
+    M = mass_matrix(model, q)
+    C = coriolis_matrix(model, q, v)
+    g = gravity_vector(model, q)
+    p = (M @ v[..., None])[..., 0]
+    tau_full = torch.cat([torch.zeros((Bn, 6), dtype=dtype, device=dev), cmd_torque], dim=-1)
+    p_scg = beta * p + tau_full + (C.transpose(-1, -2) @ v[..., None])[..., 0] - g
+    p_scg_z = (1.0 - gama) * p_scg + gama * state.p_scg_z_last
+    tau_dist = beta * p - p_scg_z
+
+    A, AAt = leg_systems(model, q)
+    b = torch.stack([tau_dist[:, 6:11], tau_dist[:, 11:16]], dim=1)  # (B, 2, 5)
+    w = (A.transpose(-1, -2) @ (gj_inverse(AAt) @ b[..., None]))[..., 0]
+    w_l, w_r = w[:, 0], w[:, 1]
+    f_norms = torch.stack([torch.linalg.vector_norm(w_l[:, 0:3], dim=-1),
+                           torch.linalg.vector_norm(w_r[:, 0:3], dim=-1)], dim=-1)
+    w_norms = torch.stack([torch.linalg.vector_norm(w_l, dim=-1),
+                           torch.linalg.vector_norm(w_r, dim=-1)], dim=-1)
+    est = torch.cat([w_l, w_r, f_norms, w_norms], dim=-1)
+    return ContactObserverState(p_scg_z_last=p_scg_z, est_forces=est), tau_dist
+
+
+def classify_contact(params: ContactObserverParams, est_forces, cmd_contact_flags,
+                     start_stop, t):
+    """Trust the commanded contact except near phase boundaries, where the
+    estimated normal force decides.  est_forces (B, 16); cmd_contact_flags
+    (B, 4); start_stop (B, 4, 2) current window per leg; t (B,)."""
+    start, stop = start_stop[..., 0], start_stop[..., 1]
+    frac = (t[:, None] - start) / torch.clamp(stop - start, min=1e-6)
+    # per-leg estimated force z: the reference indexes the wrench z of leg i % 2
+    fz = torch.stack([est_forces[:, 2], est_forces[:, 8], est_forces[:, 2], est_forces[:, 8]],
+                     dim=-1)
+    force_contact = fz > params.contact_threshold
+    swing_late = (cmd_contact_flags < 0.5) & (frac > 0.75)
+    stance_early = (cmd_contact_flags > 0.5) & (frac < 0.25)
+    return torch.where(swing_late | stance_early, force_contact, cmd_contact_flags > 0.5)
+
+
+def early_late_contact_flags(contact_seq_at_t, measured_contact, cmd_contact, frac,
+                             time_to_stop):
+    """A swing leg measuring contact in the last quarter of its swing (and
+    not within 9 ms of touchdown) flags 'early'; a stance leg not measuring
+    contact in the first quarter of its stance flags 'late'."""
+    early = (cmd_contact < 0.5) & measured_contact & (frac > 0.75) & (time_to_stop > 0.009)
+    late = (cmd_contact > 0.5) & (~measured_contact) & (frac < 0.25)
+    return early, late

@@ -1,7 +1,7 @@
 """Full centroidal dynamics model.
 
 Port of ``hunter_bipedal_control_tpu/models/centroidal.py`` (the parts on
-the MPC step's path).  Layouts as in the JAX package:
+the MPC step's and the control tick's paths).  Layouts as in the JAX package:
 
     x (12+nj) = [h_com/m (6); base pose p_xyz (3), theta_zyx (3); joints (nj)]
     u (3*nc+nj) = [contact forces world frame (nc*3); joint velocities (nj)]
@@ -10,11 +10,16 @@ All functions take any leading batch dims.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+from torch.func import jvp
 
 from ..ops.linalg import inv3
 from .kinematics import KinData, contact_positions, fk, link_com_jacobians
 from .robot import GRAVITY, RobotModel
+from .spatial import (euler_rate_map_zyx, euler_rates_from_global_angular_velocity,
+                      global_angular_velocity_from_euler_rates)
 
 
 def com_position(model: RobotModel, kin: KinData) -> torch.Tensor:
@@ -80,6 +85,14 @@ def base_velocity_from_momentum(model: RobotModel, kin: KinData, h_norm: torch.T
     return base_block_solve(model, Ab, rhs)
 
 
+def state_input_to_v(model: RobotModel, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Full generalized velocity v = [v_base (6); vj] from (x, u)."""
+    kin = fk(model, state_to_q(x))
+    vj = joint_velocities(u, model.nj)
+    vb = base_velocity_from_momentum(model, kin, x[..., 0:6], vj)
+    return torch.cat([vb, vj], dim=-1)
+
+
 def flow_map(model: RobotModel, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Centroidal dynamics x_dot = f(x, u)."""
     nc, nj = model.num_contacts, model.nj
@@ -97,3 +110,55 @@ def flow_map(model: RobotModel, x: torch.Tensor, u: torch.Tensor) -> torch.Tenso
 
     vb = base_velocity_from_momentum(model, kin, x[..., 0:6], vj)
     return torch.cat([hdot_lin, hdot_ang, vb, vj], dim=-1)
+
+
+class BaseKinematics(NamedTuple):
+    pose: torch.Tensor          # (..., 6) [p_xyz, theta_zyx]
+    velocity: torch.Tensor      # (..., 6) [dp world, omega world]
+    acceleration: torch.Tensor  # (..., 6) [ddp world, domega world]
+
+
+def base_kinematics_from_centroidal(model: RobotModel, x: torch.Tensor,
+                                    u: torch.Tensor) -> BaseKinematics:
+    """Base pose, velocity and acceleration of the desired state, with zero
+    joint accelerations (u held fixed along the flow)."""
+    vj = joint_velocities(u, model.nj)
+
+    def vb_fn(x_):
+        return base_velocity_from_momentum(model, fk(model, state_to_q(x_)), x_[..., 0:6], vj)
+
+    vb, vb_dot = jvp(vb_fn, (x.contiguous(),), (flow_map(model, x, u),))
+    theta = x[..., 9:12]
+    E, Edot = jvp(euler_rate_map_zyx, (theta.contiguous(),), (vb[..., 3:6].contiguous(),))
+    omega = (E @ vb[..., 3:6, None])[..., 0]
+    omega_dot = (E @ vb_dot[..., 3:6, None] + Edot @ vb[..., 3:6, None])[..., 0]
+    return BaseKinematics(pose=x[..., 6:12],
+                          velocity=torch.cat([vb[..., 0:3], omega], dim=-1),
+                          acceleration=torch.cat([vb_dot[..., 0:3], omega_dot], dim=-1))
+
+
+# rbd state (2 (6+nj)) = [theta_zyx (3), p (3), qj (nj), omega_world (3), dp (3), dqj (nj)]
+
+def rbd_to_q_v(rbd: torch.Tensor):
+    """(q, v) in the Euler-rate parameterization from an rbd state."""
+    ngc = rbd.shape[-1] // 2
+    theta, omega = rbd[..., 0:3], rbd[..., ngc:ngc + 3]
+    q = torch.cat([rbd[..., 3:6], theta, rbd[..., 6:ngc]], dim=-1)
+    v = torch.cat([rbd[..., ngc + 3:ngc + 6],
+                   euler_rates_from_global_angular_velocity(theta, omega), rbd[..., ngc + 6:]],
+                  dim=-1)
+    return q, v
+
+
+def rbd_state_to_centroidal(model: RobotModel, rbd: torch.Tensor) -> torch.Tensor:
+    """Centroidal state x from an rbd state."""
+    q, v = rbd_to_q_v(rbd)
+    A = centroidal_momentum_matrix(model, fk(model, q))
+    h_norm = (A @ v[..., None])[..., 0] / model.total_mass
+    return torch.cat([h_norm, q], dim=-1)
+
+
+def q_v_to_rbd_state(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    omega = global_angular_velocity_from_euler_rates(q[..., 3:6], v[..., 3:6])
+    return torch.cat([q[..., 3:6], q[..., 0:3], q[..., 6:], omega, v[..., 0:3], v[..., 6:]],
+                     dim=-1)

@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.func import jvp
 
 from .robot import RobotModel
 from .spatial import axis_angle_rotation, euler_rate_map_zyx, rotation_zyx
@@ -133,6 +134,33 @@ def contact_jacobians(model: RobotModel, kin: KinData) -> torch.Tensor:
     return _point_jacobians(model, kin, pts, link_ids)
 
 
+def base_jacobian(model: RobotModel, kin: KinData) -> torch.Tensor:
+    """(..., 6, nv) frame Jacobian of the base link."""
+    return _point_jacobians(model, kin, kin.p[..., 0:1, :], torch.zeros(1, dtype=torch.int64))[
+        ..., 0, :, :]
+
+
 def link_com_jacobians(model: RobotModel, kin: KinData) -> torch.Tensor:
     """(..., n_links, 6, nv) Jacobians at each link CoM."""
     return _point_jacobians(model, kin, kin.com_w, torch.arange(model.n_links))
+
+
+# Time derivatives along v: v == dq/dt in the Euler-rate parameterization,
+# so d/dt F(q) = jvp(F, q, v).
+
+def contact_velocities(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., nc, 3) world-frame linear velocities of the contact points."""
+    J = contact_jacobians(model, fk(model, q))
+    return (J[..., 0:3, :] @ v[..., None, :, None])[..., 0]
+
+
+def contact_jacobians_dot(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., nc, 6, nv) dJ/dt of the contact frame Jacobians."""
+    return jvp(lambda q_: contact_jacobians(model, fk(model, q_)),
+               (q.contiguous(),), (v.contiguous(),))[1]
+
+
+def base_jacobian_dot(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., 6, nv) dJ/dt of the base Jacobian."""
+    return jvp(lambda q_: base_jacobian(model, fk(model, q_)),
+               (q.contiguous(),), (v.contiguous(),))[1]

@@ -93,3 +93,39 @@ def log3(R):
     scale = torch.where(small, 1.0 + theta * theta / 6.0,
                         theta / torch.sin(torch.where(small, torch.ones_like(theta), theta)))
     return scale[..., None] * vee
+
+
+def global_angular_velocity_from_euler_rates(zyx, dzyx):
+    """omega_world = E(zyx) @ dzyx; (..., 3) -> (..., 3)."""
+    return (euler_rate_map_zyx(zyx) @ dzyx[..., None])[..., 0]
+
+
+def euler_rates_from_global_angular_velocity(zyx, omega_world):
+    """Inverse of :func:`euler_rate_map_zyx` (closed form; singular at |pitch| = pi/2)."""
+    z, y = zyx[..., 0], zyx[..., 1]
+    cz, sz = torch.cos(z), torch.sin(z)
+    cy, sy = torch.cos(y), torch.sin(y)
+    ty = sy / cy
+    zero, one = torch.zeros_like(z), torch.ones_like(z)
+    Einv = _mat3([
+        [cz * ty, sz * ty, one],
+        [-sz, cz, zero],
+        [cz / cy, sz / cy, zero],
+    ])
+    return (Einv @ omega_world[..., None])[..., 0]
+
+
+def quat_to_zyx(quat_xyzw):
+    """Quaternion (x, y, z, w) -> ZYX Euler (yaw, pitch, roll)."""
+    x, y, z, w = quat_xyzw[..., 0], quat_xyzw[..., 1], quat_xyzw[..., 2], quat_xyzw[..., 3]
+    yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+    pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
+    roll = torch.atan2(2.0 * (w * x + y * z), 1.0 - 2.0 * (x * x + y * y))
+    return torch.stack([yaw, pitch, roll], dim=-1)
+
+
+def rotation_error_in_world(R_des, R_meas):
+    """World-frame rotation error of the WBC base-angular task:
+    R_meas @ log3(R_meas^T @ R_des)."""
+    err = log3(R_meas.transpose(-1, -2) @ R_des)
+    return (R_meas @ err[..., None])[..., 0]

@@ -108,16 +108,17 @@ def gj_inverse_plain(A, pivot: bool = True):
 
 
 def gj_inverse(A, pivot: bool = True):
-    """Batched small (n <= 16) inverse by Gauss-Jordan — kernel B6.
+    """Batched small (n <= 32) inverse by Gauss-Jordan — kernel B6.
 
     CPU: ``gj_inverse_plain``.  CUDA (float32, contiguous): one launch of
-    ``hk_gj_inverse`` over all leading dims."""
+    ``hk_gj_inverse`` over all leading dims (one thread per matrix for
+    n <= 16, one block per matrix above)."""
     if A.device.type == "cpu":
         return gj_inverse_plain(A, pivot)
     n = A.shape[-1]
     _build.require(A, "A", torch.float32, A.shape[:-2] + (n, n))
-    if n > 16:
-        raise ValueError(f"gj_inverse kernel takes n <= 16, got {n}")
+    if n > 32:
+        raise ValueError(f"gj_inverse kernel takes n <= 32, got {n}")
     out = torch.empty_like(A)
     batch = A.numel() // (n * n)
     if batch == 0:
@@ -126,7 +127,9 @@ def gj_inverse(A, pivot: bool = True):
     _build.check(lib.hk_gj_inverse(A.data_ptr(), out.data_ptr(), batch, n, int(pivot),
                                    _build.stream(A)), "gj_inverse")
     gj_inverse.launches += 1
+    gj_inverse.launches_by_n[n] = gj_inverse.launches_by_n.get(n, 0) + 1
     return out
 
 
 gj_inverse.launches = 0
+gj_inverse.launches_by_n = {}  # the same launches by matrix size n

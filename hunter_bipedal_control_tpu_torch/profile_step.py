@@ -1,12 +1,18 @@
-"""Where the time of one batched MPC step goes on the card.
+"""Where the time of one batched MPC step, or of the 500 Hz control tick,
+goes on the card.
 
     python -m hunter_bipedal_control_tpu_torch.profile_step [batch] [knots] [horizon]
+    python -m hunter_bipedal_control_tpu_torch.profile_step tick [batch] [ticks]
 
-Builds the flagship problem (default B=128, 66 knots over 1.0 s), runs a
-cold and a warm step, then records one more warm step under
-``torch.profiler`` and prints one JSON line: the step's wall time, the
-device's busy time (sum of kernel and copy durations) and idle share, the
-number of device launches, and the device time of the heaviest kernels.
+The first form builds the flagship problem (default B=128, 66 knots over
+1.0 s), runs a cold and a warm step, then records one more warm step under
+``torch.profiler``.  The second builds the product-shape policy (53 knots
+over 0.8 s, one cold step, default B=1) and the tick's controller, runs two
+warm-up ticks, then records ``ticks`` chained ticks (default 3) of
+``entry.tick_chain``.  Each prints one JSON line: the wall time (per step,
+or per tick), the device's busy time (sum of kernel and copy durations) and
+idle share, the number of device launches (per step or per tick), and the
+device time of the heaviest kernels.
 """
 from __future__ import annotations
 
@@ -15,9 +21,30 @@ import sys
 import time
 
 
-def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: int = 12):
+def _profiled(run, per: int, top: int):
+    """Profile ``run()`` (which ends synchronized); figures per ``per`` units."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    heavy = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:top]
+    return {
+        "device": torch.cuda.get_device_name(0), "wall_ms": wall_ms / per,
+        "device_busy_ms": busy_ms / per, "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "device_launches": sum(e.count for e in dev_events) / per,
+        "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3 / per,
+                         "count": e.count / per} for e in heavy],
+    }
+
+
+def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: int = 12):
+    import torch
 
     from .entry import build_flagship
     from .solver.mpc import Mpc
@@ -29,26 +56,41 @@ def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: i
     _, state, _ = mpc(flag.state, *args)
     mpc(state, *args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+
+    def run():
         mpc(state, *args)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
-    heavy = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:top]
-    return {
-        "phase": "profile", "device": torch.cuda.get_device_name(0), "batch": batch,
-        "knots": knots, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "device_launches": sum(e.count for e in dev_events),
-        "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
-                         "count": e.count} for e in heavy],
-    }
+
+    return {"phase": "profile", "batch": batch, "knots": knots, **_profiled(run, 1, top)}
+
+
+def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12):
+    import torch
+
+    from .entry import build_controller, build_flagship, tick_chain
+    from .solver.mpc import Mpc
+
+    flag = build_flagship(53, 0.8, batch=batch)
+    mpc = Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
+    policy, _, _ = mpc(flag.state, flag.schedule, flag.target, 0.0, flag.x0,
+                       torch.zeros(6, device=flag.x0.device), flag.default_joints)
+    setup = build_controller(batch)
+    tick_chain(setup, policy, flag.schedule, 2)
+    torch.cuda.synchronize()
+
+    def run():
+        tick_chain(setup, policy, flag.schedule, ticks)
+        torch.cuda.synchronize()
+
+    return {"phase": "profile_tick", "batch": batch, "ticks": ticks,
+            "per": "tick", **_profiled(run, ticks, top)}
 
 
 if __name__ == "__main__":
     a = sys.argv[1:]
-    print(json.dumps(profile_step(int(a[0]) if a else 128, int(a[1]) if len(a) > 1 else 66,
-                                  float(a[2]) if len(a) > 2 else 1.0)))
+    if a and a[0] == "tick":
+        print(json.dumps(profile_tick(int(a[1]) if len(a) > 1 else 1,
+                                      int(a[2]) if len(a) > 2 else 3)))
+    else:
+        print(json.dumps(profile_step(int(a[0]) if a else 128, int(a[1]) if len(a) > 1 else 66,
+                                      float(a[2]) if len(a) > 2 else 1.0)))

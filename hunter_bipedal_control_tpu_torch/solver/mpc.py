@@ -12,7 +12,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..gait.mode_schedule import ModeSchedule, mode_at_time, mode_contacts
@@ -23,6 +22,7 @@ from ..ocp import problem as ocp
 from ..refs import ik as ik_mod
 from ..refs import swing_planner as swp
 from ..refs import targets as tg
+from ..tuple_module import TupleModule
 from . import sqp
 
 JOINT_REF_STEP = 0.15  # calculateJointRef sampling (SwitchedModelReferenceManager.cpp:262)
@@ -181,7 +181,7 @@ def evaluate_policy(sol: sqp.SqpSolution, t):
     return tg.interp_state(tt_x, t), tg.interp_state(tt_u, t)
 
 
-class Mpc(nn.Module):
+class Mpc(TupleModule):
     """The MPC step as a module: model, OCP weights and swing configuration
     are buffers, so ``.to(device)`` moves them together; ``forward`` is
     ``mpc_step``."""
@@ -190,33 +190,21 @@ class Mpc(nn.Module):
                  planner_cfg: swp.SwingConfig):
         super().__init__()
         self.settings = settings
-        self._static = {}
-        for prefix, tup in (("model", model), ("params", params), ("swing", planner_cfg)):
-            static = {}
-            for name, val in tup._asdict().items():
-                if torch.is_tensor(val) and val.is_floating_point():
-                    self.register_buffer(f"{prefix}_{name}", val)
-                else:
-                    static[name] = val
-            self._static[prefix] = (type(tup), static)
-
-    def _rebuild(self, prefix):
-        cls, static = self._static[prefix]
-        fields = {name: static[name] if name in static else getattr(self, f"{prefix}_{name}")
-                  for name in cls._fields}
-        return cls(**fields)
+        self.hold("model", model)
+        self.hold("params", params)
+        self.hold("swing", planner_cfg)
 
     @property
     def model(self) -> RobotModel:
-        return self._rebuild("model")
+        return self.held("model")
 
     @property
     def params(self) -> ocp.OcpParams:
-        return self._rebuild("params")
+        return self.held("params")
 
     @property
     def planner_cfg(self) -> swp.SwingConfig:
-        return self._rebuild("swing")
+        return self.held("swing")
 
     def forward(self, state: MpcState, schedule: ModeSchedule, target: tg.TargetTrajectories,
                 init_time, x_init, body_vel_cmd, default_joints):

@@ -1,21 +1,25 @@
-"""The CUDA kernels of the MPC step against their plain PyTorch versions,
-on the card, at the main path's shapes in float32 (marker ``cuda``; each
-test skips without a card).  This file imports no JAX, so it also runs on
-a GPU machine without it:
+"""The CUDA kernels of the MPC step and the control tick against their
+plain PyTorch versions, on the card, at the main paths' shapes in float32
+(marker ``cuda``; each test skips without a card).  This file imports no
+JAX, so it also runs on a GPU machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances are chip_smoke.py's: max |kernel - plain| / max(1, max |plain|)
 within 1e-5 (gj_inverse), 1e-4 (project_knot) and 2e-3 (riccati_solve,
 whose kernel factors Huu by Cholesky where the plain version iterates
-Newton-Schulz).
+Newton-Schulz).  solve_qp: each output within max(1e-4, 2 x the float32
+plain version's own error) of the float64 plain version, on its own scale
+(the primal residual on the WBC acceptance test's, 1 + max |b|).
 """
 import numpy as np
 import pytest
 import torch
 
-from hunter_bipedal_control_tpu_torch.ops import linalg
+from hunter_bipedal_control_tpu_torch.entry import build_wbc_batch
+from hunter_bipedal_control_tpu_torch.ops import linalg, qp
 from hunter_bipedal_control_tpu_torch.solver import riccati, sqp
+from hunter_bipedal_control_tpu_torch.wbc import wbc
 
 NX = NU = 22
 M = 16
@@ -55,13 +59,18 @@ def knot_data(rng, shape, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n,pivot", [(128 * 7 * 2, 5, True), (128 * 66, 16, False)])
+@pytest.mark.parametrize("batch,n,pivot", [(128 * 7 * 2, 5, True), (128 * 66, 16, False),
+                                           (1, 28, True), (4096, 28, True), (4096, 28, False),
+                                           (4096 * 2, 5, True), (5, 17, True), (2, 23, False),
+                                           (3, 32, True)])
 def test_gj_inverse_kernel(cuda, batch, n, pivot):
     A = torch.tensor(spd(np.random.default_rng(n), batch, n), dtype=torch.float32, device=cuda)
     before = linalg.gj_inverse.launches
+    before_n = linalg.gj_inverse.launches_by_n.get(n, 0)
     got = linalg.gj_inverse(A, pivot=pivot)
     torch.cuda.synchronize()
     assert linalg.gj_inverse.launches == before + 1
+    assert linalg.gj_inverse.launches_by_n[n] == before_n + 1
     assert rel_err(got, linalg.gj_inverse_plain(A, pivot)) < 1e-5
 
 
@@ -95,3 +104,65 @@ def test_riccati_solve_kernel(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert rel_err(a, b) < 2e-3
+
+
+@pytest.mark.cuda
+def test_gj_inverse_kernel_refuses_n_above_32(cuda):
+    with pytest.raises(ValueError):
+        linalg.gj_inverse(torch.eye(33, device=cuda)[None].contiguous())
+
+
+def _wbc_qp(device, dtype, batch=4096):
+    wb = build_wbc_batch(batch, device, dtype)
+    return wbc.wbc_qp(wb.model, wb.params, wb.x_des, wb.u_des, wb.rbd, wb.contact_flags,
+                      wb.stance_mode)
+
+
+def _own_scale_err(got, ref, floor=1e-30):
+    return float((got.double() - ref.double()).abs().max()
+                 / ref.double().abs().max().clamp(min=floor))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+def test_solve_qp_kernel(cuda, warm):
+    """The WBC's QP at B=4096 (bench.py's standing batch), 10 iterations,
+    cold and warm from the cold solution."""
+    data64 = [t.contiguous() for t in _wbc_qp(cuda, torch.float64)]
+    data = [t.float().contiguous() for t in data64]
+    kw = dict(n_iters=10, lam0=torch.ones(4096, 40, device=cuda),
+              nu0=torch.zeros(4096, 28, device=cuda), warm_margin=1.0)
+    kw["x0"] = torch.zeros(4096, 38, device=cuda)
+    if warm:
+        kw["x0"] = qp.solve_qp_plain(*data64, **{k: (v.double() if torch.is_tensor(v) else v)
+                                                 for k, v in kw.items()}).x.float().contiguous()
+    kw64 = {k: (v.double() if torch.is_tensor(v) else v) for k, v in kw.items()}
+    before = qp.solve_qp.launches
+    got = qp.solve_qp(*data, **kw)
+    torch.cuda.synchronize()
+    assert qp.solve_qp.launches == before + 1
+    ref32 = qp.solve_qp_plain(*data, **kw)
+    ref64 = qp.solve_qp_plain(*data64, **kw64)
+    # the primal residual on the WBC acceptance test's scale, floored at 1
+    res_scale = 1.0 + torch.maximum(data64[3].abs().amax(-1), data64[5].abs().amax(-1))
+    for name, floor in (("x", 1e-30), ("eq_dual", 1e-30), ("ineq_dual", 1e-30),
+                        ("primal_residual", 1.0)):
+        a, b, c = getattr(got, name), getattr(ref32, name), getattr(ref64, name)
+        assert torch.isfinite(a).all(), name
+        if name == "primal_residual":
+            a, b, c = a / res_scale, b / res_scale, c / res_scale
+        assert (_own_scale_err(a, c, floor) <= max(1e-4, 2.0 * _own_scale_err(b, c, floor))), name
+
+
+@pytest.mark.cuda
+def test_solve_qp_kernel_not_spd_gives_nan(cuda):
+    H, g, Aeq, beq, Ain, bin_ = [t.float().contiguous() for t in _wbc_qp(cuda, torch.float32, 8)]
+    H[3] = -1e3 * torch.eye(38, device=cuda)
+    got = qp.solve_qp(H, g, Aeq, beq, Ain, bin_, n_iters=10)
+    ref = qp.solve_qp_plain(H, g, Aeq, beq, Ain, bin_, n_iters=10)
+    torch.cuda.synchronize()
+    for name in ("x", "eq_dual", "ineq_dual"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert torch.equal(torch.isnan(a).any(-1), torch.isnan(b).any(-1)), name
+        assert torch.isnan(a).any(-1).nonzero().flatten().tolist() == [3], name
+    assert torch.isnan(got.primal_residual[3])
