@@ -26,12 +26,26 @@ Phases, each printing one JSON line:
      cold tick, then a 6-tick warm chain, solves/s, solutions and accepted
      QPs per tick held against CPU float32 and float64 runs of every 16th
      scenario;
+  4d. B5 riccati_solve_parallel on the real LQ data of the product shape
+     (B=1, N=53) and of N=66 (the card's projection output): each output
+     against the float64 exact plain version on the CPU, bfloat16 landing
+     above the limit, the gap to the float32 NS plain version (the JAX
+     algorithm), and B3's time on the same data in the same call;
+  4e. the chained B=1 solve (``entry.mpc_chain``, K_CHAIN solves at N=53) in
+     both Riccati modes: ms per solve, launches, costs held against the
+     port's CPU float64 chain with exact solves;
+  4f. the dummy closed loop (``entry.build_loop`` + ``run_loop``) over the
+     golden trace's 40 periods in both Riccati modes, held to
+     tests/golden/stance_walk_40p.npz with tests/test_golden.py's checks,
+     ms per 10 ms period;
   5. the kernels line: launches, error, times and bound of each kernel, B6
      with one row per use (IK, Kalman, observer).
 The last line is {"ok": true, "device": {...}}.  Any failed check raises.
 Exits non-zero without a card, and outside the repository.
 """
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -60,8 +74,12 @@ REPS = 15
 # the limit: a check that cannot tell it from float32 is blind.  The QP's
 # primal residual is compared on the scale of the WBC's acceptance test,
 # 1 + max |b|, floored at 1 (float32 leaves ~1e-4 where float64 reaches
-# ~1e-11).
-TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4}
+# ~1e-11).  B5 is held to its exact plain version (Cholesky and LU solves),
+# whose float32 run sits ~1e-6 from float64 on the main path's data, under
+# a floor of 1e-4: the JAX algorithm's Newton-Schulz solves (not converged
+# there, ~1e-3 to 1e-2 from the exact solve in float64 too) would not pass.
+TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4,
+       "riccati_solve_parallel": 1e-4}
 TOL_FACTOR = 2.0
 # Card main path vs the port's CPU runs, on states, inputs and cost relative
 # to max(1, |cost|).  The Riccati kernel solves Huu exactly (Cholesky); the
@@ -88,6 +106,21 @@ MAIN_FLOOR = {"states": 1e-3, "inputs": 0.1, "cost_rel": 1e-4}
 TICKS = 100
 TICK_FLOOR = 1e-4
 WBC_BATCH, WBC_TICKS, WBC_CPU_STRIDE = 4096, 6, 16
+# The chained B=1 solve (bench.py:112-178): K_CHAIN solves at N=53, each
+# from the cold state, fed the previous solution's states[1]; the card's
+# costs and states within MAIN_FACTOR times the CPU float32 chain's own
+# distance to the CPU float64 chain (both with exact solves), or TICK_FLOOR,
+# each on its own scale over the chain (max(1, max |CPU float64|)).  The
+# costs run from ~-48 down to ~-1 along the chain: a cost near -1 is the
+# small remainder of terms of the first solves' size, so its error is
+# measured on the chain's scale, not its own magnitude.
+K_CHAIN = 20
+# The closed loop against the golden trace (tests/test_golden.py:53-64):
+# gait levels equal, base z within 5e-3, planar momentum within 2e-2,
+# joints within 3e-2, median violation at most twice the golden's.
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                      "stance_walk_40p.npz")
+GOLDEN_BAND = {"z": 5e-3, "planar": 2e-2, "joints": 3e-2}
 
 
 def emit(obj):
@@ -129,9 +162,10 @@ def errors(names, got, plain32, plain64, floors=None):
 
 def check(name, errs, tol):
     """Raise unless every output is within max(tol, TOL_FACTOR x the float32
-    plain version's error on it) of the float64 plain version."""
+    plain version's error on it) of the float64 plain version (a NaN error
+    is not within)."""
     bad = {n: {"vs_f64": e64[1], "limit": max(tol, TOL_FACTOR * p64[1])}
-           for n, (_, e64, p64) in errs.items() if e64[1] > max(tol, TOL_FACTOR * p64[1])}
+           for n, (_, e64, p64) in errs.items() if not e64[1] <= max(tol, TOL_FACTOR * p64[1])}
     if bad:
         raise AssertionError(f"{name}: outputs off the float64 plain version: {bad}")
 
@@ -169,6 +203,45 @@ def riccati_cost(batch, N, nx=22, nu=22):
                 + 2 * (nx + 1) * nu * nu + 2 * nx * (nx + 1) * nu + 3 * nx * nx
                 + 2 * (2 * nu + nx) * nx + 2 * (nu + nx) * nu)
     return batch * (n_in + n_out) * 4, batch * N * per_knot
+
+
+def assoc_cost(batch, N, nx=22, nu=22):
+    """Bytes (as riccati_cost: the same inputs and outputs) and flops of the
+    associative Riccati as csrc/riccati_assoc.cu runs it: N elements,
+    Hillis-Steele star products over N+1 elements, N gains, affine
+    products over N maps, N+1 rollout knots."""
+    n_bytes, _ = riccati_cost(batch, N, nx, nu)
+    mm = 2 * nx ** 3
+    nr = 2 * nx + 1
+    element = nu ** 3 // 3 + 2 * nu * nu * nr + 3 * 2 * nx * nx * nu + 4 * nx * nu
+    combine = 8 * mm + 2 * nx * 2 * nx * nx + 6 * 2 * nx * nx
+    gains = (2 * 2 * nx * nx * (nx + nu + 1) + nu ** 3 // 3 + 2 * nu * nu * (nx + 1)
+             + 2 * nx * nu * (nx + 1))
+    affine = mm + 2 * nx * nx
+    rollout = 2 * nx * nx + 2 * nu * nx * 2 + 2 * nu * nu
+    combines = sum(N + 1 - d for d in (2 ** i for i in range(8)) if d < N + 1)
+    affines = sum(N - d for d in (2 ** i for i in range(8)) if d < N)
+    flops = N * (element + gains) + combines * combine + affines * affine + (N + 1) * rollout
+    return n_bytes, batch * flops
+
+
+def golden_check(telem, ref):
+    """tests/test_golden.py's checks of a loop's telemetry (B=1) against the
+    golden trace: the errors, the limits and whether all hold."""
+    import numpy as np
+
+    x = telem["x"][:, 0].double().cpu().numpy()
+    levels = telem["gait_level"][:, 0].cpu().numpy()
+    out = {"gait_level_equal": bool(np.array_equal(levels, ref["gait_level"])),
+           "z": float(np.abs(x[:, 8] - ref["x"][:, 8]).max()),
+           "planar": float(np.abs(x[:, 0:2] - ref["x"][:, 0:2]).max()),
+           "joints": float(np.abs(x[:, 12:] - ref["x"][:, 12:]).max()),
+           "violation_median": float(np.median(telem["violation"].double().cpu().numpy())),
+           "violation_limit": float(2 * max(np.median(ref["violation"]), 1e-4)),
+           "band": GOLDEN_BAND}
+    out["ok"] = (out["gait_level_equal"] and all(out[q] <= GOLDEN_BAND[q] for q in GOLDEN_BAND)
+                 and out["violation_median"] <= out["violation_limit"])
+    return out
 
 
 def qp_cost(batch, iters, n=38, me=28, mi=40):
@@ -267,9 +340,11 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; needs a GPU", file=sys.stderr)
         return 2
 
+    import numpy as np
+
     from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
-                                                        build_wbc_batch, standing_sensors,
-                                                        wbc_chain)
+                                                        build_loop, build_wbc_batch, mpc_chain,
+                                                        run_loop, standing_sensors, wbc_chain)
     from hunter_bipedal_control_tpu_torch.estim import contact, kalman
     from hunter_bipedal_control_tpu_torch.kernels import _build
     from hunter_bipedal_control_tpu_torch.ops import linalg, qp
@@ -466,7 +541,8 @@ def main():
     mpc = mpc_mod.Mpc(model, settings, params, flag.planner_cfg)
     args = (flag.schedule, flag.target, 0.0, flag.x0, z6, flag.default_joints)
     counters = {"gj_inverse": linalg.gj_inverse, "project_knot": sqp.project_knot,
-                "riccati_solve": riccati.riccati_solve, "solve_qp": qp.solve_qp}
+                "riccati_solve": riccati.riccati_solve,
+                "riccati_solve_parallel": riccati.riccati_solve_parallel, "solve_qp": qp.solve_qp}
     # the kernels line's B6 rows: each counts the launches of its matrix size
     # on its path
     gj_rows = {"gj_inverse": ("mpc_step", 5), "gj_inverse_kalman": ("tick", 28),
@@ -478,15 +554,18 @@ def main():
             c.launches = 0
         linalg.gj_inverse.launches_by_n.clear()
 
-    def read_counts(path, kernels):
+    def read_counts(path, kernels, absent=()):
         """The launches of the path's run; raise if one of its kernels (or one
-        of its B6 rows) had none."""
+        of its B6 rows) had none, or a kernel of ``absent`` had any."""
         counts = {n: c.launches for n, c in counters.items()}
         path_launches[path] = counts
         gj_by_n[path] = dict(linalg.gj_inverse.launches_by_n)
         for n in kernels:
             if counts[n] <= 0:
                 raise AssertionError(f"kernel {n} was not launched on the {path} path")
+        for n in absent:
+            if counts[n] != 0:
+                raise AssertionError(f"kernel {n} was launched on the {path} path")
         for row, (p, n) in gj_rows.items():
             if p == path and gj_by_n[path].get(n, 0) <= 0:
                 raise AssertionError(f"{row} ({n}x{n}) was not launched on the {path} path")
@@ -500,7 +579,8 @@ def main():
     cold_s = time.perf_counter() - t
     warm, _, _ = mpc(st1, *args)
     torch.cuda.synchronize()
-    launches = read_counts("mpc_step", ("gj_inverse", "project_knot", "riccati_solve"))
+    launches = read_counts("mpc_step", ("gj_inverse", "project_knot", "riccati_solve"),
+                           ("riccati_solve_parallel",))
     for name, sol in (("cold", cold), ("warm", warm)):
         for f in ("states", "inputs", "cost", "constraint_violation", "step_size"):
             if not torch.isfinite(getattr(sol, f)).all():
@@ -663,15 +743,146 @@ def main():
     if wbc_x["vs_cpu_f64"] > wbc_x["limit"]:
         raise AssertionError(f"batched WBC: solutions off the CPU float64 run: {wbc_x}")
 
+    # ---- 4d. B5 on the real LQ data of B=1 at N=53 (product) and N=66 (bench) ----
+    def projected_lq(n_knots, horizon):
+        """The cold step's projected LQ data at B=1, from the card's own
+        projection kernel: (lq, E, P, e, dx0) on the card."""
+        f = build_flagship(n_knots, horizon, batch=1, device=dev)
+        sch = mpc_mod.ModeSchedule(*(a[None] for a in f.schedule))
+        tgt = mpc_mod.tg.TargetTrajectories(*(a[None] for a in f.target))
+        bnd, _, _, _ = mpc_mod.prepare_references(
+            f.model, f.settings, f.planner_cfg, f.state.planner, sch, tgt,
+            torch.zeros(1, device=dev), f.x0, z6[None], f.default_joints[None])
+        xs1, us1 = mpc_mod._warm_start(f.model, f.settings, bnd, f.state, f.x0)
+        xn, A1, B1, _, qx1, qu1, Qxx1, Quu1, Qux1, g1, C1, D1, m1 = sqp.knot_linearization_all(
+            f.model, f.settings, f.params, bnd, xs1, us1)
+        pr = sqp.project_knot(f.settings, *(t.contiguous() for t in (
+            A1, B1, xn - xs1[:, 1:], qx1, qu1, Qxx1, Quu1, Qux1, g1, C1, D1, m1)))
+        A_t1, B_t1, d_t1, qx_t1, qw1, Qxx_t1, Qww1, Qwx1, E1, e1, P1 = [t.contiguous() for t in pr]
+        lq1 = riccati.StageLQ(A=A_t1, B=B_t1, d=d_t1, Qxx=Qxx_t1, Qww=Qww1, Qwx=Qwx1, qx=qx_t1,
+                              qw=qw1)
+        return lq1, E1, P1, e1, (f.x0 - xs1[:, 0]).contiguous()
+
+    assoc_names = ("K", "kff", "dxs", "dus")
+    for n_knots, horizon in ((53, 0.8), (66, 1.0)):
+        lqc, Ec, Pc, ec, dx0c = projected_lq(n_knots, horizon)
+        tol = TOL["riccati_solve_parallel"]
+        got = riccati.riccati_solve_parallel(lqc, Ec, Pc, ec, dx0c, reg)
+        torch.cuda.synchronize()
+        host = [riccati.StageLQ(*(t.cpu() for t in lqc))] + [t.cpu() for t in (Ec, Pc, ec, dx0c)]
+
+        def plain(dtype, exact):
+            lq_ = riccati.StageLQ(*(t.to(dtype) for t in host[0]))
+            return riccati.riccati_solve_parallel_plain(lq_, *(t.to(dtype) for t in host[1:]),
+                                                        reg, exact=exact)
+
+        ref64, ref32 = plain(torch.float64, True), plain(torch.float32, True)
+        ns32, bf16 = plain(torch.float32, False), plain(torch.bfloat16, False)
+        err = errors(assoc_names, [t.cpu() for t in got], ref32, ref64)
+        limits = {n: max(tol, TOL_FACTOR * p64[1]) for n, (_, _, p64) in err.items()}
+        e_bf16 = {n: rel_err(b.float(), c)[1] for n, b, c in zip(assoc_names, bf16, ref64)}
+        gap = {n: rel_err(a.cpu(), b)[1] for n, a, b in zip(assoc_names, got, ns32)}
+        ns_vs64 = {n: rel_err(a, b)[1] for n, a, b in zip(assoc_names, ns32, ref64)}
+        args = (lqc, Ec, Pc, ec, dx0c, reg)
+        times = {"kernel_ms": cuda_ms(lambda: riccati.riccati_solve_parallel(*args)),
+                 "b3_kernel_ms_same_data": cuda_ms(lambda: riccati.riccati_solve(*args)),
+                 "plain_ms": cuda_ms(lambda: riccati.riccati_solve_parallel_plain(*args)),
+                 "b3_plain_ms_same_data": cuda_ms(lambda: riccati.riccati_solve_plain(*args))}
+        info = {"scenarios": 1, "knots": n_knots, "plain_bf16_rel_err_vs_f64": e_bf16,
+                "kernel_rel_err_vs_plain_ns_f32": gap, "plain_ns_f32_rel_err_vs_f64": ns_vs64,
+                "b3_kernel_ms_same_data": times["b3_kernel_ms_same_data"],
+                "b3_plain_ms_same_data": times["b3_plain_ms_same_data"],
+                "launches_per_call": 3 + math.ceil(math.log2(n_knots + 1))
+                + math.ceil(math.log2(n_knots))}
+        if n_knots == 53:
+            record("riccati_solve_parallel", "cuda",
+                   "hunter_bipedal_control_tpu_torch/csrc/riccati_assoc.cu",
+                   "hunter_bipedal_control_tpu/solver/riccati.py:188", err, tol,
+                   times["kernel_ms"], times["plain_ms"], None, assoc_cost(1, n_knots), info)
+        else:
+            b_ms, b_by = bound(*assoc_cost(1, n_knots))
+            emit({"phase": "kernel_extra", "name": "riccati_solve_parallel", "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times["kernel_ms"],
+                  "plain_ms": times["plain_ms"], "library_ms": None, "bound_ms": b_ms,
+                  "bound_by": b_by, **info})
+            check(f"riccati_solve_parallel N={n_knots}", err, tol)
+        low = {n: e for n, e in e_bf16.items() if e <= limits[n]}
+        if low:
+            raise AssertionError(f"riccati_solve_parallel N={n_knots}: the bfloat16 plain version "
+                                 f"is within the limit on {low} (limits {limits})")
+    del lqc, got
+
+    # ---- 4e. the chained B=1 solve in both Riccati modes ----
+    riccati_kernel = {False: "riccati_solve", True: "riccati_solve_parallel"}
+    chain_out = {}
+    for par in (False, True):
+        path = "chain_parallel" if par else "chain_sequential"
+        cflag = build_flagship(53, 0.8, batch=1, device=dev)
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card = mpc_chain(cflag, K_CHAIN, riccati_parallel=par)
+        chain_s = time.perf_counter() - t
+        counts = read_counts(path, ("gj_inverse", "project_knot", riccati_kernel[par]),
+                             (riccati_kernel[not par],))
+        if not (torch.isfinite(card.costs).all() and torch.isfinite(card.states).all()):
+            raise AssertionError(f"{path}: non-finite chain")
+
+        def cpu_chain(dtype):
+            f = build_flagship(53, 0.8, batch=1, device="cpu", dtype=dtype)
+            f = f._replace(settings=f.settings._replace(riccati_solver="gj"))
+            return mpc_chain(f, K_CHAIN, riccati_parallel=par)
+
+        c32, c64 = cpu_chain(torch.float32), cpu_chain(torch.float64)
+
+        cmp = {}
+        for q in ("costs", "states"):
+            noise = scaled(getattr(c32, q), getattr(c64, q))
+            cmp[q] = {"vs_cpu_f64_exact": scaled(getattr(card, q), getattr(c64, q)),
+                      "cpu_f32_vs_f64": noise, "limit": max(TICK_FLOOR, MAIN_FACTOR * noise),
+                      "per_solve_rel_vs_cpu_f64_exact": (
+                          (getattr(card, q).cpu().double() - getattr(c64, q)).abs().flatten(1)
+                          .amax(-1) / getattr(c64, q).abs().flatten(1).amax(-1).clamp(min=1.0)
+                      ).tolist()}
+        chain_out[par] = statistics.median(card.seconds) * 1e3
+        emit({"phase": path, "batch": 1, "knots": 53, "solves": K_CHAIN, "launches": counts,
+              "ms_per_solve_median": chain_out[par],
+              "ms_per_solve_mean": chain_s / K_CHAIN * 1e3, "ms_first": card.seconds[0] * 1e3,
+              "cost_last": card.costs[-1].item(), "card_vs_cpu": cmp})
+        if not all(c["vs_cpu_f64_exact"] <= c["limit"] for c in cmp.values()):
+            raise AssertionError(f"{path}: card chain off the CPU float64 chain: {cmp}")
+
+    # ---- 4f. the dummy closed loop against the golden trace, both modes ----
+    ref = np.load(GOLDEN)
+    n_periods = ref["cmds"].shape[0]
+    for par in (False, True):
+        path = "loop_parallel" if par else "loop_sequential"
+        lsetup = build_loop(dev, torch.float32, riccati_parallel=par)
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, telem = run_loop(lsetup, ref["cmds"])
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        counts = read_counts(path, ("gj_inverse", "project_knot", riccati_kernel[par],
+                                    "solve_qp"), (riccati_kernel[not par],))
+        gold = golden_check(telem, ref)
+        emit({"phase": path, "batch": 1, "periods": n_periods, "launches": counts,
+              "ms_per_period": loop_s / n_periods * 1e3, "seconds": loop_s, "golden": gold,
+              "final_x": telem["x"][-1, 0].cpu().tolist()})
+        if not gold["ok"]:
+            raise AssertionError(f"{path}: off the golden trace: {gold}")
+
     # ---- 5. kernels ----
-    for n in ("project_knot", "riccati_solve", "solve_qp"):
+    for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp"):
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
         rows[row]["launches"] = gj_by_n[path].get(n, 0)
         rows[row]["launches_by_path"] = {path: rows[row]["launches"]}
     emit({"kernels": [rows[n] for n in ("gj_inverse", "gj_inverse_kalman", "gj_inverse_observer",
-                                        "project_knot", "riccati_solve", "solve_qp")]})
+                                        "project_knot", "riccati_solve", "riccati_solve_parallel",
+                                        "solve_qp")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

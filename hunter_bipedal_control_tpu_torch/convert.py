@@ -10,15 +10,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .backends.dummy import DummyPlantState
 from .device import resolve_device
 from .estim.contact import ContactObserverParams, ContactObserverState
 from .estim.kalman import KalmanParams, KalmanState
+from .gait.adaptive import GaitRunState
 from .gait.mode_schedule import ModeSchedule
 from .models.robot import INDEX_FIELDS, RobotModel
 from .ocp.problem import OcpParams
 from .refs.swing_planner import PlannerState, SwingConfig
 from .refs.targets import CmdVelConfig, TargetTrajectories
 from .runtime.controller import GainConfig
+from .runtime.loop import LoopState
 from .solver.mpc import MpcState
 from .solver.sqp import SqpSolution
 from .wbc.wbc import WbcParams, WbcState
@@ -26,7 +29,8 @@ from .wbc.wbc import WbcParams, WbcState
 _TYPES = {cls.__name__: cls for cls in (
     RobotModel, OcpParams, SwingConfig, CmdVelConfig, ModeSchedule, TargetTrajectories,
     MpcState, PlannerState, WbcParams, WbcState, GainConfig, KalmanParams, KalmanState,
-    ContactObserverParams, ContactObserverState, SqpSolution)}
+    ContactObserverParams, ContactObserverState, SqpSolution, GaitRunState, DummyPlantState,
+    LoopState)}
 # fields that stay Python values, with their types
 _SETTINGS = {"WbcParams": {f: type(d) for f, d in WbcParams._field_defaults.items()}}
 
@@ -47,8 +51,10 @@ def from_numpy(obj, device=None, dtype=torch.float32):
     (``collision=None`` only), SwingConfig, CmdVelConfig, ModeSchedule,
     TargetTrajectories, MpcState, SqpSolution (a policy), WbcParams (its
     Python settings, the ``qp_*`` fields, stay Python values), WbcState,
-    GainConfig, KalmanParams, KalmanState, ContactObserverParams and
-    ContactObserverState."""
+    GainConfig, KalmanParams, KalmanState, ContactObserverParams,
+    ContactObserverState, and the dummy loop's GaitRunState, DummyPlantState
+    and LoopState.  The port's states are batched: map a JAX state that is
+    not to (1, ...) leaves first."""
     dev = resolve_device(device)
     name = type(obj).__name__
     if name not in _TYPES:

@@ -14,9 +14,17 @@ readings of the repository's tick benchmark (``bench.py``).
 ``build_wbc_batch`` and ``wbc_chain`` run the WBC alone on a batch of
 standing states, as the repository's batched-WBC benchmark does: ticks
 carrying the WBC state, the first one cold.
+
+``mpc_chain`` is the chained B=1 solve of the benchmark (``bench.py``'s
+``chained`` and ``chained_rpar``): each solve starts from the flagship's
+cold state and consumes the previous solution's one-step state, in either
+Riccati mode.  ``build_loop`` and ``run_loop`` run the dummy closed loop
+(100 Hz MPC + five 500 Hz ticks per period against the dummy plant) on the
+repository's golden stance -> walk scenario.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -31,7 +39,8 @@ from .models.spatial import zyx_to_quat
 from .ocp import problem as ocp
 from .refs import swing_planner as swp
 from .refs import targets as tg
-from .runtime.controller import Controller, JointCommand, TickOutput, default_gains
+from .runtime import loop as loop_mod
+from .runtime.controller import Controller, GainConfig, JointCommand, TickOutput, default_gains
 from .solver import mpc as mpc_mod
 from .solver import sqp
 from .wbc import wbc as wbc_mod
@@ -202,3 +211,75 @@ def wbc_chain(wb: WbcBatch, n_ticks: int):
         xs.append(x)
         oks.append(ok)
     return torch.stack(xs, dim=1), torch.stack(oks, dim=1), state
+
+
+class Chain(NamedTuple):
+    costs: torch.Tensor   # (K, B) each solve's cost
+    states: torch.Tensor  # (K+1, B, nx) each solve's initial state, then the last one's states[1]
+    seconds: list         # K host-clock durations, each ending in a device sync on the card
+
+
+def mpc_chain(flag: Flagship, k_chain: int = 20, riccati_parallel: bool = False) -> Chain:
+    """``k_chain`` chained solves (bench.py:117-178): every solve starts from
+    the flagship's cold ``MpcState`` and consumes the previous solution's
+    one-step state ``states[:, 1]``, with the sequential (B3) or the
+    parallel-in-time (B5) Riccati."""
+    settings = flag.settings._replace(riccati_parallel=riccati_parallel)
+    mpc = mpc_mod.Mpc(flag.model, settings, flag.params, flag.planner_cfg)
+    x = flag.x0
+    cuda = x.device.type == "cuda"
+    zeros6 = torch.zeros(6, dtype=x.dtype, device=x.device)
+    costs, states, seconds = [], [x], []
+    for _ in range(k_chain):
+        t0 = time.perf_counter()
+        sol, _, _ = mpc(flag.state, flag.schedule, flag.target, 0.0, x, zeros6, flag.default_joints)
+        if cuda:
+            torch.cuda.synchronize(x.device)
+        seconds.append(time.perf_counter() - t0)
+        x = sol.states[:, 1]
+        costs.append(sol.cost)
+        states.append(x)
+    return Chain(torch.stack(costs), torch.stack(states), seconds)
+
+
+class LoopSetup(NamedTuple):
+    model: RobotModel
+    settings: sqp.SqpSettings
+    params: ocp.OcpParams
+    planner_cfg: swp.SwingConfig
+    wbc_params: wbc_mod.WbcParams
+    gains: GainConfig
+    cmd_cfg: tg.CmdVelConfig
+    config: loop_mod.LoopConfig
+    state: loop_mod.LoopState
+    default_joints: torch.Tensor
+
+
+def build_loop(device=None, dtype=torch.float32, riccati_parallel: bool = False) -> LoopSetup:
+    """The golden stance -> walk scenario's closed loop (tests/test_golden.py):
+    default ``SqpSettings`` (53 knots over 0.8 s) but the Riccati mode, base
+    at z = 0.63 on the nominal joints, the input cost made there, default
+    swing, WBC, gain and command configurations, and a cold loop state for
+    one scenario."""
+    dev = resolve_device(device)
+    m = load_model(device=dev, dtype=dtype)
+    settings = sqp.SqpSettings(riccati_parallel=riccati_parallel)
+    qnom = nominal_q(0.63, dev, dtype)
+    params = ocp.make_input_cost(m, ocp.default_ocp_params(m, dtype), qnom)
+    x0 = torch.cat([torch.zeros(6, dtype=dtype, device=dev), qnom])[None]
+    return LoopSetup(m, settings, params, swp.default_swing_config(dev, dtype),
+                     wbc_mod.default_wbc_params(dev, dtype), default_gains(dev, dtype),
+                     tg.default_cmd_vel_config(nj=m.nj, device=dev, dtype=dtype),
+                     loop_mod.LoopConfig(), loop_mod.init_loop_state(m, settings, x0), qnom[6:])
+
+
+def run_loop(setup: LoopSetup, cmds):
+    """The closed loop over the commands cmds (P, 4) (or (P, B, 4)), one MPC
+    period each, from ``setup.state``.  Returns (final LoopState, telemetry
+    (P, B, ...))."""
+    cmds = torch.as_tensor(cmds, dtype=setup.state.plant.x.dtype,
+                           device=setup.state.plant.x.device)
+    return loop_mod.run_dummy_loop(setup.model, setup.settings, setup.params,
+                                   setup.planner_cfg, setup.wbc_params, setup.gains,
+                                   setup.cmd_cfg, setup.config, setup.state, cmds, cmds.shape[0],
+                                   setup.default_joints)

@@ -1,11 +1,13 @@
 """Fixed-shape gait mode schedules.
 
-Port of ``hunter_bipedal_control_tpu/gait/mode_schedule.py`` (the parts on
-the MPC step's path).  A schedule is a pair of fixed-size tensors padded
-with ``BIG_TIME`` event times.  Queries take a schedule with leading batch
-dims (..., MAX_PHASES) and query times (..., K).  Mode numbers:
+Port of ``hunter_bipedal_control_tpu/gait/mode_schedule.py``.  A schedule
+is a pair of fixed-size tensors padded with ``BIG_TIME`` event times.
+Queries take a schedule with leading batch dims (..., MAX_PHASES) and query
+times (..., K); the template tools (tile, rotate, scale, compact) take
+templates and times with leading batch dims too.  Mode numbers:
 FLY = 0, R = 1, L = 2, STANCE = 3, mapped to the contacts
-[L_toe, R_toe, L_heel, R_heel].
+[L_toe, R_toe, L_heel, R_heel].  MAX_PHASES = 56 holds ~4.5 s of flying
+trot; ``compact_schedule`` keeps the window from saturating with history.
 """
 from __future__ import annotations
 
@@ -77,24 +79,117 @@ def TROT_GAIT(device=None, dtype=torch.float32):
     return make_template(["L", "R"], [0.0, 0.3, 0.6], device, dtype)
 
 
-def tile_template(template: GaitTemplate, start_time, final_time) -> ModeSchedule:
-    """Tile a periodic template over [start_time, final_time] (one schedule);
-    the phase before start_time continues the template backwards."""
-    dev = template.modes.device
-    k = torch.arange(MAX_PHASES, device=dev)
-    n = template.n_modes
-    period = template.duration
+def STANDING_TROT_GAIT(device=None, dtype=torch.float32):
+    return make_template(["L", "STANCE", "R", "STANCE"], [0.0, 0.25, 0.3, 0.55, 0.6],
+                         device, dtype)
+
+
+def FLYING_TROT_GAIT(device=None, dtype=torch.float32):
+    return make_template(["L", "FLY", "R", "FLY"], [0.0, 0.15, 0.2, 0.35, 0.4], device, dtype)
+
+
+def _lead(*xs):
+    """Broadcast leading shape of tensors (or Python numbers) ``xs``."""
+    return torch.broadcast_shapes(*(x.shape for x in xs if torch.is_tensor(x)))
+
+
+def _last(x):
+    """A time (a Python number or a tensor (...)) as a trailing-dim operand."""
+    return x[..., None] if torch.is_tensor(x) else x
+
+
+def _expand_template(template: GaitTemplate, lead) -> GaitTemplate:
+    """The template's fields broadcast to the leading dims ``lead``."""
+    lead = tuple(lead)
+    return GaitTemplate(template.switching_times.expand(*lead, T_MAX + 1),
+                        template.modes.expand(*lead, T_MAX), template.n_modes.expand(lead),
+                        template.duration.expand(lead))
+
+
+def searchsorted(sorted_seq, v, right: bool = False):
+    """``jnp.searchsorted`` over the last dim: both operands promoted to their
+    common dtype first, as JAX does."""
+    dt = torch.promote_types(sorted_seq.dtype, v.dtype)
+    return torch.searchsorted(sorted_seq.to(dt).contiguous(), v.to(dt).contiguous(), right=right)
+
+
+def tile_template(template: GaitTemplate, start_time, final_time, lead_mode=STANCE,
+                  lead_until=None) -> ModeSchedule:
+    """Tile a periodic template over [start_time, final_time]
+    (GaitSchedule::tileModeSequenceTemplate).  Times are Python numbers or
+    tensors (...) and the template may carry the same leading dims.
+    modes[0] (before t0) continues the template backwards, unless
+    ``lead_until`` is given: then t0 = lead_until and the phase before it is
+    ``lead_mode`` (the phase-transition stance of insertModeSequenceTemplate)."""
+    t0 = start_time if lead_until is None else lead_until
+    lead = _lead(template.switching_times[..., 0], template.modes[..., 0], template.n_modes,
+                 t0, final_time)
+    tmpl = _expand_template(template, lead)
+    k = torch.arange(MAX_PHASES, device=tmpl.modes.device)
+    n = tmpl.n_modes[..., None]
     cyc = torch.div(k, n, rounding_mode="floor")
     idx = k - cyc * n
-    events = start_time + cyc * period + (template.switching_times[idx] - template.switching_times[0])
+    sw = tmpl.switching_times
+    events = _last(t0) + cyc * tmpl.duration[..., None] + (torch.gather(sw, -1, idx) - sw[..., :1])
 
-    modes_body = template.modes[idx]
-    first_mode = template.modes[n - 1]
+    modes_body = torch.gather(tmpl.modes, -1, idx)
+    if lead_until is None:
+        first_mode = torch.gather(tmpl.modes, -1, n - 1)
+    else:
+        first_mode = torch.full_like(modes_body[..., :1], lead_mode)
 
-    valid = events <= final_time + 1e-9
-    events = torch.where(valid, events, torch.full_like(events, BIG_TIME))
-    modes = torch.cat([first_mode[None], modes_body])
-    return ModeSchedule(event_times=events, modes=modes)
+    valid = events <= _last(final_time) + 1e-9
+    events = torch.where(valid, events, BIG_TIME)
+    return ModeSchedule(event_times=events, modes=torch.cat([first_mode, modes_body], dim=-1))
+
+
+def _cumsum(x):
+    """Running sum over the last dim, added in order in x's dtype, as
+    ``jnp.cumsum`` does (torch's CPU cumsum accumulates float32 in float64)."""
+    out = [x[..., 0]]
+    for i in range(1, x.shape[-1]):
+        out.append(out[-1] + x[..., i])
+    return torch.stack(out, dim=-1)
+
+
+def rotate_template(template: GaitTemplate, j) -> GaitTemplate:
+    """Rotate a periodic template so that mode index ``j`` (a tensor (...))
+    comes first: extending a live gait continues its pattern
+    (GaitSchedule.cpp:126-161) instead of restarting at modes[0]."""
+    lead = _lead(template.switching_times[..., 0], template.modes[..., 0], template.n_modes, j)
+    tmpl = _expand_template(template, lead)
+    n = tmpl.n_modes[..., None]
+    i = torch.arange(T_MAX, device=tmpl.modes.device)
+    src = torch.where(i < n, (i + j[..., None]) % torch.clamp(n, min=1), n - 1)
+    sw = tmpl.switching_times
+    dur = sw[..., 1:] - sw[..., :-1]
+    dur_rot = torch.where(i < n, torch.gather(dur, -1, src), 0.0)
+    sw = torch.cat([torch.zeros_like(dur[..., :1]), _cumsum(dur_rot)], dim=-1)
+    return tmpl._replace(switching_times=sw, modes=torch.gather(tmpl.modes, -1, src))
+
+
+def scale_template(template: GaitTemplate, scale) -> GaitTemplate:
+    """Scale a template's period by ``scale``, a tensor (...) whose dtype the
+    times promote to, as a JAX array's does (domain sweeps over cadence)."""
+    sw, dur = template.switching_times, template.duration
+    dt = torch.promote_types(sw.dtype, scale.dtype)
+    return template._replace(switching_times=sw.to(dt) * scale[..., None].to(dt),
+                             duration=dur.to(dt) * scale.to(dt))
+
+
+def compact_schedule(schedule: ModeSchedule, keep_from) -> ModeSchedule:
+    """Shift out the events strictly before ``keep_from`` (...), fixed shape
+    (GaitSchedule's deque erase, GaitSchedule.cpp:94-121): without it a
+    walking gait fills the MAX_PHASES window with history and the horizon
+    tail degenerates to one single-support mode.  Queries at times >=
+    keep_from are unchanged: the phase containing keep_from becomes phase 0."""
+    ev = schedule.event_times
+    k = searchsorted(ev, keep_from[..., None])
+    idx = torch.arange(MAX_PHASES, device=ev.device)
+    src = torch.clamp(idx + k, 0, MAX_PHASES - 1)
+    events = torch.where(idx + k < MAX_PHASES, torch.gather(ev, -1, src), BIG_TIME)
+    msrc = torch.clamp(torch.arange(MAX_PHASES + 1, device=ev.device) + k, 0, MAX_PHASES)
+    return ModeSchedule(event_times=events, modes=torch.gather(schedule.modes, -1, msrc))
 
 
 def phase_index_at_time(schedule: ModeSchedule, t) -> torch.Tensor:

@@ -39,6 +39,8 @@ SIGNATURES = {
     "hk_project_knot": [_P] * 23 + [_I, _F, _F, _I, _P],
     # 12 inputs, 4 outputs, batch, n_knots, reg, stream
     "hk_riccati_solve": [_P] * 16 + [_I, _I, _F, _P],
+    # 12 inputs, 4 outputs, 4 scratch buffers, batch, n_knots, reg, stream
+    "hk_riccati_assoc": [_P] * 20 + [_I, _I, _F, _P],
     # 11 inputs, 4 outputs, batch, n, me, mi, n_iters, eq_reg, frac, mu_min, stream
     "hk_solve_qp": [_P] * 15 + [_I] * 5 + [_F] * 3 + [_P],
 }

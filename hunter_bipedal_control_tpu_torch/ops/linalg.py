@@ -16,21 +16,25 @@ import torch
 from ..kernels import _build
 
 
-def ns_inverse(A, iters: int = 16):
-    """Approximate inverse of a (batched) SPD matrix by Newton-Schulz after
-    symmetric Jacobi equilibration (as in the JAX package:
-    X0 = A~^T / (||A~||_1 ||A~||_inf), X <- X (2I - A~ X))."""
+def ns_inverse(A, iters: int = 16, spd: bool = True):
+    """Approximate inverse of a (batched) square matrix by Newton-Schulz (as
+    in the JAX package: X0 = A~^T / (||A~||_1 ||A~||_inf), X <- X (2I - A~ X)).
+    ``spd`` applies the symmetric Jacobi equilibration A~ = D^-1/2 A D^-1/2
+    first; without it A~ = A."""
     n = A.shape[-1]
-    d = torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1), min=1e-12)
-    s = 1.0 / torch.sqrt(d)
-    As = A * s[..., :, None] * s[..., None, :]
+    if spd:
+        d = torch.clamp(torch.diagonal(A, dim1=-2, dim2=-1), min=1e-12)
+        s = 1.0 / torch.sqrt(d)
+        As = A * s[..., :, None] * s[..., None, :]
+    else:
+        As = A
     a1 = As.abs().sum(-2, keepdim=True).amax(-1, keepdim=True)
     ainf = As.abs().sum(-1, keepdim=True).amax(-2, keepdim=True)
     X = As.transpose(-1, -2) / (a1 * ainf + 1e-30)
     eye2 = 2.0 * torch.eye(n, dtype=A.dtype, device=A.device)
     for _ in range(iters):
         X = X @ (eye2 - As @ X)
-    return X * s[..., :, None] * s[..., None, :]
+    return X * s[..., :, None] * s[..., None, :] if spd else X
 
 
 def spd_solve(A, b, iters: int = 20, refine: int = 2):

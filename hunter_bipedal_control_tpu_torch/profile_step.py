@@ -1,18 +1,23 @@
-"""Where the time of one batched MPC step, or of the 500 Hz control tick,
-goes on the card.
+"""Where the time of one batched MPC step, of the 500 Hz control tick, or
+of a period of the dummy closed loop goes on the card.
 
     python -m hunter_bipedal_control_tpu_torch.profile_step [batch] [knots] [horizon]
     python -m hunter_bipedal_control_tpu_torch.profile_step tick [batch] [ticks]
+    python -m hunter_bipedal_control_tpu_torch.profile_step loop [sequential|parallel] [periods]
 
 The first form builds the flagship problem (default B=128, 66 knots over
 1.0 s), runs a cold and a warm step, then records one more warm step under
 ``torch.profiler``.  The second builds the product-shape policy (53 knots
 over 0.8 s, one cold step, default B=1) and the tick's controller, runs two
 warm-up ticks, then records ``ticks`` chained ticks (default 3) of
-``entry.tick_chain``.  Each prints one JSON line: the wall time (per step,
-or per tick), the device's busy time (sum of kernel and copy durations) and
-idle share, the number of device launches (per step or per tick), and the
-device time of the heaviest kernels.
+``entry.tick_chain``.  The third runs the golden scenario's closed loop
+(``entry.build_loop``, either Riccati mode) for 15 standing and 7 walking
+periods, past the gait switch, then records ``periods`` more walking
+periods (default 2), each one MPC step and five ticks.  Each prints one
+JSON line: the wall time (per step, tick or period), the device's busy time
+(sum of kernel and copy durations) and idle share, the number of device
+launches (per step, tick or period), and the device time of the heaviest
+kernels.
 """
 from __future__ import annotations
 
@@ -86,9 +91,31 @@ def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12):
             "per": "tick", **_profiled(run, ticks, top)}
 
 
+def profile_loop(riccati_parallel: bool = False, periods: int = 2, top: int = 12):
+    import torch
+
+    from .entry import build_loop, run_loop
+
+    setup = build_loop(riccati_parallel=riccati_parallel)
+    walk = [0.3, 0.0, 0.0, 0.0]
+    state, _ = run_loop(setup, [[0.0] * 4] * 15 + [walk] * 7)
+    setup = setup._replace(state=state)
+    torch.cuda.synchronize()
+
+    def run():
+        run_loop(setup, [walk] * periods)
+        torch.cuda.synchronize()
+
+    return {"phase": "profile_loop", "riccati_parallel": riccati_parallel, "periods": periods,
+            "per": "period", **_profiled(run, periods, top)}
+
+
 if __name__ == "__main__":
     a = sys.argv[1:]
-    if a and a[0] == "tick":
+    if a and a[0] == "loop":
+        print(json.dumps(profile_loop(len(a) > 1 and a[1] == "parallel",
+                                      int(a[2]) if len(a) > 2 else 2)))
+    elif a and a[0] == "tick":
         print(json.dumps(profile_tick(int(a[1]) if len(a) > 1 else 1,
                                       int(a[2]) if len(a) > 2 else 3)))
     else:

@@ -1,7 +1,7 @@
 """Target trajectories + command shaping.
 
-Port of ``hunter_bipedal_control_tpu/refs/targets.py`` (the parts on the
-MPC step's path).  A trajectory carries leading batch dims:
+Port of ``hunter_bipedal_control_tpu/refs/targets.py`` (the cmd_vel
+target and its command filter).  A trajectory carries leading batch dims:
 times (..., T), states (..., T, nx), inputs (..., T, nu); queries are
 (..., K) times and return (..., K, n).
 """
@@ -74,40 +74,51 @@ def default_cmd_vel_config(nj=10, device=None, dtype=torch.float32) -> CmdVelCon
     )
 
 
+def filter_cmd_vel(cmd_vel, last_cmd_vel, cfg: CmdVelConfig):
+    """Slew-rate limit + deadband (TargetTrajectoriesPublisher cmdVelCallback),
+    elementwise over (..., 4)."""
+    delta = torch.clamp(cmd_vel - last_cmd_vel, -cfg.change_limit, cfg.change_limit)
+    out = last_cmd_vel + delta
+    return torch.where(out.abs() < cfg.deadband, 0.0, out)
+
+
 def cmd_vel_to_target(cmd_vel, observation_state, t_now, horizon,
                       cfg: CmdVelConfig, nu=22) -> TargetTrajectories:
-    """cmdVelToTargetTrajectories (.cpp:102-130) for one observation:
-    cmd_vel = (vx, vy, vz, yaw_rate) in base frame -> a 2-point trajectory
-    padded to T_NODES."""
+    """cmdVelToTargetTrajectories (.cpp:102-130): cmd_vel (..., 4) =
+    (vx, vy, vz, yaw_rate) in base frame, observation (..., nx), t_now a
+    number or (...) -> a 2-point trajectory padded to T_NODES, times (..., T),
+    states (..., T, nx), inputs (..., T, nu)."""
     dtype, dev = observation_state.dtype, observation_state.device
-    zyx = observation_state[9:12]
-    R = rotation_zyx(zyx)
-    v_world = R @ cmd_vel[0:3]
+    lead = observation_state.shape[:-1]
+    R = rotation_zyx(observation_state[..., 9:12])
+    v_world = (R @ cmd_vel[..., 0:3, None])[..., 0]
 
-    current_pose = observation_state[6:12]
+    pose = observation_state[..., 6:12]
     span = cfg.span_scale * horizon
-    zero = torch.zeros((), dtype=dtype, device=dev)
+    zero = torch.zeros(lead, dtype=dtype, device=dev)
+    com = cfg.com_height.to(dtype).expand(lead)
     target_pose = torch.stack([
-        current_pose[0] + span * v_world[0],
-        current_pose[1] + span * v_world[1],
-        cfg.com_height.to(dtype),
-        current_pose[3] + span * cmd_vel[3],
+        pose[..., 0] + span * v_world[..., 0],
+        pose[..., 1] + span * v_world[..., 1],
+        com,
+        pose[..., 3] + span * cmd_vel[..., 3],
         zero,
         zero,
-    ])
+    ], dim=-1)
 
-    nx = observation_state.shape[0]
-    s0 = torch.zeros(nx, dtype=dtype, device=dev)
-    s0[0:3] = v_world
-    s0[6:12] = torch.cat([current_pose[0:2], cfg.com_height.reshape(1).to(dtype),
-                          torch.stack([current_pose[3], zero, zero])])
-    s0[12:] = cfg.default_joints
+    nx = observation_state.shape[-1]
+    s0 = torch.zeros((*lead, nx), dtype=dtype, device=dev)
+    s0[..., 0:3] = v_world
+    s0[..., 6:12] = torch.stack([pose[..., 0], pose[..., 1], com, pose[..., 3], zero, zero],
+                                dim=-1)
+    s0[..., 12:] = cfg.default_joints
     s1 = s0.clone()
-    s1[6:12] = target_pose
+    s1[..., 6:12] = target_pose
 
-    times = torch.full((T_NODES,), 0.0, dtype=dtype, device=dev) + (t_now + span)
-    times[0] = t_now
-    states = s1[None].repeat(T_NODES, 1)
-    states[0] = s0
-    inputs = torch.zeros((T_NODES, nu), dtype=dtype, device=dev)
+    t = torch.as_tensor(t_now, dtype=dtype, device=dev)
+    times = torch.broadcast_to((t + span)[..., None], (*lead, T_NODES)).clone()
+    times[..., 0] = t
+    states = s1[..., None, :].repeat(*([1] * len(lead)), T_NODES, 1)
+    states[..., 0, :] = s0
+    inputs = torch.zeros((*lead, T_NODES, nu), dtype=dtype, device=dev)
     return TargetTrajectories(times=times, states=states, inputs=inputs)

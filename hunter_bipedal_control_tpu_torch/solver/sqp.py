@@ -3,8 +3,9 @@
 Port of ``hunter_bipedal_control_tpu/solver/sqp.py`` in the
 ``lin_backend='dense'`` configuration: per-knot linearization, the
 equality projection (kernel B2, ``project_knot``), the Riccati sweep and
-forward rollout (kernel B3, ``riccati.riccati_solve``) and the filter line
-search.  Every array carries a leading scenario dim B; knots follow it.
+forward rollout (kernel B3, ``riccati.riccati_solve``, or with
+``riccati_parallel`` kernel B5, ``riccati.riccati_solve_parallel``) and the
+filter line search.  Every array carries a leading scenario dim B; knots follow it.
 """
 from __future__ import annotations
 
@@ -22,12 +23,16 @@ from . import riccati
 class SqpSettings(NamedTuple):
     """Static solver configuration (sqp block of task.info; see the JAX
     package for each knob).  The port runs the dense linearization
-    (``lin_backend='dense'``), the sequential Riccati and the 'model' line
+    (``lin_backend='dense'``), both Riccati modes and the 'model' line
     search.  ``riccati_solver``, ``riccati_ns_iters`` and
-    ``riccati_ns_refine`` choose the Huu solve on the CPU only: on the card
-    the Riccati kernel always solves Huu exactly (Cholesky).  ``small_mm``
-    and ``riccati_ns_precision`` only route TPU products and are ignored
-    here."""
+    ``riccati_ns_refine`` choose the Huu solve of the sequential Riccati on
+    the CPU only; with ``riccati_parallel``, ``riccati_solver='gj'`` makes
+    every solve of the CPU's associative Riccati exact (the JAX package
+    ignores it there).  On the card both Riccati kernels solve exactly
+    (Cholesky).  ``small_mm`` selects the NS ('vpu') or Cholesky ('mxu')
+    stage-element solve of the CPU's associative Riccati, as in the JAX
+    package; ``riccati_ns_precision`` only routes TPU products and is
+    ignored here."""
 
     n_intervals: int = 53
     horizon: float = 0.8
@@ -72,8 +77,6 @@ def check_settings(settings: SqpSettings) -> None:
     """Refuse configurations this port does not run yet."""
     if settings.lin_backend != "dense":
         raise NotImplementedError("lin_backend='soa' (kernel B1) is not ported yet")
-    if settings.riccati_parallel:
-        raise NotImplementedError("riccati_parallel=True (B5) is not ported yet")
     if settings.riccati_solver not in ("ns", "gj"):
         raise ValueError(f"unknown riccati_solver {settings.riccati_solver!r}")
     if settings.linesearch != "model":
@@ -244,7 +247,12 @@ def solve(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
                                                         qx_t, qw)))
         rargs = (lq, *(t.contiguous() for t in (E, P, e0, x_init - xs[:, 0])),
                  settings.hess_reg)
-        if xs.device.type == "cpu":
+        if settings.riccati_parallel and xs.device.type == "cpu":
+            _, _, dxs_full, dus = riccati.riccati_solve_parallel_plain(
+                *rargs, settings.small_mm, settings.riccati_solver == "gj")
+        elif settings.riccati_parallel:
+            _, _, dxs_full, dus = riccati.riccati_solve_parallel(*rargs)
+        elif xs.device.type == "cpu":
             _, _, dxs_full, dus = riccati.riccati_solve_plain(
                 *rargs, settings.riccati_ns_iters, settings.riccati_ns_refine,
                 settings.riccati_solver)

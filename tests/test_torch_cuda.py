@@ -11,14 +11,17 @@ whose kernel factors Huu by Cholesky where the plain version iterates
 Newton-Schulz).  solve_qp: each output within max(1e-4, 2 x the float32
 plain version's own error) of the float64 plain version, on its own scale
 (the primal residual on the WBC acceptance test's, 1 + max |b|).
+riccati_solve_parallel (B5, exact solves): each output within max(1e-4,
+2 x the float32 exact plain version's own error) of the float64 exact plain
+version, on its own scale, both plain versions run on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
-from hunter_bipedal_control_tpu_torch.entry import build_wbc_batch
+from hunter_bipedal_control_tpu_torch.entry import build_flagship, build_wbc_batch
 from hunter_bipedal_control_tpu_torch.ops import linalg, qp
-from hunter_bipedal_control_tpu_torch.solver import riccati, sqp
+from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
 from hunter_bipedal_control_tpu_torch.wbc import wbc
 
 NX = NU = 22
@@ -166,3 +169,95 @@ def test_solve_qp_kernel_not_spd_gives_nan(cuda):
         assert torch.equal(torch.isnan(a).any(-1), torch.isnan(b).any(-1)), name
         assert torch.isnan(a).any(-1).nonzero().flatten().tolist() == [3], name
     assert torch.isnan(got.primal_residual[3])
+
+
+B5_TOL = 1e-4
+
+
+def _random_lq(cuda, batch, n_knots, seed):
+    rng = np.random.default_rng(seed)
+    proj = sqp.project_knot_plain(sqp.SqpSettings(), *knot_data(rng, (batch, n_knots), cuda))
+    A_t, B_t, d_t, qx_t, qw, Qxx_t, Qww, Qwx, E, e, P = [t.contiguous() for t in proj]
+    lq = riccati.StageLQ(A=A_t, B=B_t, d=d_t, Qxx=Qxx_t, Qww=Qww, Qwx=Qwx, qx=qx_t, qw=qw)
+    dx0 = torch.tensor(0.01 * rng.standard_normal((batch, NX)), dtype=torch.float32, device=cuda)
+    return lq, E, P, e, dx0
+
+
+def _main_path_lq(cuda, n_knots, horizon):
+    """The projected LQ data of the flagship's cold step at B=1 (the card's
+    own projection kernel)."""
+    flag = build_flagship(n_knots, horizon, batch=1, device=cuda)
+    st = flag.settings
+    sched = mpc_mod.ModeSchedule(*(a[None] for a in flag.schedule))
+    target = mpc_mod.tg.TargetTrajectories(*(a[None] for a in flag.target))
+    z6 = torch.zeros(1, 6, device=cuda)
+    bundle, _, _, _ = mpc_mod.prepare_references(
+        flag.model, st, flag.planner_cfg, flag.state.planner, sched, target,
+        torch.zeros(1, device=cuda), flag.x0, z6, flag.default_joints[None])
+    xs, us = mpc_mod._warm_start(flag.model, st, bundle, flag.state, flag.x0)
+    xnext, A, Bm, _, qx, qu, Qxx, Quu, Qux, g, C, D, mask = sqp.knot_linearization_all(
+        flag.model, st, flag.params, bundle, xs, us)
+    proj = sqp.project_knot(st, *(t.contiguous() for t in (A, Bm, xnext - xs[:, 1:], qx, qu,
+                                                           Qxx, Quu, Qux, g, C, D, mask)))
+    A_t, B_t, d_t, qx_t, qw, Qxx_t, Qww, Qwx, E, e, P = [t.contiguous() for t in proj]
+    lq = riccati.StageLQ(A=A_t, B=B_t, d=d_t, Qxx=Qxx_t, Qww=Qww, Qwx=Qwx, qx=qx_t, qw=qw)
+    return lq, E, P, e, (flag.x0 - xs[:, 0]).contiguous()
+
+
+def _b5_against_exact(lq, E, P, e, dx0):
+    before = riccati.riccati_solve_parallel.launches
+    got = riccati.riccati_solve_parallel(lq, E, P, e, dx0, 1e-6)
+    torch.cuda.synchronize()
+    assert riccati.riccati_solve_parallel.launches == before + 1
+    lq32 = riccati.StageLQ(*(t.cpu() for t in lq))
+    args32 = [t.cpu() for t in (E, P, e, dx0)]
+    ref32 = riccati.riccati_solve_parallel_plain(lq32, *args32, 1e-6, exact=True)
+    ref64 = riccati.riccati_solve_parallel_plain(riccati.StageLQ(*(t.double() for t in lq32)),
+                                                 *(t.double() for t in args32), 1e-6,
+                                                 exact=True)
+    for name, a, b, c in zip(("K", "kff", "dxs", "dus"), got, ref32, ref64):
+        a = a.cpu()
+        assert torch.isfinite(a).all(), name
+        assert _own_scale_err(a, c) <= max(B5_TOL, 2.0 * _own_scale_err(b, c)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_knots", [(1, 53), (1, 66), (3, 53)])
+def test_riccati_parallel_kernel_random(cuda, batch, n_knots):
+    _b5_against_exact(*_random_lq(cuda, batch, n_knots, seed=n_knots + batch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_knots,horizon", [(53, 0.8), (66, 1.0)])
+def test_riccati_parallel_kernel_main_path(cuda, n_knots, horizon):
+    _b5_against_exact(*_main_path_lq(cuda, n_knots, horizon))
+
+
+@pytest.mark.cuda
+def test_riccati_parallel_kernel_not_spd_gives_nan(cuda):
+    """An indefinite Qww at knot 6: the knots whose gains depend on it, and
+    the rollout after them, are NaN on the card as in the exact plain version."""
+    lq, E, P, e, dx0 = _random_lq(cuda, 1, 20, seed=9)
+    Qww = lq.Qww.clone()
+    Qww[0, 6] = -1e3 * torch.eye(NU, device=cuda)
+    lq = lq._replace(Qww=Qww)
+    got = riccati.riccati_solve_parallel(lq, E, P, e, dx0, 1e-6)
+    torch.cuda.synchronize()
+    ref = riccati.riccati_solve_parallel_plain(riccati.StageLQ(*(t.cpu() for t in lq)),
+                                               *(t.cpu() for t in (E, P, e, dx0)), 1e-6,
+                                               exact=True)
+    bad = torch.isnan(got[0].cpu()).flatten(2).any(-1)[0]
+    assert torch.equal(bad, torch.isnan(ref[0]).flatten(2).any(-1)[0])
+    assert bad[:6].all() and not bad[7:].any()
+    for a, b in zip(got, ref):
+        assert torch.equal(torch.isnan(a.cpu()), torch.isnan(b))
+
+
+@pytest.mark.cuda
+def test_riccati_parallel_kernel_refuses_bad_input(cuda):
+    lq, E, P, e, dx0 = _random_lq(cuda, 1, 5, seed=1)
+    with pytest.raises(TypeError):
+        riccati.riccati_solve_parallel(riccati.StageLQ(*(t.double() for t in lq)), E, P, e, dx0,
+                                       1e-6)
+    with pytest.raises(ValueError):
+        riccati.riccati_solve_parallel(lq._replace(A=lq.A.transpose(-1, -2)), E, P, e, dx0, 1e-6)
