@@ -13,11 +13,20 @@ Phases, each printing one JSON line:
      B=4096, cold and warm (errors against the float32 and float64 plain
      versions; kernel / plain / library times by CUDA events, medians of 15);
   4. the MPC path: the flagship problem (B=128 scenarios, 66 knots over
-     1.0 s, trot, 0.25 m/s) through ``Mpc``, one cold and one warm step, with
-     every kernel's launch count read around it, held against the port's
-     own CPU runs (plain versions: float32, and float64 with the exact Huu
-     solve); then the product shape (B=1, 53 knots over 0.8 s);
-  4b. the tick path: 100 chained 500 Hz ticks (``entry.tick_chain``: Kalman
+     1.0 s, trot, 0.25 m/s) through ``Mpc`` with ``lin_backend='soa'`` (the
+     default: kernel B1), one cold and one warm step, with every kernel's
+     launch count read around it, held against the port's own CPU runs
+     (plain versions: float32, and float64 with the exact Huu solve); the
+     same warm step with ``lin_backend='dense'`` on the card held to the
+     'soa' one, launches per step (and per phase) of both backends; then the
+     product shape (B=1, 53 knots over 0.8 s);
+  4a. B1 (soa_linearize, soa_merit) on the inputs the warm steps of the
+     bench shape (B=128, N=66) and the product shape (B=1, N=53) gave the
+     linearization and the line search's merit: every output against the
+     float64 plain SoA version and the float64 dense plain version, within
+     max(tol, 2x the float32 plain SoA version's error), bfloat16 landing
+     above the limit; kernel, plain and dense plain times;
+  4b. the tick path: TICKS (50) chained 500 Hz ticks (``entry.tick_chain``: Kalman
      update, momentum observer, WBC, gains) on the product shape's cold
      policy, launch counts read around it, every tick's command and WBC
      solution and the final estimator and WBC states held against the
@@ -31,11 +40,11 @@ Phases, each printing one JSON line:
      against the float64 exact plain version on the CPU, bfloat16 landing
      above the limit, the gap to the float32 NS plain version (the JAX
      algorithm), and B3's time on the same data in the same call;
-  4e. the chained B=1 solve (``entry.mpc_chain``, K_CHAIN solves at N=53) in
-     both Riccati modes: ms per solve, launches, costs held against the
+  4e. the chained B=1 solve (``entry.mpc_chain``, K_CHAIN solves at N=53,
+     'soa') in both Riccati modes: ms per solve, launches, costs held against the
      port's CPU float64 chain with exact solves;
-  4f. the dummy closed loop (``entry.build_loop`` + ``run_loop``) over the
-     golden trace's 40 periods in both Riccati modes, held to
+  4f. the dummy closed loop (``entry.build_loop`` + ``run_loop``, 'soa') over
+     the golden trace's 40 periods in both Riccati modes, held to
      tests/golden/stance_walk_40p.npz with tests/test_golden.py's checks,
      ms per 10 ms period;
   5. the kernels line: launches, error, times and bound of each kernel, B6
@@ -79,7 +88,14 @@ REPS = 15
 # a floor of 1e-4: the JAX algorithm's Newton-Schulz solves (not converged
 # there, ~1e-3 to 1e-2 from the exact solve in float64 too) would not pass.
 TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4,
-       "riccati_solve_parallel": 1e-4}
+       "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4}
+# B1 (soa_linearize, soa_merit) is held, output by output on its own scale,
+# to two float64 yardsticks that share no code: the plain SoA version and the
+# dense plain version, each within max(tol, TOL_FACTOR x the float32 plain
+# SoA version's own error).  The mask is exact in every precision, so only
+# the other outputs must put bfloat16 above the limit.
+LIN_NAMES = ("xnext", "A", "B", "cost", "qx", "qu", "Qxx", "Quu", "Qux", "g", "C", "D", "mask")
+MERIT_NAMES = ("cost", "metric")
 TOL_FACTOR = 2.0
 # Card main path vs the port's CPU runs, on states, inputs and cost relative
 # to max(1, |cost|).  The Riccati kernel solves Huu exactly (Cholesky); the
@@ -103,7 +119,7 @@ MAIN_FLOOR = {"states": 1e-3, "inputs": 0.1, "cost_rel": 1e-4}
 # equal the CPU float32 run's tick by tick.  The batched WBC: every tick's
 # solution on every WBC_CPU_STRIDE-th scenario by the same rule, and the
 # accepted counts equal the CPU float32 run's.
-TICKS = 100
+TICKS = 50
 TICK_FLOOR = 1e-4
 WBC_BATCH, WBC_TICKS, WBC_CPU_STRIDE = 4096, 6, 16
 # The chained B=1 solve (bench.py:112-178): K_CHAIN solves at N=53, each
@@ -123,7 +139,13 @@ GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "gold
 GOLDEN_BAND = {"z": 5e-3, "planar": 2e-2, "joints": 3e-2}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line is stamped with the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -223,6 +245,73 @@ def assoc_cost(batch, N, nx=22, nu=22):
     affines = sum(N - d for d in (2 ** i for i in range(8)) if d < N)
     flops = N * (element + gains) + combines * combine + affines * affine + (N + 1) * rollout
     return n_bytes, batch * flops
+
+
+def soa_chain_ops():
+    """Elementwise operations of one knot's scalar chain (combined rows plus
+    the RK2 midpoint flow), counted as the plain SoA version issues them on a
+    one-element batch (each op on a batch-shaped scalar is one operation per
+    knot; stacking and constant fills are not counted)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from hunter_bipedal_control_tpu_torch.models import soa
+    from hunter_bipedal_control_tpu_torch.models.robot import load_model
+    from hunter_bipedal_control_tpu_torch.ocp import problem as ocp
+
+    skip = ("stack", "cat", "full", "ones_like", "zeros_like", "empty", "expand", "clone",
+            "copy", "broadcast", "unsqueeze", "view", "select", "slice", "detach", "lift")
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not any(k in func.__name__ for k in skip):
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    m = load_model(device="cpu", dtype=torch.float64)
+    params = ocp.default_ocp_params(m, torch.float64)
+    x = torch.zeros(1, 22, dtype=torch.float64)
+    x[:, 8] = 0.63
+    u = torch.ones(1, 22, dtype=torch.float64)
+    fl = torch.ones(1, 4, dtype=torch.float64)
+    f3 = torch.zeros(1, 4, 3, dtype=torch.float64)
+    soa.build_consts(m)
+    with Count():
+        soa.combined_rows_arrays(m, params, x, u, fl, f3, f3)
+        soa.flow_arrays(m, x, u)
+    return Count.n
+
+
+def soa_lin_cost(knots, chain_ops, nx=22, nu=22, neq=16, ns=36):
+    """Bytes (x, u, x_nom, flags, foot refs in: 94 floats; 13 outputs out:
+    3,207 floats per knot) and operations (the scalar chain, the dense
+    tail's A = I + dt J + dt^2/2 J J and B, the three weighted Gram
+    products over the soft rows, qx and qu)."""
+    n_in = 3 * nx + 4 + 24
+    n_out = nx + 5 * nx * nx + 1 + nx + nu + neq + 2 * neq * nx + neq
+    tail = (2 * 2 * nx ** 3 + 3 * (ns * nx + 2 * ns * nx * nx)
+            + 2 * (2 * nx * nx + 2 * ns * nx))
+    return knots * (n_in + n_out) * 4, knots * (chain_ops + tail)
+
+
+def soa_merit_cost(batch, n_cand, N, chain_ops, nx=22, nu=22):
+    """Bytes (every candidate's states and inputs, the references once per
+    scenario, cost and metric out) and operations (the scalar chain, the
+    stage cost's two quadratic forms and the defect per knot)."""
+    n_in = batch * n_cand * ((N + 1) * nx + N * nu) + batch * (N + 1) * (nx + 28)
+    ops = batch * n_cand * N * (chain_ops + 2 * (2 * nx * nx + 2 * nx) + 4 * nx)
+    return (n_in + 2 * batch * n_cand) * 4, ops
+
+
+def cast(tup, dev, dtype):
+    """A NamedTuple with its floating tensors on ``dev`` in ``dtype`` (index
+    tensors and other fields as they are)."""
+    import torch
+
+    return type(tup)(*(t.to(dev, dtype) if torch.is_tensor(t) and t.is_floating_point() else t
+                       for t in tup))
 
 
 def golden_check(telem, ref):
@@ -347,7 +436,9 @@ def main():
                                                         run_loop, standing_sensors, wbc_chain)
     from hunter_bipedal_control_tpu_torch.estim import contact, kalman
     from hunter_bipedal_control_tpu_torch.kernels import _build
+    from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
     from hunter_bipedal_control_tpu_torch.ops import linalg, qp
+    from hunter_bipedal_control_tpu_torch.profile_step import _profiled, profile_phases
     from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
     from hunter_bipedal_control_tpu_torch.wbc import wbc as wbc_mod
 
@@ -364,9 +455,15 @@ def main():
     # ---- 2. build ----
     secs = _build.build()
     _build.library()
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines() if "Used" in ln or "spill" in ln]
+    # per source, the resources ptxas reports for each kernel (registers, spills)
+    ptxas, src = {}, None
+    for ln in _build.build_log.splitlines():
+        if ln.startswith("== "):
+            src = ln[3:].strip()
+        elif src and ("Used" in ln or "spill" in ln or "entry function" in ln):
+            ptxas.setdefault(src, []).append(ln.strip().replace("ptxas info    : ", "")[:100])
     emit({"phase": "build", "seconds": round(secs, 3), "library": _build.LIB_PATH,
-          "ptxas": ptxas[:24]})
+          "ptxas": {f: lines[:18] for f, lines in ptxas.items()}})
 
     rows = {}
 
@@ -542,7 +639,32 @@ def main():
     args = (flag.schedule, flag.target, 0.0, flag.x0, z6, flag.default_joints)
     counters = {"gj_inverse": linalg.gj_inverse, "project_knot": sqp.project_knot,
                 "riccati_solve": riccati.riccati_solve,
-                "riccati_solve_parallel": riccati.riccati_solve_parallel, "solve_qp": qp.solve_qp}
+                "riccati_solve_parallel": riccati.riccati_solve_parallel, "solve_qp": qp.solve_qp,
+                "soa_linearize": soa_kernel.soa_linearize, "soa_merit": soa_kernel.soa_merit}
+    b1 = ("soa_linearize", "soa_merit")
+
+    # the inputs the linearization and the line search's merit get on a
+    # main-path run: sqp.solve calls both through the module
+    captured = {}
+
+    def capture(run):
+        lin, merit = sqp.knot_linearization_all, sqp.eval_merit
+
+        def lin_cap(*a):
+            captured.setdefault("lin", a)
+            return lin(*a)
+
+        def merit_cap(*a):
+            captured.setdefault("merit", a)
+            return merit(*a)
+
+        captured.clear()
+        sqp.knot_linearization_all, sqp.eval_merit = lin_cap, merit_cap
+        try:
+            return run()
+        finally:
+            sqp.knot_linearization_all, sqp.eval_merit = lin, merit
+        
     # the kernels line's B6 rows: each counts the launches of its matrix size
     # on its path
     gj_rows = {"gj_inverse": ("mpc_step", 5), "gj_inverse_kalman": ("tick", 28),
@@ -577,9 +699,10 @@ def main():
     cold, st1, _ = mpc(flag.state, *args)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t
-    warm, _, _ = mpc(st1, *args)
+    warm, _, _ = capture(lambda: mpc(st1, *args))
     torch.cuda.synchronize()
-    launches = read_counts("mpc_step", ("gj_inverse", "project_knot", "riccati_solve"),
+    bench_cap = dict(captured)
+    launches = read_counts("mpc_step", ("gj_inverse", "project_knot", "riccati_solve") + b1,
                            ("riccati_solve_parallel",))
     for name, sol in (("cold", cold), ("warm", warm)):
         for f in ("states", "inputs", "cost", "constraint_violation", "step_size"):
@@ -634,18 +757,59 @@ def main():
               and all(vs_exact[q] <= tol[q] for q in tol) and same_alpha)
         if not ok:
             raise AssertionError(f"{name} step: card vs CPU: {compare[name]}")
-    emit({"phase": "main_path", "batch": B, "knots": N, "horizon": H,
+    emit({"phase": "main_path", "batch": B, "knots": N, "horizon": H, "lin_backend": "soa",
           "launches": launches, "cold_step_s": cold_s, "step_ms": step_ms,
           "solves_per_s": B / (step_ms / 1e3), "cost_mean": warm.cost.mean().item(),
           "cpu_run_s": cpu_s, "card_vs_cpu": compare})
+
+    # both backends on the card: the same warm step with lin_backend='dense',
+    # held to the 'soa' one by the card-vs-exact rule of the warm step
+    dense_mpc = mpc_mod.Mpc(model, settings._replace(lin_backend="dense"), params,
+                            flag.planner_cfg)
+    zero_counts()
+    warm_dense, _, _ = dense_mpc(st1, *args)
+    torch.cuda.synchronize()
+    dense_counts = read_counts("mpc_step_dense", ("gj_inverse", "project_knot",
+                                                  "riccati_solve"), b1)
+    dense_times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dense_mpc(st1, *args)
+        torch.cuda.synchronize()
+        dense_times.append(time.perf_counter() - t)
+    noise = dist(exact32[1], exact64[1])
+    tol = {q: max(MAIN_FLOOR[q], MAIN_FACTOR * v) for q, v in noise.items()}
+    d_sd = dist(warm_dense, type(warm)(*(t.cpu() for t in warm)))
+    same_alpha = bool(torch.equal(warm_dense.step_size, warm.step_size))
+
+    def step_launches(m_):
+        def run():
+            m_(st1, *args)
+            torch.cuda.synchronize()
+        return _profiled(run, 1, 8)
+
+    prof = {"soa": step_launches(mpc), "dense": step_launches(dense_mpc)}
+    phases = {lb: profile_phases(B, N, H, lin_backend=lb)["launch_calls_by_phase"]
+              for lb in ("soa", "dense")}
+    emit({"phase": "backends", "batch": B, "knots": N, "dense_vs_soa": d_sd, "tol": tol,
+          "step_size_equal": same_alpha, "launches_dense": dense_counts,
+          "step_ms": {"soa": step_ms, "dense": statistics.median(dense_times) * 1e3},
+          "device_launches_per_step": {k: v["device_launches"] for k, v in prof.items()},
+          "profiled": prof, "phases": phases})
+    if not (all(d_sd[q] <= tol[q] for q in tol) and same_alpha):
+        raise AssertionError(f"warm step: 'dense' vs 'soa' on the card: {d_sd} (tol {tol}), "
+                             f"step sizes equal: {same_alpha}")
+    del dense_mpc, warm_dense
 
     # the product shape: one scenario, 53 knots over 0.8 s
     pflag = build_flagship(53, 0.8, batch=1, device=dev)
     pmpc = mpc_mod.Mpc(pflag.model, pflag.settings, pflag.params, pflag.planner_cfg)
     pargs = (pflag.schedule, pflag.target, 0.0, pflag.x0, z6, pflag.default_joints)
     p1, pst, _ = pmpc(pflag.state, *pargs)
-    p2, _, _ = pmpc(pst, *pargs)
+    p2, _, _ = capture(lambda: pmpc(pst, *pargs))
     torch.cuda.synchronize()
+    product_cap = dict(captured)
     if not all(torch.isfinite(s.states).all() and torch.isfinite(s.cost).all() for s in (p1, p2)):
         raise AssertionError("product shape: non-finite solution")
     ptimes = []
@@ -659,7 +823,73 @@ def main():
           "step_ms": statistics.median(ptimes) * 1e3, "cost": p2.cost.item(),
           "step_size": p2.step_size.item()})
 
-    # ---- 4b. the tick path: 100 chained ticks on the product shape's cold policy ----
+    # ---- 4a. B1 on the warm steps' own linearization and merit inputs ----
+    chain_ops = soa_chain_ops()
+
+    def b1_case(name, cap, row):
+        """B1's entry point ``name`` on the captured main-path inputs against
+        the float64 plain SoA and dense versions; ``row``: this shape fills
+        the kernels line's row, else a kernel_extra line."""
+        model_, st_, params_, refs_, xs_, us_ = cap
+        lin = name == "soa_linearize"
+        kernel_fn = sqp.knot_linearization_all if lin else sqp.eval_merit
+        plain_fn = sqp.knot_linearization_all_plain if lin else sqp.eval_merit_plain
+        names = LIN_NAMES if lin else MERIT_NAMES
+        tol = TOL[name]
+
+        def plain(dtype, backend="soa"):
+            return plain_fn(cast(model_, dev, dtype), st_._replace(lin_backend=backend),
+                            cast(params_, dev, dtype), cast(refs_, dev, dtype), xs_.to(dtype),
+                            us_.to(dtype))
+
+        got = kernel_fn(*cap)
+        torch.cuda.synchronize()
+        p32, p64, d64, bf16 = (plain(torch.float32), plain(torch.float64),
+                               plain(torch.float64, "dense"), plain(torch.bfloat16))
+        err = errors(names, got, p32, p64)
+        limits = {n: max(tol, TOL_FACTOR * p64e[1]) for n, (_, _, p64e) in err.items()}
+        vs_dense = {n: rel_err(a, d)[1] for n, a, d in zip(names, got, d64)}
+        plain_vs_dense = {n: rel_err(a, d)[1] for n, a, d in zip(names, p64, d64)}
+        e_bf16 = {n: rel_err(b, c)[1] for n, b, c in zip(names, bf16, p64)}
+        Bn, N_ = us_.shape[0], us_.shape[-2]
+        n_cand = us_.shape[1] if not lin else 1
+        if lin:
+            cost = soa_lin_cost(Bn * N_, chain_ops)
+        else:
+            cost = soa_merit_cost(Bn, n_cand, N_, chain_ops)
+        times = (cuda_ms(lambda: kernel_fn(*cap)), cuda_ms(lambda: plain_fn(*cap), reps=3),
+                 cuda_ms(lambda: plain_fn(model_, st_._replace(lin_backend="dense"), params_,
+                                          refs_, xs_, us_), reps=3))
+        info = {"scenarios": Bn, "knots": N_, "candidates": n_cand,
+                "rel_err_vs_dense_f64": vs_dense, "plain_soa_f64_vs_dense_f64": plain_vs_dense,
+                "plain_bf16_rel_err_vs_f64": e_bf16, "dense_plain_ms": times[2],
+                "chain_ops_per_knot": chain_ops}
+        if row:
+            record(name, "cuda", "hunter_bipedal_control_tpu_torch/csrc/soa_linearize.cu",
+                   ("hunter_bipedal_control_tpu/models/soa.py:866" if lin
+                    else "hunter_bipedal_control_tpu/models/soa.py:605"),
+                   err, tol, times[0], times[1], None, cost, info)
+        else:
+            b_ms, b_by = bound(*cost)
+            emit({"phase": "kernel_extra", "name": name, "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times[0], "plain_ms": times[1],
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **info})
+            check(f"{name} B={Bn} N={N_}", err, tol)
+        bad = {n: (e, limits[n]) for n, e in vs_dense.items() if not e <= limits[n]}
+        if bad:
+            raise AssertionError(f"{name} B={Bn} N={N_}: outputs off the float64 dense plain "
+                                 f"version: {bad}")
+        low = {n: e for n, e in e_bf16.items() if n != "mask" and e <= limits[n]}
+        if low:
+            raise AssertionError(f"{name} B={Bn} N={N_}: the bfloat16 plain version is within "
+                                 f"the limit on {low} (limits {limits})")
+
+    for cap, row in ((bench_cap, True), (product_cap, False)):
+        b1_case("soa_linearize", cap["lin"], row)
+        b1_case("soa_merit", cap["merit"], row)
+    del bench_cap, product_cap, captured
+
+    # ---- 4b. the tick path: TICKS chained ticks on the product shape's cold policy ----
     stamps = []
 
     def stamp():
@@ -823,7 +1053,7 @@ def main():
         t = time.perf_counter()
         card = mpc_chain(cflag, K_CHAIN, riccati_parallel=par)
         chain_s = time.perf_counter() - t
-        counts = read_counts(path, ("gj_inverse", "project_knot", riccati_kernel[par]),
+        counts = read_counts(path, ("gj_inverse", "project_knot", riccati_kernel[par]) + b1,
                              (riccati_kernel[not par],))
         if not (torch.isfinite(card.costs).all() and torch.isfinite(card.states).all()):
             raise AssertionError(f"{path}: non-finite chain")
@@ -865,7 +1095,7 @@ def main():
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t
         counts = read_counts(path, ("gj_inverse", "project_knot", riccati_kernel[par],
-                                    "solve_qp"), (riccati_kernel[not par],))
+                                    "solve_qp") + b1, (riccati_kernel[not par],))
         gold = golden_check(telem, ref)
         emit({"phase": path, "batch": 1, "periods": n_periods, "launches": counts,
               "ms_per_period": loop_s / n_periods * 1e3, "seconds": loop_s, "golden": gold,
@@ -874,7 +1104,7 @@ def main():
             raise AssertionError(f"{path}: off the golden trace: {gold}")
 
     # ---- 5. kernels ----
-    for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp"):
+    for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp") + b1:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -882,7 +1112,7 @@ def main():
         rows[row]["launches_by_path"] = {path: rows[row]["launches"]}
     emit({"kernels": [rows[n] for n in ("gj_inverse", "gj_inverse_kalman", "gj_inverse_observer",
                                         "project_knot", "riccati_solve", "riccati_solve_parallel",
-                                        "solve_qp")]})
+                                        "solve_qp") + b1]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -61,13 +61,14 @@ class Flagship(NamedTuple):
 
 
 def build_flagship(n_intervals: int = 53, horizon: float = 0.8, batch: int = 1,
-                   device=None, dtype=torch.float32) -> Flagship:
+                   device=None, dtype=torch.float32, lin_backend: str = "soa") -> Flagship:
     """The bench problem (trot, 0.25 m/s command) for ``batch`` scenarios
     whose initial states are x0 + 0.001 * scenario index, as bench.py
-    batches them."""
+    batches them.  ``lin_backend``: 'soa' (kernel B1 on the card) or
+    'dense' (plain torch)."""
     dev = resolve_device(device)
     m = load_model(device=dev, dtype=dtype)
-    settings = sqp.SqpSettings(n_intervals=n_intervals, horizon=horizon, lin_backend="dense")
+    settings = sqp.SqpSettings(n_intervals=n_intervals, horizon=horizon, lin_backend=lin_backend)
     qnom = nominal_q(0.63, dev, dtype)
     dj = qnom[6:]
     params = ocp.make_input_cost(m, ocp.default_ocp_params(m, dtype), qnom)
@@ -219,12 +220,14 @@ class Chain(NamedTuple):
     seconds: list         # K host-clock durations, each ending in a device sync on the card
 
 
-def mpc_chain(flag: Flagship, k_chain: int = 20, riccati_parallel: bool = False) -> Chain:
+def mpc_chain(flag: Flagship, k_chain: int = 20, riccati_parallel: bool = False,
+              lin_backend: str = "soa") -> Chain:
     """``k_chain`` chained solves (bench.py:117-178): every solve starts from
     the flagship's cold ``MpcState`` and consumes the previous solution's
     one-step state ``states[:, 1]``, with the sequential (B3) or the
-    parallel-in-time (B5) Riccati."""
-    settings = flag.settings._replace(riccati_parallel=riccati_parallel)
+    parallel-in-time (B5) Riccati and the SoA (B1) or dense linearization."""
+    settings = flag.settings._replace(riccati_parallel=riccati_parallel,
+                                      lin_backend=lin_backend)
     mpc = mpc_mod.Mpc(flag.model, settings, flag.params, flag.planner_cfg)
     x = flag.x0
     cuda = x.device.type == "cuda"
@@ -255,15 +258,17 @@ class LoopSetup(NamedTuple):
     default_joints: torch.Tensor
 
 
-def build_loop(device=None, dtype=torch.float32, riccati_parallel: bool = False) -> LoopSetup:
+def build_loop(device=None, dtype=torch.float32, riccati_parallel: bool = False,
+               lin_backend: str = "soa") -> LoopSetup:
     """The golden stance -> walk scenario's closed loop (tests/test_golden.py):
-    default ``SqpSettings`` (53 knots over 0.8 s) but the Riccati mode, base
+    default ``SqpSettings`` (53 knots over 0.8 s) but the Riccati mode and
+    the linearization backend, base
     at z = 0.63 on the nominal joints, the input cost made there, default
     swing, WBC, gain and command configurations, and a cold loop state for
     one scenario."""
     dev = resolve_device(device)
     m = load_model(device=dev, dtype=dtype)
-    settings = sqp.SqpSettings(riccati_parallel=riccati_parallel)
+    settings = sqp.SqpSettings(riccati_parallel=riccati_parallel, lin_backend=lin_backend)
     qnom = nominal_q(0.63, dev, dtype)
     params = ocp.make_input_cost(m, ocp.default_ocp_params(m, dtype), qnom)
     x0 = torch.cat([torch.zeros(6, dtype=dtype, device=dev), qnom])[None]

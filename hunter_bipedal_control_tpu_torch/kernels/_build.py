@@ -43,6 +43,12 @@ SIGNATURES = {
     "hk_riccati_assoc": [_P] * 20 + [_I, _I, _F, _P],
     # 11 inputs, 4 outputs, batch, n, me, mi, n_iters, eq_reg, frac, mu_min, stream
     "hk_solve_qp": [_P] * 15 + [_I] * 5 + [_F] * 3 + [_P],
+    # consts, params, Q, R, 6 inputs, 13 outputs, batch, n_knots, dt, stream
+    "hk_soa_linearize": [_P] * 23 + [_I, _I, _F, _P],
+    # consts, params, Q, R, 6 inputs, 2 outputs, batch, n_cand, n_knots, dt, stream
+    "hk_soa_merit": [_P] * 12 + [_I, _I, _I, _F, _P],
+    # out buffer, capacity
+    "hk_soa_topology": [_P, _I],
 }
 
 _lib = None

@@ -1,11 +1,14 @@
 """The NMPC optimal-control problem: costs, soft constraints, equality
 constraints — fixed-shape, mask-activated, Gauss-Newton quadratics.
 
-Port of ``hunter_bipedal_control_tpu/ocp/problem.py`` in its dense form
-(``lin_backend='dense'``): ``knot_linearization_fused`` and
-``stage_merit_fused`` take any leading batch dims — (B, N) for scenarios x
-knots — instead of being vmapped.  Every knot carries 16 equality rows and
-36 soft rows; contact flags toggle which rows are live.
+Port of ``hunter_bipedal_control_tpu/ocp/problem.py`` in both of its
+forms.  The dense form (``lin_backend='dense'``): ``knot_linearization_fused``
+and ``stage_merit_fused`` take any leading batch dims — (B, N) for
+scenarios x knots — instead of being vmapped.  The batch forms on the
+scalarized SoA core (``lin_backend='soa'``, ``models/soa.py``):
+``knot_linearization_batch`` and ``stage_merit_batch``, the plain versions
+of kernel B1.  Every knot carries 16 equality rows and 36 soft rows; contact
+flags toggle which rows are live.
 """
 from __future__ import annotations
 
@@ -435,3 +438,141 @@ def knot_linearization_fused(model: RobotModel, params: OcpParams, x, u, x_nom,
     return _finish_linearization(
         model, params, x, u, x_nom, contact_flags, dt,
         flow0, g0, eq_mask, soft0, Jx_f, flow_u, C, eq_u, Jsoft_x, soft_u)
+
+
+# ---------------------------------------------------------------------------
+# batch forms on the scalarized SoA core (lin_backend='soa'): the plain
+# versions of kernel B1 (csrc/soa_linearize.cu)
+# ---------------------------------------------------------------------------
+
+
+# The JAX package's axis-last variants: the port's forms already take any
+# leading dims with the rows on the last axis.
+_soft_penalty_terms_last = _soft_penalty_terms
+weight_compensating_input_batch = weight_compensating_input
+
+
+def stage_merit_batch(model: RobotModel, params: OcpParams, xs, us, x_nom,
+                      contact_flags, foot_pos_ref, foot_vel_ref, dt):
+    """``stage_merit_fused`` over any leading dims on the scalarized SoA
+    core: (stage cost, RK2 next state, masked eq residual)."""
+    from ..models import soa
+
+    flow, g_masked, _, soft = soa.combined_rows_arrays(
+        model, params, xs, us, contact_flags, foot_pos_ref, foot_vel_ref)
+    nu = us.shape[-1]
+    u_nom = weight_compensating_input_batch(model, contact_flags, nu)
+    dx = xs - x_nom
+    du = us - u_nom
+    p, _, _, mask = _soft_penalty_terms_last(model, params, soft, contact_flags)
+    cost = _quad_form(dx, params.Q) + _quad_form(du, params.R) + torch.sum(mask * p, dim=-1)
+    k2 = soa.flow_arrays(model, xs + dt * flow, us)
+    xnext = xs + 0.5 * dt * (flow + k2)
+    return cost, xnext, g_masked
+
+
+def knot_linearization_batch(model: RobotModel, params: OcpParams, xs, us,
+                             x_nom, flags, fpr, fvr, dt):
+    """``knot_linearization_fused`` over any leading dims on the scalarized
+    SoA core: the FK/CMM/dual chain as elementwise ops on batch-shaped
+    scalars, then the dense 22-dim tail (RK2 sensitivity, exact RK2 primal,
+    GGN quadratics).  Same 13 outputs."""
+    from ..models import soa
+
+    ing = soa.linearization_arrays(model, params, xs, us, flags, fpr, fvr)
+    S = xs.shape[:-1]
+    nx = xs.shape[-1]
+    nc, nj = NUM_FEET, model.nj
+    nq = nx - 6
+    dtype, dev = xs.dtype, xs.device
+    m = float(model.total_mass)
+
+    def z(*sh):
+        return torch.zeros((*S, *sh), dtype=dtype, device=dev)
+
+    def bcast(a, *sh):
+        a = torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype, device=dev)
+        return a.expand(*S, *sh)
+
+    flow0, g0 = ing["flow0"], ing["g0"]
+    eq_mask, soft0 = ing["eq_mask"], ing["soft0"]
+    Vh, Vv, dvb = ing["Vh"], ing["Vv"], ing["dvb"]
+    Jc, Jcdot = ing["Jc"], ing["Jcdot"]
+    p_c, p_com = ing["p_c"], ing["p_com"]
+    forces = us[..., : 3 * nc].reshape(*S, nc, 3)
+
+    H = torch.einsum("...cij,...jk->...cik", Jc[..., 0:6], Vh)       # (...,nc,3,6)
+    W = torch.einsum("...cij,...jk->...cik", Jc[..., 0:6], Vv) + Jc[..., 6:]
+    dvc = Jcdot + torch.einsum("...cij,...jk->...cik", Jc[..., 0:6], dvb)
+    # d/dq sum_i (p_ci - p_com) x f_i = -sum_i skew(f_i) (Jc_i - Jcom)
+    Jcom = ing["Jcom"]                                                # (...,3,nq)
+    dhdot_ang = -torch.einsum(
+        "...cab,...cbv->...av", _skew_batch(forces), Jc - Jcom[..., None, :, :]) / m
+
+    # ---- q-column blocks ----
+    gxy = params.xy_position_gain
+    gn = params.position_error_gain
+    stance3 = (flags > 0.5)[..., None, None]                          # (...,nc,1,1)
+    swing1 = (flags < 0.5)[..., None]                                 # (...,nc,1)
+    zv_q = dvc + torch.cat([z(nc, 2, nq), gxy * Jc[..., 2:3, :]], dim=-2)
+    nvel_q = dvc[..., 2, :] + gn * Jc[..., 2, :]                      # (...,nc,nq)
+    Jq_eq = torch.cat(
+        [torch.where(stance3, zv_q, 0.0),
+         torch.where(swing1, nvel_q, 0.0)[..., None, :]], dim=-2).reshape(*S, N_EQ, nq)
+    xy_q = (dvc[..., 0:2, :] + gxy * Jc[..., 0:2, :]).reshape(*S, 2 * nc, nq)
+    qj_q = bcast(np.concatenate([np.zeros((nj, 6)), np.eye(nj)], axis=1), nj, nq)
+    Jq_soft = torch.cat([z(nc, nq), xy_q, qj_q, z(nj, nq), z(nc, nq)], dim=-2)
+    Jq_flow = torch.cat([z(3, nq), dhdot_ang, dvb, z(nj, nq)], dim=-2)
+
+    # ---- h-column blocks ----
+    flow_h = torch.cat([z(6, 6), Vh, z(nj, 6)], dim=-2)
+    eq_h = torch.cat(
+        [torch.where(stance3, H, 0.0),
+         torch.where(swing1, H[..., 2, :], 0.0)[..., None, :]], dim=-2).reshape(*S, N_EQ, 6)
+    soft_h = torch.cat([z(nc, 6), H[..., 0:2, :].reshape(*S, 2 * nc, 6), z(2 * nj + nc, 6)],
+                       dim=-2)
+
+    Jx_f = torch.cat([flow_h, Jq_flow], dim=-1)                       # (...,nx,nx)
+    C = torch.cat([eq_h, Jq_eq], dim=-1)                              # (...,16,nx)
+    Jsoft_x = torch.cat([soft_h, Jq_soft], dim=-1)
+
+    # ---- u-column blocks ----
+    dang = (_skew_batch(p_c - p_com[..., None, :]).movedim(-3, -2)
+            .reshape(*S, 3, 3 * nc) / m)
+    flow_f = torch.cat([bcast(np.tile(np.eye(3) / m, (1, nc)), 3, 3 * nc), dang,
+                        z(6 + nj, 3 * nc)], dim=-2)
+    flow_vj = torch.cat([z(6, nj), Vv, bcast(np.eye(nj), nj, nj)], dim=-2)
+    flow_u = torch.cat([flow_f, flow_vj], dim=-1)
+
+    sel_f = np.einsum("ci,jk->cjik", np.eye(nc), np.eye(3)).reshape(nc, 3, 3 * nc)
+    eq03_f = torch.where(stance3, 0.0, bcast(sel_f, nc, 3, 3 * nc))
+    eq_f = torch.cat([eq03_f, z(nc, 1, 3 * nc)], dim=-2).reshape(*S, N_EQ, 3 * nc)
+    eq03_vj = torch.where(stance3, W, 0.0)
+    eq3_vj = torch.where(swing1, W[..., 2, :], 0.0)
+    eq_vj = torch.cat([eq03_vj, eq3_vj[..., None, :]], dim=-2).reshape(*S, N_EQ, nj)
+    eq_u = torch.cat([eq_f, eq_vj], dim=-1)
+
+    s_cone = torch.sqrt(forces[..., 0] ** 2 + forces[..., 1] ** 2
+                        + params.cone_regularization)                 # (...,nc)
+    cone_df = torch.stack(
+        [-forces[..., 0] / s_cone, -forces[..., 1] / s_cone,
+         params.friction_coeff.to(dtype).expand(s_cone.shape)], dim=-1)  # (...,nc,3)
+    cone_f = (cone_df[..., None, :] * bcast(np.eye(nc), nc, nc)[..., None]
+              ).reshape(*S, nc, 3 * nc)
+    fz_sel = (np.eye(nc)[:, :, None] * np.array([0.0, 0.0, 1.0])).reshape(nc, 3 * nc)
+    soft_f = torch.cat([cone_f, z(2 * nc + 2 * nj, 3 * nc), bcast(fz_sel, nc, 3 * nc)], dim=-2)
+    soft_vj = torch.cat([z(nc, nj), W[..., 0:2, :].reshape(*S, 2 * nc, nj), z(nj, nj),
+                         bcast(np.eye(nj), nj, nj), z(nc, nj)], dim=-2)
+    soft_u = torch.cat([soft_f, soft_vj], dim=-1)
+
+    # ---- dense tail: RK2 sensitivity + exact RK2 primal + GGN quadratic ----
+    eye_nx = torch.eye(nx, dtype=dtype, device=dev)
+    A = eye_nx + dt * Jx_f + (0.5 * dt * dt) * (Jx_f @ Jx_f)
+    B = dt * flow_u + (0.5 * dt * dt) * (Jx_f @ flow_u)
+
+    k2 = soa.flow_arrays(model, xs + dt * flow0, us)
+    xnext = xs + 0.5 * dt * (flow0 + k2)
+
+    cost, qx, qu, Qxx, Quu, Qux = _assemble_quadratic(
+        model, params, xs, us, x_nom, flags, soft0, Jsoft_x, soft_u)
+    return xnext, A, B, cost, qx, qu, Qxx, Quu, Qux, g0, C, eq_u, eq_mask

@@ -4,6 +4,11 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step [batch] [knots] [horizon]
     python -m hunter_bipedal_control_tpu_torch.profile_step tick [batch] [ticks]
     python -m hunter_bipedal_control_tpu_torch.profile_step loop [sequential|parallel] [periods]
+    python -m hunter_bipedal_control_tpu_torch.profile_step phases [batch] [knots] [horizon]
+
+Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
+``--lin_backend=dense`` (the plain dense linearization and merit), so that
+the launches per step can be read in both backends.
 
 The first form builds the flagship problem (default B=128, 66 knots over
 1.0 s), runs a cold and a warm step, then records one more warm step under
@@ -21,6 +26,7 @@ kernels.
 """
 from __future__ import annotations
 
+import functools
 import json
 import sys
 import time
@@ -48,13 +54,14 @@ def _profiled(run, per: int, top: int):
     }
 
 
-def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: int = 12):
+def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: int = 12,
+                 lin_backend: str = "soa"):
     import torch
 
     from .entry import build_flagship
     from .solver.mpc import Mpc
 
-    flag = build_flagship(knots, horizon, batch=batch)
+    flag = build_flagship(knots, horizon, batch=batch, lin_backend=lin_backend)
     mpc = Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
     args = (flag.schedule, flag.target, 0.0, flag.x0,
             torch.zeros(6, device=flag.x0.device), flag.default_joints)
@@ -66,16 +73,78 @@ def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: i
         mpc(state, *args)
         torch.cuda.synchronize()
 
-    return {"phase": "profile", "batch": batch, "knots": knots, **_profiled(run, 1, top)}
+    return {"phase": "profile", "batch": batch, "knots": knots, "lin_backend": lin_backend,
+            **_profiled(run, 1, top)}
 
 
-def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12):
+PHASES = (("prepare_references", "mpc"), ("_warm_start", "mpc"),
+          ("knot_linearization_all", "sqp"), ("project_knot", "sqp"),
+          ("riccati_solve", "riccati"), ("riccati_solve_parallel", "riccati"),
+          ("eval_merit", "sqp"))
+
+
+def profile_phases(batch: int = 128, knots: int = 66, horizon: float = 1.0,
+                   lin_backend: str = "soa"):
+    """One warm MPC step with each phase of ``PHASES`` wrapped in a profiler
+    range: per phase the host's kernel launches (runtime launch calls that
+    start inside the range); 'other' is the rest of the step (the line
+    search's model, the solution)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from .entry import build_flagship
+    from .solver import mpc as mpc_mod, riccati, sqp
+
+    mods = {"mpc": mpc_mod, "sqp": sqp, "riccati": riccati}
+    flag = build_flagship(knots, horizon, batch=batch, lin_backend=lin_backend)
+    mpc = mpc_mod.Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
+    args = (flag.schedule, flag.target, 0.0, flag.x0,
+            torch.zeros(6, device=flag.x0.device), flag.default_joints)
+    _, state, _ = mpc(flag.state, *args)
+    torch.cuda.synchronize()
+
+    def labelled(name, fn):
+        # wraps copies the launch counters the kernel wrappers bump on themselves
+        @functools.wraps(fn)
+        def run(*a, **k):
+            with record_function("phase:" + name):
+                return fn(*a, **k)
+        return run
+
+    saved = [(mods[m], n, getattr(mods[m], n)) for n, m in PHASES]
+    try:
+        for mod, n, fn in saved:
+            setattr(mod, n, labelled(n, fn))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mpc(state, *args)
+            torch.cuda.synchronize()
+    finally:
+        for mod, n, fn in saved:
+            setattr(mod, n, fn)
+    events = list(prof.events())
+    ranges = [(e.name[6:], e.time_range.start, e.time_range.end) for e in events
+              if e.name.startswith("phase:")]
+    launches = [e for e in events if "LaunchKernel" in e.name]
+    out = {name: 0 for name, _ in PHASES}
+    for ev in launches:
+        for name, t0, t1 in ranges:
+            if t0 <= ev.time_range.start <= t1:
+                out[name] += 1
+                break
+    total = len(launches)
+    out["other"] = total - sum(out.values())
+    return {"phase": "profile_phases", "batch": batch, "knots": knots,
+            "lin_backend": lin_backend, "device": torch.cuda.get_device_name(0),
+            "launch_calls_per_step": total, "launch_calls_by_phase": out}
+
+
+def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12, lin_backend: str = "soa"):
     import torch
 
     from .entry import build_controller, build_flagship, tick_chain
     from .solver.mpc import Mpc
 
-    flag = build_flagship(53, 0.8, batch=batch)
+    flag = build_flagship(53, 0.8, batch=batch, lin_backend=lin_backend)
     mpc = Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
     policy, _, _ = mpc(flag.state, flag.schedule, flag.target, 0.0, flag.x0,
                        torch.zeros(6, device=flag.x0.device), flag.default_joints)
@@ -91,12 +160,13 @@ def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12):
             "per": "tick", **_profiled(run, ticks, top)}
 
 
-def profile_loop(riccati_parallel: bool = False, periods: int = 2, top: int = 12):
+def profile_loop(riccati_parallel: bool = False, periods: int = 2, top: int = 12,
+                 lin_backend: str = "soa"):
     import torch
 
     from .entry import build_loop, run_loop
 
-    setup = build_loop(riccati_parallel=riccati_parallel)
+    setup = build_loop(riccati_parallel=riccati_parallel, lin_backend=lin_backend)
     walk = [0.3, 0.0, 0.0, 0.0]
     state, _ = run_loop(setup, [[0.0] * 4] * 15 + [walk] * 7)
     setup = setup._replace(state=state)
@@ -107,17 +177,23 @@ def profile_loop(riccati_parallel: bool = False, periods: int = 2, top: int = 12
         torch.cuda.synchronize()
 
     return {"phase": "profile_loop", "riccati_parallel": riccati_parallel, "periods": periods,
-            "per": "period", **_profiled(run, periods, top)}
+            "lin_backend": lin_backend, "per": "period", **_profiled(run, periods, top)}
 
 
 if __name__ == "__main__":
-    a = sys.argv[1:]
-    if a and a[0] == "loop":
+    lb = [x.split("=", 1)[1] for x in sys.argv[1:] if x.startswith("--lin_backend=")]
+    kw = {"lin_backend": lb[-1]} if lb else {}
+    a = [x for x in sys.argv[1:] if not x.startswith("--lin_backend=")]
+    if a and a[0] == "phases":
+        print(json.dumps(profile_phases(int(a[1]) if len(a) > 1 else 128,
+                                        int(a[2]) if len(a) > 2 else 66,
+                                        float(a[3]) if len(a) > 3 else 1.0, **kw)))
+    elif a and a[0] == "loop":
         print(json.dumps(profile_loop(len(a) > 1 and a[1] == "parallel",
-                                      int(a[2]) if len(a) > 2 else 2)))
+                                      int(a[2]) if len(a) > 2 else 2, **kw)))
     elif a and a[0] == "tick":
         print(json.dumps(profile_tick(int(a[1]) if len(a) > 1 else 1,
-                                      int(a[2]) if len(a) > 2 else 3)))
+                                      int(a[2]) if len(a) > 2 else 3, **kw)))
     else:
         print(json.dumps(profile_step(int(a[0]) if a else 128, int(a[1]) if len(a) > 1 else 66,
-                                      float(a[2]) if len(a) > 2 else 1.0)))
+                                      float(a[2]) if len(a) > 2 else 1.0, **kw)))

@@ -1,11 +1,13 @@
 """Multiple-shooting SQP over the centroidal OCP.
 
-Port of ``hunter_bipedal_control_tpu/solver/sqp.py`` in the
-``lin_backend='dense'`` configuration: per-knot linearization, the
-equality projection (kernel B2, ``project_knot``), the Riccati sweep and
-forward rollout (kernel B3, ``riccati.riccati_solve``, or with
-``riccati_parallel`` kernel B5, ``riccati.riccati_solve_parallel``) and the
-filter line search.  Every array carries a leading scenario dim B; knots follow it.
+Port of ``hunter_bipedal_control_tpu/solver/sqp.py``: per-knot
+linearization and the line search's merit (``knot_linearization_all`` and
+``eval_merit``; with ``lin_backend='soa'``, the default, kernel B1 on the
+card, ``ocp/soa_kernel.py``), the equality projection (kernel B2,
+``project_knot``), the Riccati sweep and forward rollout (kernel B3,
+``riccati.riccati_solve``, or with ``riccati_parallel`` kernel B5,
+``riccati.riccati_solve_parallel``) and the filter line search.  Every
+array carries a leading scenario dim B; knots follow it.
 """
 from __future__ import annotations
 
@@ -16,15 +18,18 @@ import torch
 from ..kernels import _build
 from ..models.robot import RobotModel
 from ..ocp import problem as ocp
+from ..ocp import soa_kernel
 from ..ops.linalg import gj_inverse_plain
 from . import riccati
 
 
 class SqpSettings(NamedTuple):
     """Static solver configuration (sqp block of task.info; see the JAX
-    package for each knob).  The port runs the dense linearization
-    (``lin_backend='dense'``), both Riccati modes and the 'model' line
-    search.  ``riccati_solver``, ``riccati_ns_iters`` and
+    package for each knob).  ``lin_backend`` selects the linearization and
+    merit: 'soa' (default, as in the JAX package) runs the scalarized SoA
+    batch forms on the CPU and kernel B1 on the card; 'dense' runs the
+    dense forms (plain torch) on both.  Both Riccati modes and the 'model'
+    line search are ported.  ``riccati_solver``, ``riccati_ns_iters`` and
     ``riccati_ns_refine`` choose the Huu solve of the sequential Riccati on
     the CPU only; with ``riccati_parallel``, ``riccati_solver='gj'`` makes
     every solve of the CPU's associative Riccati exact (the JAX package
@@ -51,7 +56,7 @@ class SqpSettings(NamedTuple):
     riccati_ns_precision: str = "highest"
     small_mm: str = "vpu"
     proj_pivot: bool = False
-    lin_backend: str = "dense"
+    lin_backend: str = "soa"
 
 
 class ReferenceBundle(NamedTuple):
@@ -75,8 +80,8 @@ class SqpSolution(NamedTuple):
 
 def check_settings(settings: SqpSettings) -> None:
     """Refuse configurations this port does not run yet."""
-    if settings.lin_backend != "dense":
-        raise NotImplementedError("lin_backend='soa' (kernel B1) is not ported yet")
+    if settings.lin_backend not in ("soa", "dense"):
+        raise ValueError(f"unknown lin_backend {settings.lin_backend!r}")
     if settings.riccati_solver not in ("ns", "gj"):
         raise ValueError(f"unknown riccati_solver {settings.riccati_solver!r}")
     if settings.linesearch != "model":
@@ -197,18 +202,71 @@ def _take(a, idx):
     return torch.gather(a, -1, idx[..., None])[..., 0]
 
 
-def knot_linearization_all(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
-                           refs: ReferenceBundle, xs, us):
-    """All per-knot LQ data of B trajectories (xs (B, N+1, nx), us (B, N, nu))
-    in one batched dense pass, cost quadratics dt-scaled and equality rows
-    masked: (xnext, A, B, cost, qx, qu, Qxx, Quu, Qux, g, C, D, mask)."""
+def _knot_refs(settings: SqpSettings, refs: ReferenceBundle):
+    """The references at the N linearized knots: (x_nom, flags, fpr, fvr)."""
     N = settings.n_intervals
-    dt = settings.horizon / N
-    (xnext, A, B, cost, qx, qu, Qxx, Quu, Qux, g, C, D, mask) = ocp.knot_linearization_fused(
-        model, params, xs[:, :N], us, refs.x_nom[:, :N], refs.contact_flags[:, :N],
-        refs.foot_pos_ref[:, :N], refs.foot_vel_ref[:, :N], dt)
+    return (refs.x_nom[:, :N], refs.contact_flags[:, :N], refs.foot_pos_ref[:, :N],
+            refs.foot_vel_ref[:, :N])
+
+
+def _kernel_refs(refs: ReferenceBundle):
+    """The N+1-knot references as the B1 kernel takes them (contiguous)."""
+    return tuple(a.contiguous() for a in (refs.x_nom, refs.contact_flags, refs.foot_pos_ref,
+                                          refs.foot_vel_ref))
+
+
+def knot_linearization_all_plain(model: RobotModel, settings: SqpSettings,
+                                 params: ocp.OcpParams, refs: ReferenceBundle, xs, us):
+    """All per-knot LQ data of B trajectories (xs (B, N+1, nx), us (B, N, nu))
+    in one batched pass of the backend's plain forms (SoA:
+    ``knot_linearization_batch``; dense: ``knot_linearization_fused``),
+    cost quadratics dt-scaled and equality rows masked:
+    (xnext, A, B, cost, qx, qu, Qxx, Quu, Qux, g, C, D, mask)."""
+    dt = settings.horizon / settings.n_intervals
+    lin = (ocp.knot_linearization_fused if settings.lin_backend == "dense"
+           else ocp.knot_linearization_batch)
+    (xnext, A, B, cost, qx, qu, Qxx, Quu, Qux, g, C, D, mask) = lin(
+        model, params, xs[:, :settings.n_intervals], us, *_knot_refs(settings, refs), dt)
     cost, qx, qu, Qxx, Quu, Qux = (dt * a for a in (cost, qx, qu, Qxx, Quu, Qux))
     return xnext, A, B, cost, qx, qu, Qxx, Quu, Qux, g, C * mask[..., None], D * mask[..., None], mask
+
+
+def knot_linearization_all(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
+                           refs: ReferenceBundle, xs, us):
+    """``knot_linearization_all_plain``'s outputs.  'dense', or any backend
+    on the CPU: the plain version.  'soa' on CUDA: one launch of kernel B1's
+    ``hk_soa_linearize`` (``soa_kernel.soa_linearize``)."""
+    if settings.lin_backend == "dense" or xs.device.type == "cpu":
+        return knot_linearization_all_plain(model, settings, params, refs, xs, us)
+    return soa_kernel.soa_linearize(model, params, xs.contiguous(), us.contiguous(),
+                                    *_kernel_refs(refs), settings.horizon / settings.n_intervals)
+
+
+def eval_merit_plain(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
+                     refs: ReferenceBundle, xs, us):
+    """(total cost, constraint metric) of trajectories with a candidate dim:
+    xs (B, K, N+1, nx), us (B, K, N, nu) -> (B, K), by the backend's plain
+    forms (SoA: ``stage_merit_batch``; dense: ``stage_merit_fused``).  The
+    metric is |defects|_1 / N + |eq residual|_1 / N."""
+    N = settings.n_intervals
+    dt = settings.horizon / N
+    merit = ocp.stage_merit_fused if settings.lin_backend == "dense" else ocp.stage_merit_batch
+    rep = [a[:, None].expand(-1, xs.shape[1], *a.shape[1:]) for a in _knot_refs(settings, refs)]
+    costs, xnext, eq_res = merit(model, params, xs[:, :, :N], us, *rep, dt)
+    defects = xs[:, :, 1:] - xnext
+    g_metric = defects.abs().sum((-1, -2)) / N + eq_res.abs().sum((-1, -2)) / N
+    return dt * costs.sum(-1), g_metric
+
+
+def eval_merit(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
+               refs: ReferenceBundle, xs, us):
+    """``eval_merit_plain``'s outputs.  'dense', or any backend on the CPU:
+    the plain version.  'soa' on CUDA: one launch of kernel B1's
+    ``hk_soa_merit`` for all candidates (``soa_kernel.soa_merit``)."""
+    if settings.lin_backend == "dense" or xs.device.type == "cpu":
+        return eval_merit_plain(model, settings, params, refs, xs, us)
+    return soa_kernel.soa_merit(model, params, xs.contiguous(), us.contiguous(),
+                                *_kernel_refs(refs), settings.horizon / settings.n_intervals)
 
 
 def solve(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
@@ -219,20 +277,8 @@ def solve(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
     if params.collision is not None:
         raise NotImplementedError("self-collision terms are not ported yet")
     N = settings.n_intervals
-    dt = settings.horizon / N
     Bn = x_init.shape[0]
     dtype, dev = x_init.dtype, x_init.device
-    ref_args = (refs.x_nom[:, :N], refs.contact_flags[:, :N], refs.foot_pos_ref[:, :N],
-                refs.foot_vel_ref[:, :N])
-
-    def eval_merit(xs, us):
-        """(total cost, constraint metric) of trajectories with extra
-        candidate dims: xs (B, K, N+1, nx), us (B, K, N, nu) -> (B, K)."""
-        rep = [a[:, None].expand(-1, xs.shape[1], *a.shape[1:]) for a in ref_args]
-        costs, xnext, eq_res = ocp.stage_merit_fused(model, params, xs[:, :, :N], us, *rep, dt)
-        defects = xs[:, :, 1:] - xnext
-        g_metric = defects.abs().sum((-1, -2)) / N + eq_res.abs().sum((-1, -2)) / N
-        return dt * costs.sum(-1), g_metric
 
     def sqp_iteration(xs, us):
         (xnext, A, B, cost_k, qx, qu, Qxx, Quu, Qux, g, C, D, gmask) = (
@@ -292,7 +338,8 @@ def solve(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
         alphas = torch.stack([alpha_hat, 0.25 * alpha_hat], dim=-1)
 
         a4 = alphas[:, :, None, None]
-        cost_a, g_a = eval_merit(xs[:, None] + a4 * dxs_full[:, None],
+        cost_a, g_a = eval_merit(model, settings, params, refs,
+                                 xs[:, None] + a4 * dxs_full[:, None],
                                  us[:, None] + a4 * dus[:, None])
         finite = torch.isfinite(cost_a) & torch.isfinite(g_a)
         accept = filter_accept(cost_a, g_a, alphas)

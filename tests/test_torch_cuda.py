@@ -14,12 +14,18 @@ plain version's own error) of the float64 plain version, on its own scale
 riccati_solve_parallel (B5, exact solves): each output within max(1e-4,
 2 x the float32 exact plain version's own error) of the float64 exact plain
 version, on its own scale, both plain versions run on the CPU.
+soa_linearize and soa_merit (B1): each of the 13 linearization outputs and
+the merit's cost and metric within max(1e-4, 2 x the float32 plain SoA
+version's own error) of the float64 plain SoA version, on its own scale,
+on random and main-path data at B=1/N=53 and B=128/N=66.
 """
 import numpy as np
 import pytest
 import torch
 
 from hunter_bipedal_control_tpu_torch.entry import build_flagship, build_wbc_batch
+from hunter_bipedal_control_tpu_torch.models.robot import load_model
+from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
 from hunter_bipedal_control_tpu_torch.ops import linalg, qp
 from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
 from hunter_bipedal_control_tpu_torch.wbc import wbc
@@ -261,3 +267,131 @@ def test_riccati_parallel_kernel_refuses_bad_input(cuda):
                                        1e-6)
     with pytest.raises(ValueError):
         riccati.riccati_solve_parallel(lq._replace(A=lq.A.transpose(-1, -2)), E, P, e, dx0, 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# B1: the SoA linearization and merit (csrc/soa_linearize.cu)
+# ---------------------------------------------------------------------------
+
+B1_TOL = 1e-4
+LIN_NAMES = ("xnext", "A", "B", "cost", "qx", "qu", "Qxx", "Quu", "Qux", "g", "C", "D", "mask")
+
+
+def _cast(tup, device, dtype):
+    """A NamedTuple with its floating tensors on ``device`` in ``dtype``
+    (index tensors and other fields as they are)."""
+    return type(tup)(*(t.to(device, dtype) if torch.is_tensor(t) and t.is_floating_point()
+                       else t for t in tup))
+
+
+def _soa_problem(cuda, batch, n_knots, horizon, main_path, seed=0):
+    """(model, settings, params, refs, xs, us) on the card, float32: the
+    flagship's cold-step warm start and references (``main_path``) or random
+    states, inputs, flags and references around the nominal pose."""
+    flag = build_flagship(n_knots, horizon, batch=batch, device=cuda)
+    st = flag.settings
+    if main_path:
+        sched = mpc_mod.ModeSchedule(*(a.expand(batch, *a.shape) for a in flag.schedule))
+        target = mpc_mod.tg.TargetTrajectories(*(a.expand(batch, *a.shape) for a in flag.target))
+        bundle, _, _, _ = mpc_mod.prepare_references(
+            flag.model, st, flag.planner_cfg, flag.state.planner, sched, target,
+            torch.zeros(batch, device=cuda), flag.x0, torch.zeros(batch, 6, device=cuda),
+            flag.default_joints.expand(batch, -1))
+        xs, us = mpc_mod._warm_start(flag.model, st, bundle, flag.state, flag.x0)
+        return flag.model, st, flag.params, bundle, xs.contiguous(), us.contiguous()
+    rng = np.random.default_rng(seed)
+    K1 = n_knots + 1
+    x0 = flag.x0[0].double().cpu().numpy()
+    xs = x0 + np.concatenate([0.3 * rng.standard_normal((batch, K1, 6)),
+                              0.02 * rng.standard_normal((batch, K1, 6)),
+                              0.1 * rng.standard_normal((batch, K1, 10))], axis=-1)
+    us = rng.standard_normal((batch, n_knots, 22)) * np.r_[np.full(12, 30.0), np.full(10, 1.0)]
+    us[..., 2:12:3] += 30.0
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    bundle = sqp.ReferenceBundle(
+        times=t(np.tile(np.arange(K1) * horizon / n_knots, (batch, 1))),
+        x_nom=t(x0 + 0.01 * rng.standard_normal((batch, K1, 22))),
+        contact_flags=t(rng.integers(0, 2, (batch, K1, 4)).astype(np.float64)),
+        foot_pos_ref=t(0.1 * rng.standard_normal((batch, K1, 4, 3))),
+        foot_vel_ref=t(0.1 * rng.standard_normal((batch, K1, 4, 3))))
+    return flag.model, st, flag.params, bundle, t(xs), t(us)
+
+
+def _plain_cpu(fn, problem, dtype, *extra):
+    model, st, params, bundle, *arrays = problem
+    return fn(_cast(model, "cpu", dtype), st, _cast(params, "cpu", dtype),
+              _cast(bundle, "cpu", dtype), *(a.to("cpu", dtype) for a in arrays), *extra)
+
+
+def _held_to_f64(got, ref32, ref64, names):
+    for name, a, b, c in zip(names, got, ref32, ref64):
+        a = a.cpu()
+        assert torch.isfinite(a).all(), name
+        assert _own_scale_err(a, c) <= max(B1_TOL, 2.0 * _own_scale_err(b, c)), name
+
+
+def _candidates(problem, n_cand=2, seed=1):
+    """Line-search-like candidates: the trajectory moved along a random
+    direction by 1 and 0.25 of its step."""
+    model, st, params, bundle, xs, us = problem
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dxs = (0.01 * torch.randn(xs.shape, generator=g)).to(xs.device)
+    dus = (torch.randn(us.shape, generator=g) * 2.0).to(us.device)
+    a = torch.tensor([1.0, 0.25][:n_cand], device=xs.device)[None, :, None, None]
+    return (model, st, params, bundle, (xs[:, None] + a * dxs[:, None]).contiguous(),
+            (us[:, None] + a * dus[:, None]).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("main_path", [False, True], ids=["random", "main_path"])
+@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+def test_soa_linearize_kernel(cuda, batch, n_knots, horizon, main_path):
+    problem = _soa_problem(cuda, batch, n_knots, horizon, main_path)
+    before = soa_kernel.soa_linearize.launches
+    got = sqp.knot_linearization_all(*problem)
+    torch.cuda.synchronize()
+    assert soa_kernel.soa_linearize.launches == before + 1
+    ref32 = _plain_cpu(sqp.knot_linearization_all_plain, problem, torch.float32)
+    ref64 = _plain_cpu(sqp.knot_linearization_all_plain, problem, torch.float64)
+    _held_to_f64(got, ref32, ref64, LIN_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("main_path", [False, True], ids=["random", "main_path"])
+@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+def test_soa_merit_kernel(cuda, batch, n_knots, horizon, main_path):
+    problem = _candidates(_soa_problem(cuda, batch, n_knots, horizon, main_path))
+    before = soa_kernel.soa_merit.launches
+    got = sqp.eval_merit(*problem)
+    torch.cuda.synchronize()
+    assert soa_kernel.soa_merit.launches == before + 1
+    ref32 = _plain_cpu(sqp.eval_merit_plain, problem, torch.float32)
+    ref64 = _plain_cpu(sqp.eval_merit_plain, problem, torch.float64)
+    _held_to_f64(got, ref32, ref64, ("cost", "metric"))
+
+
+@pytest.mark.cuda
+def test_soa_kernel_refuses_other_topology(cuda):
+    model, st, params, bundle, xs, us = _soa_problem(cuda, 1, 5, 0.1, False)
+    bad = load_model(device="cpu")
+    bad = bad._replace(joint_parent=torch.tensor([0, 1, 2, 3, 4, 0, 6, 7, 8, 8]))
+    bad = _cast(bad, cuda, torch.float32)
+    with pytest.raises(ValueError, match="topology"):
+        sqp.knot_linearization_all(bad, st, params, bundle, xs, us)
+    with pytest.raises(ValueError, match="topology"):
+        sqp.eval_merit(bad, st, params, bundle, xs[:, None].contiguous(),
+                       us[:, None].contiguous())
+
+
+@pytest.mark.cuda
+def test_soa_kernel_refuses_bad_input(cuda):
+    model, st, params, bundle, xs, us = _soa_problem(cuda, 2, 5, 0.1, False)
+    args = (model, params, xs, us, bundle.x_nom, bundle.contact_flags, bundle.foot_pos_ref,
+            bundle.foot_vel_ref, 0.02)
+    with pytest.raises(TypeError):
+        soa_kernel.soa_linearize(*args[:2], xs.double(), *args[3:])
+    with pytest.raises(ValueError):
+        soa_kernel.soa_linearize(*args[:3], us.transpose(0, 1).contiguous().transpose(0, 1),
+                                 *args[4:])
+    with pytest.raises(TypeError):
+        soa_kernel.soa_merit(*args[:2], xs[:, None].contiguous(), us[:, None].double(), *args[4:])

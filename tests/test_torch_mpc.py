@@ -3,7 +3,9 @@
 ``mpc_step`` at the BENCH_QUICK shape (B=3 scenarios, N=8 knots, 0.24 s,
 trot, 0.25 m/s) against the JAX ``mpc_step`` with ``lin_backend='dense'``
 under ``jax.vmap``: a cold step, then a warm step from each side's own new
-state.  float64: states, inputs and cost to 1e-8, step_size exactly.
+state.  float64: states, inputs and cost to 1e-8, step_size exactly, with
+the port's ``lin_backend`` 'soa' (its default) and 'dense' (the two give
+the same outputs in JAX, tests/test_soa.py).
 float32: both sides in float32 as ``_build`` makes the problem; states to
 2e-3, inputs to 0.1 (forces reach ~70 N), cost to 2e-3, step_size exactly
 (measured on the CPU: 2.6e-4, 2.3e-2 and 7.4e-5 on the cold step).
@@ -31,6 +33,7 @@ from hunter_bipedal_control_tpu_torch import convert
 from hunter_bipedal_control_tpu_torch.entry import build_flagship
 from hunter_bipedal_control_tpu_torch.gait import mode_schedule as tms
 from hunter_bipedal_control_tpu_torch.models.robot import load_model
+from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
 from hunter_bipedal_control_tpu_torch.ops import linalg as tlinalg
 from hunter_bipedal_control_tpu_torch.solver import mpc as tmpc, riccati as tric, sqp as tsqp
 
@@ -65,8 +68,8 @@ def jax_steps():
     return _jax_steps(jnp.float64, f64_template=True)
 
 
-def port_steps(dtype, f64_template=False, B=B, N=N, HORIZON=HORIZON):
-    flag = build_flagship(N, HORIZON, batch=B, device="cpu", dtype=dtype)
+def port_steps(dtype, f64_template=False, B=B, N=N, HORIZON=HORIZON, lin_backend="soa"):
+    flag = build_flagship(N, HORIZON, batch=B, device="cpu", dtype=dtype, lin_backend=lin_backend)
     if f64_template:
         flag = flag._replace(schedule=tms.tile_template(tms.TROT_GAIT("cpu", torch.float64),
                                                         -HORIZON, 4 * HORIZON))
@@ -96,10 +99,11 @@ def test_flagship_inputs_match_jax_build(jax_steps):
                                            atol=1e-15)
 
 
+@pytest.mark.parametrize("lin_backend", ["soa", "dense"])
 @pytest.mark.parametrize("which", ["cold", "warm"])
-def test_mpc_step_matches_jax_f64(jax_steps, which):
+def test_mpc_step_matches_jax_f64(jax_steps, which, lin_backend):
     _, jcold, jwarm = jax_steps
-    _, tcold, twarm = port_steps(torch.float64, f64_template=True)
+    _, tcold, twarm = port_steps(torch.float64, f64_template=True, lin_backend=lin_backend)
     (jsol, _, jb), (tsol, _, tb) = (jcold, tcold) if which == "cold" else (jwarm, twarm)
     for name in tb._fields:
         close(getattr(tb, name), getattr(jb, name), atol=1e-8)
@@ -205,7 +209,8 @@ def test_entry_points_refuse_missing_cuda():
 
 
 def test_cpu_step_launches_no_kernel():
-    counters = (tlinalg.gj_inverse, tsqp.project_knot, tric.riccati_solve)
+    counters = (tlinalg.gj_inverse, tsqp.project_knot, tric.riccati_solve,
+                soa_kernel.soa_linearize, soa_kernel.soa_merit)
     before = [c.launches for c in counters]
     port_steps(torch.float32)
-    assert [c.launches for c in counters] == before == [0, 0, 0]
+    assert [c.launches for c in counters] == before == [0, 0, 0, 0, 0]

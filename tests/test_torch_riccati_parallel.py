@@ -9,7 +9,8 @@
 - The ``exact`` variant (Cholesky and LU solves) against JAX
   ``backward_scan(use_ns=False)`` at tests/test_riccati.py's tolerances.
 - ``sqp.solve`` through ``mpc_step`` with ``riccati_parallel=True`` against
-  JAX (``lin_backend='dense'``) at B=3, N=8, cold and warm, float64, 1e-8.
+  JAX (``lin_backend='dense'``) at B=3, N=8, cold and warm, float64, 1e-8,
+  with the port's ``lin_backend`` 'soa' (default) and 'dense'.
 - A 3-solve ``mpc_chain`` in each Riccati mode against a JAX loop of
   ``mpc_step`` at N=8, float64, 1e-8.
 """
@@ -148,8 +149,9 @@ def _jax_setup(n_knots, horizon):
     return m, settings._replace(riccati_parallel=True), params, pcfg, dj, x0, sched, target
 
 
-def _port_flagship(batch, n_knots, horizon):
-    flag = build_flagship(n_knots, horizon, batch=batch, device="cpu", dtype=torch.float64)
+def _port_flagship(batch, n_knots, horizon, lin_backend="soa"):
+    flag = build_flagship(n_knots, horizon, batch=batch, device="cpu", dtype=torch.float64,
+                          lin_backend=lin_backend)
     return flag._replace(schedule=tms.tile_template(tms.TROT_GAIT("cpu", torch.float64),
                                                     -horizon, 4 * horizon))
 
@@ -166,20 +168,24 @@ def parallel_steps():
     jcold = f(st0, xs)
     jwarm = f(jcold[1], xs)
 
-    flag = _port_flagship(B, N, HORIZON)
-    mpc = tmpc.Mpc(flag.model, flag.settings._replace(riccati_parallel=True), flag.params,
-                   flag.planner_cfg)
-    args = (flag.schedule, flag.target, 0.0, flag.x0, torch.zeros(6, dtype=torch.float64),
-            flag.default_joints)
-    tcold = mpc(flag.state, *args)
-    twarm = mpc(tcold[1], *args)
-    return (jcold, jwarm), (tcold, twarm)
+    port = {}
+    for lin_backend in ("soa", "dense"):
+        flag = _port_flagship(B, N, HORIZON, lin_backend)
+        mpc = tmpc.Mpc(flag.model, flag.settings._replace(riccati_parallel=True), flag.params,
+                       flag.planner_cfg)
+        args = (flag.schedule, flag.target, 0.0, flag.x0, torch.zeros(6, dtype=torch.float64),
+                flag.default_joints)
+        tcold = mpc(flag.state, *args)
+        twarm = mpc(tcold[1], *args)
+        port[lin_backend] = (tcold, twarm)
+    return (jcold, jwarm), port
 
 
+@pytest.mark.parametrize("lin_backend", ["soa", "dense"])
 @pytest.mark.parametrize("which", [0, 1], ids=["cold", "warm"])
-def test_parallel_mpc_step_matches_jax_f64(parallel_steps, which):
+def test_parallel_mpc_step_matches_jax_f64(parallel_steps, which, lin_backend):
     jsol = parallel_steps[0][which][0]
-    tsol = parallel_steps[1][which][0]
+    tsol = parallel_steps[1][lin_backend][which][0]
     np.testing.assert_allclose(tsol.states.numpy(), np.asarray(jsol.states), atol=1e-8)
     np.testing.assert_allclose(tsol.inputs.numpy(), np.asarray(jsol.inputs), atol=1e-8,
                                rtol=1e-8)
