@@ -7,30 +7,39 @@ Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build of the hand-written kernels (csrc/*.cu, nvcc for sm_90a);
   3. each kernel against its plain PyTorch version on the card, at its
-     paths' shapes: B6 gj_inverse (IK 5x5, projection 16x16, the Kalman
-     filter's 28x28 innovation, the momentum observer's 5x5 leg systems),
+     paths' shapes: B6 gj_inverse (IK-shaped 5x5, the use B8a absorbed,
+     projection 16x16, the Kalman filter's 28x28 innovation, the momentum
+     observer's 5x5 leg systems),
      B2 project_knot, B3 riccati_solve, B4 solve_qp on the WBC's own QPs at
      B=4096, cold and warm (errors against the float32 and float64 plain
      versions; kernel / plain / library times by CUDA events, medians of 15);
   4. the MPC path: the flagship problem (B=128 scenarios, 66 knots over
      1.0 s, trot, 0.25 m/s) through ``Mpc`` with ``lin_backend='soa'`` (the
      default: kernel B1), one cold and one warm step, with every kernel's
-     launch count read around it, held against the port's own CPU runs
-     (plain versions: float32, and float64 with the exact Huu solve); the
-     same warm step with ``lin_backend='dense'`` on the card held to the
-     'soa' one, launches per step (and per phase) of both backends; then the
-     product shape (B=1, 53 knots over 0.8 s);
+     launch count read around it (one leg_ik and no gj_inverse launch per
+     step), held against the port's own CPU runs (plain versions: float32,
+     and float64 with the exact Huu solve); the same warm step with
+     ``lin_backend='dense'`` on the card held to the 'soa' one, launches per
+     step (and per phase, the reference prep split into its sub-phases) of
+     both backends; then the product shape (B=1, 53 knots over 0.8 s);
   4a. B1 (soa_linearize, soa_merit) on the inputs the warm steps of the
      bench shape (B=128, N=66) and the product shape (B=1, N=53) gave the
      linearization and the line search's merit: every output against the
      float64 plain SoA version and the float64 dense plain version, within
      max(tol, 2x the float32 plain SoA version's error), bfloat16 landing
      above the limit; kernel, plain and dense plain times;
+  4a2. B8a (leg_ik) on the inputs the same warm steps gave
+     ``joint_reference_ik``, and on those inputs moved by a seeded offset
+     (the keep-if-improved tests then go both ways): both passes' joints
+     against the float64 plain version within max(tol, 2x the float32 plain
+     version's error), bfloat16 landing above the limit, the decisions of
+     the plain versions counted per pass; kernel and plain times;
   4b. the tick path: TICKS (50) chained 500 Hz ticks (``entry.tick_chain``: Kalman
      update, momentum observer, WBC, gains) on the product shape's cold
      policy, launch counts read around it, every tick's command and WBC
      solution and the final estimator and WBC states held against the
-     port's CPU float32 and float64 runs;
+     port's CPU float32 and float64 runs; B4 on every tick's own QP (B=1)
+     against its plain versions, with its time and bound;
   4c. the batched WBC (``entry.wbc_chain``): B=4096 standing states, one
      cold tick, then a 6-tick warm chain, solves/s, solutions and accepted
      QPs per tick held against CPU float32 and float64 runs of every 16th
@@ -48,7 +57,8 @@ Phases, each printing one JSON line:
      tests/golden/stance_walk_40p.npz with tests/test_golden.py's checks,
      ms per 10 ms period;
   5. the kernels line: launches, error, times and bound of each kernel, B6
-     with one row per use (IK, Kalman, observer).
+     with one row per use (IK, absorbed into B8a on the MPC path; Kalman;
+     observer).
 The last line is {"ok": true, "device": {...}}.  Any failed check raises.
 Exits non-zero without a card, and outside the repository.
 """
@@ -88,7 +98,30 @@ REPS = 15
 # a floor of 1e-4: the JAX algorithm's Newton-Schulz solves (not converged
 # there, ~1e-3 to 1e-2 from the exact solve in float64 too) would not pass.
 TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4,
-       "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4}
+       "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4,
+       "leg_ik": 1e-4}
+# B8a (leg_ik) is held, on each pass's joints on their own scale, to the
+# float64 plain version within max(tol, TOL_FACTOR x the float32 plain
+# version's error).  The damped 5x5 systems have rank 3 (translation) plus
+# the 1e-6 damping, so float32 rounding in their null space is amplified
+# ~1e6 and the float32 plain version itself sits ~1e-4-1e-2 from float64 on
+# the main path; a keep-if-improved test that goes the other way moves a
+# leg by a whole step.  So both errors are taken leg by leg outside the
+# legs where a test of that pass or the one before went the other way from
+# the float64 plain version's (the kernel reports its tests), and the
+# kernel may flip at most IK_FLIP_FACTOR times the float32 plain version's
+# flipped legs plus IK_FLIP_FLOOR: a flip needs two error norms within
+# rounding of each other, which float32 meets on a few legs of any data.
+# Held over every leg, one float32 plain flip can put its error, and the
+# limit, above bfloat16's (on an H100: 1.37 against 1.36 on the moved B=128
+# inputs), and the check goes blind.
+IK_FLIP_FACTOR, IK_FLIP_FLOOR = 2, 2
+# The moved inputs of 4a2: base positions, Euler angles and toe targets
+# plus seeded normal offsets of these sizes (m, rad, m) per shape; the
+# bench shape's scenarios already spread far from the nominal pose, the
+# product shape's one scenario needs the larger offset before its
+# keep-if-improved tests reject a step in each pass.
+IK_OFFSET = {128: (0.02, 0.1, 0.03), 1: (0.05, 0.3, 0.08)}
 # B1 (soa_linearize, soa_merit) is held, output by output on its own scale,
 # to two float64 yardsticks that share no code: the plain SoA version and the
 # dense plain version, each within max(tol, TOL_FACTOR x the float32 plain
@@ -348,6 +381,29 @@ def qp_cost(batch, iters, n=38, me=28, mi=40):
     return batch * (n_in + n_out) * 4, batch * (iters * per_iter + 2 * (me + mi) * n)
 
 
+def ik_cost(batch, n_samples, trans_it, rot_it, nj=10):
+    """Bytes (poses, toe targets, warm joints, target rotations, the leg
+    joints' constants and the contact offsets of both toes in; both passes'
+    joints out) and operations of the two IK passes as csrc/leg_ik.cu runs
+    them per (scenario, sample, leg): per joint of a toe evaluation two 3x3
+    products, three 3x3-vector products, the Rodrigues matrix and its
+    cosine and sine; the Jacobian's five cross products; per step the 5x5
+    normal system, its Gauss-Jordan inverse (as ``gj_cost``) and the
+    solution; the rotation step's local-frame Jacobians, the projector
+    through the 3x3 adjugate inverse, and log3."""
+    joint = 45 + 15 + 3 + 15 + 2 + 1 + 36 + 45
+    toe = 5 * joint + 18 + 5 * 12
+    solve5 = 5 * 26 + 25 + 5 * (2 * 5 + 4 * 5 * 4) + 45
+    rot_err = 45 + 3 + 2 + 3 + 9 + 6
+    trans_step = toe + solve5 + 20 + 12
+    rot_step = toe + 150 + 84 + 42 + 75 + 150 + 135 + solve5 + 45 + 20 + rot_err + 7
+    per_pass = toe + 12 + trans_it * trans_step + toe + rot_err + 7 + rot_it * rot_step
+    legs = 2 * batch * n_samples
+    n_in = batch * n_samples * (6 + 6) + batch * (nj + 9) + 2 * nj + nj * 33 + 2 * 3
+    n_out = 2 * batch * n_samples * nj
+    return (n_in + n_out) * 4, legs * (22 + 2 * per_pass)
+
+
 def gj_inverse_fma(A, pivot):
     """The plain Gauss-Jordan inverse (natural-order pivots) in float32 with
     the kernel's rounding: each update M - col prow rounded once, as a fused
@@ -439,6 +495,7 @@ def main():
     from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
     from hunter_bipedal_control_tpu_torch.ops import linalg, qp
     from hunter_bipedal_control_tpu_torch.profile_step import _profiled, profile_phases
+    from hunter_bipedal_control_tpu_torch.refs import ik as ik_mod
     from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
     from hunter_bipedal_control_tpu_torch.wbc import wbc as wbc_mod
 
@@ -531,9 +588,11 @@ def main():
         return (X @ X.transpose(1, 2) / n + 0.5 * torch.eye(n)).to(dev).contiguous()
 
     # B6, one kernels-line row per use: the IK's 5x5 damped normal systems
-    # (2 legs x 7 samples per scenario) on the MPC step here, the tick's two
-    # uses below; the projection's 16x16 Gram shape as an extra line
-    gj_case(spd(B * 7 * 2, 5), True, "gj_inverse", "IK 5x5 (refs/ik.py:50-58), mpc_step")
+    # (2 legs x 7 samples per scenario; B8a's leg_ik solves them on the MPC
+    # path now), the tick's two uses below; the projection's 16x16 Gram
+    # shape as an extra line
+    ik_use = "IK 5x5 (refs/ik.py:50-58): absorbed into B8a's leg_ik on the MPC path"
+    gj_case(spd(B * 7 * 2, 5), True, "gj_inverse", ik_use)
     gj_case(spd(B * N, 16), False, use="projection Gram 16x16 shape (not on a path)")
 
     # B2 and B3 on the main path's own data: the first SQP iteration of the
@@ -640,7 +699,8 @@ def main():
     counters = {"gj_inverse": linalg.gj_inverse, "project_knot": sqp.project_knot,
                 "riccati_solve": riccati.riccati_solve,
                 "riccati_solve_parallel": riccati.riccati_solve_parallel, "solve_qp": qp.solve_qp,
-                "soa_linearize": soa_kernel.soa_linearize, "soa_merit": soa_kernel.soa_merit}
+                "soa_linearize": soa_kernel.soa_linearize, "soa_merit": soa_kernel.soa_merit,
+                "leg_ik": ik_mod.leg_ik}
     b1 = ("soa_linearize", "soa_merit")
 
     # the inputs the linearization and the line search's merit get on a
@@ -648,7 +708,7 @@ def main():
     captured = {}
 
     def capture(run):
-        lin, merit = sqp.knot_linearization_all, sqp.eval_merit
+        lin, merit, ik = sqp.knot_linearization_all, sqp.eval_merit, ik_mod.joint_reference_ik
 
         def lin_cap(*a):
             captured.setdefault("lin", a)
@@ -658,17 +718,24 @@ def main():
             captured.setdefault("merit", a)
             return merit(*a)
 
+        def ik_cap(*a, **k):
+            captured.setdefault("ik", (a, k))
+            return ik(*a, **k)
+
         captured.clear()
         sqp.knot_linearization_all, sqp.eval_merit = lin_cap, merit_cap
+        ik_mod.joint_reference_ik = ik_cap
         try:
             return run()
         finally:
             sqp.knot_linearization_all, sqp.eval_merit = lin, merit
+            ik_mod.joint_reference_ik = ik
         
     # the kernels line's B6 rows: each counts the launches of its matrix size
-    # on its path
+    # on its path (the IK use: none, B8a solves its systems on the MPC path)
     gj_rows = {"gj_inverse": ("mpc_step", 5), "gj_inverse_kalman": ("tick", 28),
                "gj_inverse_observer": ("tick", 5)}
+    gj_absorbed = ("gj_inverse",)
     path_launches, gj_by_n = {}, {}
 
     def zero_counts():
@@ -676,9 +743,10 @@ def main():
             c.launches = 0
         linalg.gj_inverse.launches_by_n.clear()
 
-    def read_counts(path, kernels, absent=()):
+    def read_counts(path, kernels, absent=(), steps=0):
         """The launches of the path's run; raise if one of its kernels (or one
-        of its B6 rows) had none, or a kernel of ``absent`` had any."""
+        of its B6 rows) had none, a kernel of ``absent`` had any, or leg_ik
+        was not launched exactly once per MPC step (``steps`` of them)."""
         counts = {n: c.launches for n, c in counters.items()}
         path_launches[path] = counts
         gj_by_n[path] = dict(linalg.gj_inverse.launches_by_n)
@@ -688,8 +756,11 @@ def main():
         for n in absent:
             if counts[n] != 0:
                 raise AssertionError(f"kernel {n} was launched on the {path} path")
+        if counts["leg_ik"] != steps:
+            raise AssertionError(f"leg_ik: {counts['leg_ik']} launches on the {path} path, "
+                                 f"{steps} MPC steps")
         for row, (p, n) in gj_rows.items():
-            if p == path and gj_by_n[path].get(n, 0) <= 0:
+            if p == path and row not in gj_absorbed and gj_by_n[path].get(n, 0) <= 0:
                 raise AssertionError(f"{row} ({n}x{n}) was not launched on the {path} path")
         return {**counts, "gj_inverse_by_n": gj_by_n[path]}
 
@@ -702,8 +773,8 @@ def main():
     warm, _, _ = capture(lambda: mpc(st1, *args))
     torch.cuda.synchronize()
     bench_cap = dict(captured)
-    launches = read_counts("mpc_step", ("gj_inverse", "project_knot", "riccati_solve") + b1,
-                           ("riccati_solve_parallel",))
+    launches = read_counts("mpc_step", ("leg_ik", "project_knot", "riccati_solve") + b1,
+                           ("riccati_solve_parallel", "gj_inverse"), steps=2)
     for name, sol in (("cold", cold), ("warm", warm)):
         for f in ("states", "inputs", "cost", "constraint_violation", "step_size"):
             if not torch.isfinite(getattr(sol, f)).all():
@@ -769,8 +840,8 @@ def main():
     zero_counts()
     warm_dense, _, _ = dense_mpc(st1, *args)
     torch.cuda.synchronize()
-    dense_counts = read_counts("mpc_step_dense", ("gj_inverse", "project_knot",
-                                                  "riccati_solve"), b1)
+    dense_counts = read_counts("mpc_step_dense", ("leg_ik", "project_knot", "riccati_solve"),
+                               b1 + ("gj_inverse",), steps=1)
     dense_times = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -790,8 +861,11 @@ def main():
         return _profiled(run, 1, 8)
 
     prof = {"soa": step_launches(mpc), "dense": step_launches(dense_mpc)}
-    phases = {lb: profile_phases(B, N, H, lin_backend=lb)["launch_calls_by_phase"]
-              for lb in ("soa", "dense")}
+    phases = {}
+    for lb in ("soa", "dense"):
+        ph = profile_phases(B, N, H, lin_backend=lb)
+        phases[lb] = {**ph["launch_calls_by_phase"],
+                      "prepare_references_split": ph["prepare_references_split"]}
     emit({"phase": "backends", "batch": B, "knots": N, "dense_vs_soa": d_sd, "tol": tol,
           "step_size_equal": same_alpha, "launches_dense": dense_counts,
           "step_ms": {"soa": step_ms, "dense": statistics.median(dense_times) * 1e3},
@@ -887,6 +961,97 @@ def main():
     for cap, row in ((bench_cap, True), (product_cap, False)):
         b1_case("soa_linearize", cap["lin"], row)
         b1_case("soa_merit", cap["merit"], row)
+
+    # ---- 4a2. B8a on the warm steps' own IK inputs, and moved off them ----
+    def ik_case(cap, row, offset_seed=None):
+        """leg_ik on the captured main-path inputs of ``joint_reference_ik``
+        (moved by a seeded offset of the base poses and toe targets if
+        ``offset_seed``) against the float64 plain version, leg by leg
+        outside the legs where a keep-if-improved test went the other way
+        (IK_FLIP_FACTOR); ``row``: this case fills the kernels line's row,
+        else a kernel_extra line."""
+        (model_, poses, warm_j, des, R_des), kw = cap
+        if offset_seed is not None:
+            g = torch.Generator(device="cpu").manual_seed(offset_seed)
+            d_pos, d_rot, d_toe = IK_OFFSET[poses.shape[0]]
+            scale = torch.tensor([d_pos] * 3 + [d_rot] * 3)
+            poses = (poses + (torch.randn(poses.shape, generator=g) * scale).to(dev)).contiguous()
+            des = (des + d_toe * torch.randn(des.shape, generator=g).to(dev)).contiguous()
+        arrays = (poses, warm_j, des, R_des)
+        tol = TOL["leg_ik"]
+        *got, kept = ik_mod.leg_ik(model_, *arrays, **kw, with_decisions=True)
+        torch.cuda.synchronize()
+
+        def plain(dtype, decisions=None):
+            return ik_mod.joint_reference_ik_plain(cast(model_, dev, dtype),
+                                                   *(a.to(dtype) for a in arrays), **kw,
+                                                   decisions=decisions)
+
+        dec32, dec64 = [], []
+        p32, p64, bf16 = plain(torch.float32, dec32), plain(torch.float64, dec64), plain(
+            torch.bfloat16)
+        d64 = torch.stack([torch.stack(d) for d in dec64])            # (2, T, B, S, 2)
+
+        def flipped(d):
+            """(2, B, S, 2): legs with a test off float64's in this pass or
+            the one before (pass 2 starts from pass 1's joints)."""
+            off = (d != d64).any(1)
+            return torch.stack([off[0], off[0] | off[1]])
+
+        flip_k, flip_32 = flipped(kept), flipped(torch.stack([torch.stack(d) for d in dec32]))
+
+        def leg_err(a, b, legs):
+            """max |a - b| over the joints of ``legs`` (B, S, 2), and that
+            over max |b|."""
+            m = legs.repeat_interleave(5, dim=-1)
+            diff = ((a.double() - b.double()).abs() * m).max().item()
+            return diff, diff / max(b.double().abs().max().item(), 1e-30)
+
+        names = ("qj1", "joint_refs")
+        err = {n: (rel_err(got[p], p32[p]), leg_err(got[p], p64[p], ~flip_k[p]),
+                   leg_err(p32[p], p64[p], ~flip_32[p])) for p, n in enumerate(names)}
+        limits = {n: max(tol, TOL_FACTOR * p64e[1]) for n, (_, _, p64e) in err.items()}
+        e_bf16 = {n: rel_err(b, c)[1] for n, b, c in zip(names, bf16, p64)}
+        flips = {n: {"kernel": int(flip_k[p].sum()), "plain_f32": int(flip_32[p].sum()),
+                     "legs": flip_k[p].numel()} for p, n in enumerate(names)}
+        all_legs = {n: {"kernel": rel_err(got[p], p64[p])[1],
+                        "plain_f32": rel_err(p32[p], p64[p])[1]} for p, n in enumerate(names)}
+        decisions = [{"kept": int(d.sum()), "rejected": int((~d).sum())} for d in d64]
+        Bn, S = poses.shape[0], poses.shape[1]
+        cost = ik_cost(Bn, S, kw["trans_it"], kw["rot_it"])
+        times = (cuda_ms(lambda: ik_mod.joint_reference_ik(model_, *arrays, **kw)),
+                 cuda_ms(lambda: ik_mod.joint_reference_ik_plain(model_, *arrays, **kw), reps=3))
+        info = {"scenarios": Bn, "samples": S, "offset_seed": offset_seed,
+                "offset": None if offset_seed is None else IK_OFFSET[Bn],
+                "flipped_legs": flips, "rel_err_vs_f64_all_legs": all_legs,
+                "plain_f64_decisions_per_pass": decisions, "plain_bf16_rel_err_vs_f64": e_bf16}
+        label = f"leg_ik B={Bn} S={S}" + ("" if offset_seed is None else " offset")
+        if row:
+            record("leg_ik", "cuda", "hunter_bipedal_control_tpu_torch/csrc/leg_ik.cu",
+                   "hunter_bipedal_control_tpu/solver/mpc.py:56", err, tol, times[0], times[1],
+                   None, cost, info)
+        else:
+            b_ms, b_by = bound(*cost)
+            emit({"phase": "kernel_extra", "name": "leg_ik", "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times[0], "plain_ms": times[1],
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **info})
+            check(label, err, tol)
+        many = {n: f for n, f in flips.items()
+                if f["kernel"] > IK_FLIP_FACTOR * f["plain_f32"] + IK_FLIP_FLOOR}
+        if many:
+            raise AssertionError(f"{label}: the kernel's keep-if-improved tests went the other "
+                                 f"way on too many legs: {many}")
+        low = {n: e for n, e in e_bf16.items() if e <= limits[n]}
+        if low:
+            raise AssertionError(f"{label}: the bfloat16 plain version is within the limit on "
+                                 f"{low} (limits {limits})")
+        if offset_seed is not None and not all(d["kept"] and d["rejected"] for d in decisions):
+            raise AssertionError(f"{label}: the keep-if-improved tests did not go both ways in "
+                                 f"each pass: {decisions}")
+
+    for cap, row in ((bench_cap, True), (product_cap, False)):
+        ik_case(cap["ik"], row)
+        ik_case(cap["ik"], False, offset_seed=7)
     del bench_cap, product_cap, captured
 
     # ---- 4b. the tick path: TICKS chained ticks on the product shape's cold policy ----
@@ -896,10 +1061,22 @@ def main():
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
+    # the WBC's QP of every tick, through the name wbc.py calls, for B4's
+    # check at B=1
+    tick_qps, real_solve_qp = [], wbc_mod.solve_qp
+
+    def qp_cap(*a, **k):
+        tick_qps.append((a, k))
+        return real_solve_qp(*a, **k)
+
     zero_counts()
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
-    tcard = run_ticks(tsetup, p1, pflag.schedule, stamp)
+    wbc_mod.solve_qp = qp_cap
+    try:
+        tcard = run_ticks(tsetup, p1, pflag.schedule, stamp)
+    finally:
+        wbc_mod.solve_qp = real_solve_qp
     touts = tcard[0]
     tick_counts = read_counts("tick", ("gj_inverse", "solve_qp"))
     tick_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
@@ -926,6 +1103,33 @@ def main():
     bad = {n: c for n, c in tick_cmp.items() if c["vs_cpu_f64"] > c["limit"]}
     if bad or not same_flags:
         raise AssertionError(f"tick path: card vs CPU: {tick_cmp}, flags equal: {same_flags}")
+
+    # B4 at B=1 on every tick's own QP (warm start, qp_iters_warm), one
+    # launch per QP as the tick makes it, errors taken over all of them, as
+    # the B=4096 check takes its batch: one QP's float32 dual error is a
+    # single sample (on an H100 the last tick's QP alone put the kernel's
+    # eq_dual at 1.2165e-4, 2.02x the float32 plain version's); times on the
+    # last tick's QP
+    runs = {"kernel": [], "plain32": [], "plain64": []}
+    for qa, qk in tick_qps:
+        qk64 = {k: (v.double() if torch.is_tensor(v) else v) for k, v in qk.items()}
+        scale1 = 1.0 + torch.maximum(qa[3].abs().amax(-1), qa[5].abs().amax(-1))
+        for key, sol in (("kernel", qp.solve_qp(*qa, **qk)),
+                         ("plain32", qp.solve_qp_plain(*qa, **qk)),
+                         ("plain64", qp.solve_qp_plain(*as64(qa), **qk64))):
+            runs[key].append([sol.x, sol.eq_dual, sol.ineq_dual, sol.primal_residual / scale1])
+    err = errors(qp_names, *([torch.cat(o) for o in zip(*runs[key])]
+                             for key in ("kernel", "plain32", "plain64")),
+                 {"primal_residual": 1.0})
+    b_ms, b_by = bound(*qp_cost(1, qk["n_iters"]))
+    emit({"phase": "kernel_extra", "name": "solve_qp", "tol": TOL["solve_qp"],
+          "outputs": per_output(err, TOL["solve_qp"]), "batch": 1, "iterations": qk["n_iters"],
+          "qps": len(tick_qps), "qp": "every tick of the tick path, one launch each",
+          "kernel_ms": cuda_ms(lambda: qp.solve_qp(*qa, **qk)),
+          "plain_ms": cuda_ms(lambda: qp.solve_qp_plain(*qa, **qk)), "library_ms": None,
+          "bound_ms": b_ms, "bound_by": b_by})
+    check("solve_qp B=1 ticks", err, TOL["solve_qp"])
+    del tick_qps, runs
 
     # ---- 4c. the batched WBC: B=4096, one cold tick, then a 6-tick warm chain ----
     zero_counts()
@@ -1053,8 +1257,8 @@ def main():
         t = time.perf_counter()
         card = mpc_chain(cflag, K_CHAIN, riccati_parallel=par)
         chain_s = time.perf_counter() - t
-        counts = read_counts(path, ("gj_inverse", "project_knot", riccati_kernel[par]) + b1,
-                             (riccati_kernel[not par],))
+        counts = read_counts(path, ("leg_ik", "project_knot", riccati_kernel[par]) + b1,
+                             (riccati_kernel[not par], "gj_inverse"), steps=K_CHAIN)
         if not (torch.isfinite(card.costs).all() and torch.isfinite(card.states).all()):
             raise AssertionError(f"{path}: non-finite chain")
 
@@ -1094,8 +1298,9 @@ def main():
         _, telem = run_loop(lsetup, ref["cmds"])
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t
-        counts = read_counts(path, ("gj_inverse", "project_knot", riccati_kernel[par],
-                                    "solve_qp") + b1, (riccati_kernel[not par],))
+        counts = read_counts(path, ("leg_ik", "project_knot", riccati_kernel[par],
+                                    "solve_qp") + b1, (riccati_kernel[not par], "gj_inverse"),
+                             steps=n_periods)
         gold = golden_check(telem, ref)
         emit({"phase": path, "batch": 1, "periods": n_periods, "launches": counts,
               "ms_per_period": loop_s / n_periods * 1e3, "seconds": loop_s, "golden": gold,
@@ -1104,7 +1309,8 @@ def main():
             raise AssertionError(f"{path}: off the golden trace: {gold}")
 
     # ---- 5. kernels ----
-    for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp") + b1:
+    for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp",
+              "leg_ik") + b1:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -1112,7 +1318,7 @@ def main():
         rows[row]["launches_by_path"] = {path: rows[row]["launches"]}
     emit({"kernels": [rows[n] for n in ("gj_inverse", "gj_inverse_kalman", "gj_inverse_observer",
                                         "project_knot", "riccati_solve", "riccati_solve_parallel",
-                                        "solve_qp") + b1]})
+                                        "solve_qp") + b1 + ("leg_ik",)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

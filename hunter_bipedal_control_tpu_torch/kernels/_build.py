@@ -49,6 +49,9 @@ SIGNATURES = {
     "hk_soa_merit": [_P] * 12 + [_I, _I, _I, _F, _P],
     # out buffer, capacity
     "hk_soa_topology": [_P, _I],
+    # consts, lower, upper, 4 inputs, 2 outputs, decisions or NULL, batch, n_samples,
+    # trans_it, rot_it, step, damp, stream
+    "hk_leg_ik": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
 }
 
 _lib = None

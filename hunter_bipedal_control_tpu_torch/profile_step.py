@@ -81,21 +81,29 @@ PHASES = (("prepare_references", "mpc"), ("_warm_start", "mpc"),
           ("knot_linearization_all", "sqp"), ("project_knot", "sqp"),
           ("riccati_solve", "riccati"), ("riccati_solve_parallel", "riccati"),
           ("eval_merit", "sqp"))
+# the reference prep's sub-phases, labelled only inside prepare_references
+PREP_PHASES = (("joint_reference_ik", "ik"), ("update_planner", "swp"),
+               ("_current_feet", "mpc"), ("foot_reference", "swp"), ("interp_state", "tg"))
 
 
 def profile_phases(batch: int = 128, knots: int = 66, horizon: float = 1.0,
                    lin_backend: str = "soa"):
     """One warm MPC step with each phase of ``PHASES`` wrapped in a profiler
     range: per phase the host's kernel launches (runtime launch calls that
-    start inside the range); 'other' is the rest of the step (the line
-    search's model, the solution)."""
+    start inside the range, charged to the innermost range); 'other' is the
+    rest of the step (the line search's model, the solution).
+    ``prepare_references_split`` splits the reference prep's launches by the
+    sub-phases of ``PREP_PHASES`` (the IK, the swing planner, the current
+    feet's FK, the foot references, the target interpolation; 'rest' is the
+    prep's own code)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from .entry import build_flagship
+    from .refs import ik, swing_planner as swp, targets as tg
     from .solver import mpc as mpc_mod, riccati, sqp
 
-    mods = {"mpc": mpc_mod, "sqp": sqp, "riccati": riccati}
+    mods = {"mpc": mpc_mod, "sqp": sqp, "riccati": riccati, "ik": ik, "swp": swp, "tg": tg}
     flag = build_flagship(knots, horizon, batch=batch, lin_backend=lin_backend)
     mpc = mpc_mod.Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
     args = (flag.schedule, flag.target, 0.0, flag.x0,
@@ -103,39 +111,56 @@ def profile_phases(batch: int = 128, knots: int = 66, horizon: float = 1.0,
     _, state, _ = mpc(flag.state, *args)
     torch.cuda.synchronize()
 
-    def labelled(name, fn):
+    in_prep = [0]
+
+    def labelled(name, fn, sub):
         # wraps copies the launch counters the kernel wrappers bump on themselves
         @functools.wraps(fn)
         def run(*a, **k):
-            with record_function("phase:" + name):
+            if sub and not in_prep[0]:
                 return fn(*a, **k)
+            in_prep[0] += name == "prepare_references"
+            try:
+                with record_function("phase:" + name):
+                    return fn(*a, **k)
+            finally:
+                in_prep[0] -= name == "prepare_references"
         return run
 
-    saved = [(mods[m], n, getattr(mods[m], n)) for n, m in PHASES]
+    saved = [(mods[m], n, getattr(mods[m], n), sub) for sub, table in ((False, PHASES),
+                                                                       (True, PREP_PHASES))
+             for n, m in table]
     try:
-        for mod, n, fn in saved:
-            setattr(mod, n, labelled(n, fn))
+        for mod, n, fn, sub in saved:
+            setattr(mod, n, labelled(n, fn, sub))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             mpc(state, *args)
             torch.cuda.synchronize()
     finally:
-        for mod, n, fn in saved:
+        for mod, n, fn, _ in saved:
             setattr(mod, n, fn)
     events = list(prof.events())
     ranges = [(e.name[6:], e.time_range.start, e.time_range.end) for e in events
               if e.name.startswith("phase:")]
     launches = [e for e in events if "LaunchKernel" in e.name]
     out = {name: 0 for name, _ in PHASES}
+    prep = {name: 0 for name, _ in PREP_PHASES}
     for ev in launches:
-        for name, t0, t1 in ranges:
-            if t0 <= ev.time_range.start <= t1:
-                out[name] += 1
-                break
+        t = ev.time_range.start
+        inside = [r for r in ranges if r[1] <= t <= r[2]]
+        if inside:
+            name = max(inside, key=lambda r: r[1])[0]
+            if name in prep:
+                prep[name] += 1
+                name = "prepare_references"
+            out[name] += 1
+    prep["rest"] = out["prepare_references"] - sum(prep.values())
     total = len(launches)
     out["other"] = total - sum(out.values())
     return {"phase": "profile_phases", "batch": batch, "knots": knots,
             "lin_backend": lin_backend, "device": torch.cuda.get_device_name(0),
-            "launch_calls_per_step": total, "launch_calls_by_phase": out}
+            "launch_calls_per_step": total, "launch_calls_by_phase": out,
+            "prepare_references_split": prep}
 
 
 def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12, lin_backend: str = "soa"):

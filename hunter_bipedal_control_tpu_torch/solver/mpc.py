@@ -67,22 +67,19 @@ def _joint_reference(model: RobotModel, target: tg.TargetTrajectories,
                      default_joints, n_samples: int):
     """calculateJointRef (SwitchedModelReferenceManager.cpp:251-300) with the
     JAX package's two parallel IK passes: all samples from the default pose,
-    then all samples warm-started by the first pass."""
+    then all samples warm-started by the first pass (``joint_reference_ik``:
+    kernel B8a on the card)."""
     nj = model.nj
     Ts = _linspace(init_time, final_time, n_samples).to(target.times.dtype)   # (B, S)
     states = tg.interp_state(target, Ts)
     inputs = tg.interp_input(target, Ts)
 
-    R_des = rotation_zyx(x_init[:, 9:12])[:, None]                  # (B, 1, 3, 3)
+    R_des = rotation_zyx(x_init[:, 9:12])                            # (B, 3, 3)
     des = swp.foot_reference(refs, [0, 1], Ts)[0]                    # (B, S, 2, 3)
     poses = states[..., 6:12]
-
-    def solve_all(warm_joints):
-        q_ref = torch.cat([poses, warm_joints.expand(*poses.shape[:-1], nj)], dim=-1)
-        return ik_mod.compute_ik(model, q_ref, des, R_des, trans_it=3, rot_it=2)
-
-    qj1 = solve_all(default_joints[:, None, :])
-    joint_refs = solve_all(qj1)
+    _, joint_refs = ik_mod.joint_reference_ik(
+        model, poses.contiguous(), default_joints.contiguous(), des.contiguous(),
+        R_des.contiguous(), trans_it=3, rot_it=2)
     states = torch.cat([states[..., :12], joint_refs, states[..., 12 + nj:]], dim=-1)
     return tg.TargetTrajectories(times=Ts, states=states, inputs=inputs)
 

@@ -18,6 +18,10 @@ soa_linearize and soa_merit (B1): each of the 13 linearization outputs and
 the merit's cost and metric within max(1e-4, 2 x the float32 plain SoA
 version's own error) of the float64 plain SoA version, on its own scale,
 on random and main-path data at B=1/N=53 and B=128/N=66.
+leg_ik (B8a): both passes' joints, each within max(1e-4, 2 x the float32
+plain version's own error) of the float64 plain version, on its own scale,
+on main-path and random data at B=1/S=6 and B=128/S=7, both plain versions
+run on the CPU.
 """
 import numpy as np
 import pytest
@@ -25,8 +29,10 @@ import torch
 
 from hunter_bipedal_control_tpu_torch.entry import build_flagship, build_wbc_batch
 from hunter_bipedal_control_tpu_torch.models.robot import load_model
+from hunter_bipedal_control_tpu_torch.models.spatial import rotation_zyx
 from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
 from hunter_bipedal_control_tpu_torch.ops import linalg, qp
+from hunter_bipedal_control_tpu_torch.refs import ik as ik_mod
 from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
 from hunter_bipedal_control_tpu_torch.wbc import wbc
 
@@ -395,3 +401,111 @@ def test_soa_kernel_refuses_bad_input(cuda):
                                  *args[4:])
     with pytest.raises(TypeError):
         soa_kernel.soa_merit(*args[:2], xs[:, None].contiguous(), us[:, None].double(), *args[4:])
+
+
+LEG_IK_TOL = 1e-4
+DJ = [0.10, 0., 0.40, 0.93, 0.53, -0.10, 0., -0.40, 0.93, -0.53]
+
+
+def _ik_inputs(cuda, batch, n_knots, horizon, main_path, seed=0):
+    """(model, poses, warm_joints, des, R_des) on the card, float32: what
+    the flagship's cold step gives ``joint_reference_ik`` (``main_path``),
+    or seeded random base poses, warm joints within the joint limits, toe
+    targets and target rotations around the standing pose."""
+    flag = build_flagship(n_knots, horizon, batch=batch, device=cuda)
+    if main_path:
+        captured = {}
+        real = ik_mod.joint_reference_ik
+
+        def capture(*a, **k):
+            captured.setdefault("args", a)
+            return real(*a, **k)
+
+        sched = mpc_mod.ModeSchedule(*(a.expand(batch, *a.shape) for a in flag.schedule))
+        target = mpc_mod.tg.TargetTrajectories(*(a.expand(batch, *a.shape) for a in flag.target))
+        ik_mod.joint_reference_ik = capture
+        try:
+            mpc_mod.prepare_references(
+                flag.model, flag.settings, flag.planner_cfg, flag.state.planner, sched, target,
+                torch.zeros(batch, device=cuda), flag.x0, torch.zeros(batch, 6, device=cuda),
+                flag.default_joints.expand(batch, -1))
+        finally:
+            ik_mod.joint_reference_ik = real
+        return captured["args"]
+    rng = np.random.default_rng(seed)
+    S = int(horizon / mpc_mod.JOINT_REF_STEP) + 1
+    lo, hi = flag.model.joint_lower.cpu().numpy(), flag.model.joint_upper.cpu().numpy()
+    poses = np.concatenate([0.02 * rng.standard_normal((batch, S, 3)) + [0.0, 0.0, 0.63],
+                            0.1 * rng.standard_normal((batch, S, 3))], axis=-1)
+    warm = np.clip(np.array(DJ) + 0.2 * rng.standard_normal((batch, 10)), lo, hi)
+    des = (np.array([[0.03, 0.11, 0.0], [0.03, -0.11, 0.02]])
+           + 0.05 * rng.standard_normal((batch, S, 2, 3)))
+    R_des = rotation_zyx(torch.tensor(0.1 * rng.standard_normal((batch, 3))))
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32).to(cuda).contiguous()
+    return flag.model, t(poses), t(warm), t(des), t(R_des)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("main_path", [False, True], ids=["random", "main_path"])
+@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+def test_leg_ik_kernel(cuda, batch, n_knots, horizon, main_path):
+    model, *arrays = _ik_inputs(cuda, batch, n_knots, horizon, main_path)
+    assert arrays[0].shape[1] == (6 if n_knots == 53 else 7)
+    before = ik_mod.leg_ik.launches
+    got = ik_mod.joint_reference_ik(model, *arrays)
+    torch.cuda.synchronize()
+    assert ik_mod.leg_ik.launches == before + 1
+
+    def plain(dtype):
+        return ik_mod.joint_reference_ik_plain(_cast(model, "cpu", dtype),
+                                               *(a.to("cpu", dtype) for a in arrays))
+
+    ref32, ref64 = plain(torch.float32), plain(torch.float64)
+    for name, a, b, c in zip(("qj1", "joint_refs"), got, ref32, ref64):
+        a = a.cpu()
+        assert a.shape == c.shape and torch.isfinite(a).all(), name
+        assert _own_scale_err(a, c) <= max(LEG_IK_TOL, 2.0 * _own_scale_err(b, c)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+def test_leg_ik_decisions(cuda, batch, n_knots, horizon):
+    """The kernel's keep-if-improved tests, reported on request, leave the
+    joints as they are and go the other way from the float64 plain
+    version's on at most twice as many legs as the float32 plain version's,
+    plus two."""
+    model, *arrays = _ik_inputs(cuda, batch, n_knots, horizon, True)
+    qj1, refs, kept = ik_mod.leg_ik(model, *arrays, with_decisions=True)
+    bare = ik_mod.leg_ik(model, *arrays)
+    assert torch.equal(qj1, bare[0]) and torch.equal(refs, bare[1])
+    assert kept.shape == (2, 5, batch, arrays[0].shape[1], 2) and kept.dtype == torch.bool
+    dec = {}
+    for dtype in (torch.float32, torch.float64):
+        d = []
+        ik_mod.joint_reference_ik_plain(_cast(model, "cpu", dtype),
+                                        *(a.to("cpu", dtype) for a in arrays), decisions=d)
+        dec[dtype] = torch.stack([torch.stack(x) for x in d])
+
+    def flipped_legs(d):
+        return int((d != dec[torch.float64]).any(1).any(0).sum())
+
+    assert flipped_legs(kept.cpu()) <= 2 * flipped_legs(dec[torch.float32]) + 2
+
+
+@pytest.mark.cuda
+def test_leg_ik_refuses_other_topology(cuda):
+    _, *arrays = _ik_inputs(cuda, 1, 5, 0.3, False)
+    bad = load_model(device="cpu")
+    bad = bad._replace(joint_parent=torch.tensor([0, 1, 2, 3, 4, 0, 6, 7, 8, 8]))
+    with pytest.raises(ValueError, match="topology"):
+        ik_mod.joint_reference_ik(_cast(bad, cuda, torch.float32), *arrays)
+
+
+@pytest.mark.cuda
+def test_leg_ik_refuses_bad_input(cuda):
+    model, poses, warm, des, R_des = _ik_inputs(cuda, 2, 5, 0.3, False)
+    with pytest.raises(ValueError):
+        ik_mod.leg_ik(model, poses.transpose(0, 1).contiguous().transpose(0, 1), warm, des,
+                      R_des)
+    with pytest.raises(TypeError):
+        ik_mod.leg_ik(model, poses, warm.double(), des, R_des)

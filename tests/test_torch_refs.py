@@ -159,3 +159,72 @@ def test_compute_ik(problem):
     got = tik.compute_ik(tm, torch.tensor(q), torch.tensor(des), trot(torch.tensor(zyx)),
                          trans_it=3, rot_it=2)
     close(got, ref)
+
+
+def _ik_inputs(problem, B, S, seed):
+    """Base poses sampled along the fixture's walking target, warm joints,
+    toe targets and target rotations: (poses (B, S, 6), warm (B, nj), des
+    (B, S, 2, 3), zyx (B, 3)) as numpy float64."""
+    horizon, _, _, target = problem
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0.0, horizon, S)
+    states = np.asarray(jax.vmap(lambda a: jtg.interp_state(target, a))(t))
+    poses = states[None, :, 6:12] + np.concatenate(
+        [rng.normal(0, 0.02, (B, S, 3)), rng.normal(0, 0.1, (B, S, 3))], axis=-1)
+    warm = DJ + rng.normal(0, 0.1, (B, 10))
+    des = (np.array([[0.03, 0.11, 0.0], [0.03, -0.11, 0.02]]) + poses[..., None, 0:3]
+           - [0.0, 0.0, 0.63] + rng.normal(0, 0.04, (B, S, 2, 3)))
+    return poses, warm, des, rng.normal(0, 0.1, (B, 3))
+
+
+@pytest.fixture(scope="module")
+def jax_ik():
+    """One jit of the JAX IK (trans_it=3, rot_it=2), vmapped over IK_ROWS
+    (scenario, sample) rows; both passes and both sample counts run it."""
+    jm = jload(dtype=jnp.float64)
+    return jm, jax.jit(jax.vmap(lambda q, d, R: jik.compute_ik(jm, q, d, R, trans_it=3,
+                                                                 rot_it=2)))
+
+
+IK_ROWS = 14
+
+
+@pytest.mark.parametrize("S", [6, 7])
+def test_joint_reference_ik_plain(problem, jax_ik, S):
+    """The reference prep's two IK passes against the JAX package's
+    (solver/mpc.py:89-91): every sample from the warm joints, then every
+    sample from its own pass-1 result."""
+    jm, ik = jax_ik
+    poses, warm, des, zyx = _ik_inputs(problem, 2, S, S)
+    n = 2 * S
+
+    def run(q, d, R):
+        # rows past n repeat the first ones: one compiled shape for every S
+        pad = lambda a: np.concatenate([a, a[:IK_ROWS - n]])
+        return np.asarray(ik(pad(q), pad(d), pad(R)))[:n]
+
+    flat = poses.reshape(n, 6), des.reshape(n, 2, 3)
+    Rd = np.repeat(np.asarray(jax.vmap(jrot)(zyx)), S, axis=0)
+    qj1 = run(np.concatenate([flat[0], np.repeat(warm, S, axis=0)], axis=1), flat[1], Rd)
+    ref = qj1, run(np.concatenate([flat[0], qj1], axis=1), flat[1], Rd)
+    ref = [r.reshape(2, S, 10) for r in ref]
+    got = tik.joint_reference_ik_plain(tnp(jm), torch.tensor(poses), torch.tensor(warm),
+                                       torch.tensor(des), trot(torch.tensor(zyx)))
+    for a, b in zip(got, ref):
+        close(a, b)
+    assert not np.allclose(ref[0], ref[1])
+
+
+def test_joint_reference_ik_takes_plain_version_on_cpu(problem, monkeypatch):
+    tm = tnp(jload(dtype=jnp.float64))
+    poses, warm, des, zyx = (torch.tensor(a) for a in _ik_inputs(problem, 2, 6, 0))
+    R_des = trot(zyx)
+    plain = tik.joint_reference_ik_plain(tm, poses, warm, des, R_des)
+
+    def no_kernel(*a, **k):
+        raise AssertionError("a CPU tensor launched the leg_ik kernel")
+
+    monkeypatch.setattr(tik, "leg_ik", no_kernel)
+    got = tik.joint_reference_ik(tm, poses, warm, des, R_des)
+    for a, b in zip(got, plain):
+        assert a.dtype == F64 and torch.equal(a, b)
