@@ -21,7 +21,10 @@ Phases, each printing one JSON line:
      and float64 with the exact Huu solve); the same warm step with
      ``lin_backend='dense'`` on the card held to the 'soa' one, launches per
      step (and per phase, the reference prep split into its sub-phases) of
-     both backends; then the product shape (B=1, 53 knots over 0.8 s);
+     both backends, the launches per tick and per walking loop period by the
+     tick's sub-phases (``profile_step.profile_tick_phases``,
+     ``profile_loop_phases``); then the product shape (B=1, 53 knots over
+     0.8 s);
   4a. B1 (soa_linearize, soa_merit) on the inputs the warm steps of the
      bench shape (B=128, N=66) and the product shape (B=1, N=53) gave the
      linearization and the line search's merit: every output against the
@@ -39,11 +42,17 @@ Phases, each printing one JSON line:
      policy, launch counts read around it, every tick's command and WBC
      solution and the final estimator and WBC states held against the
      port's CPU float32 and float64 runs; B4 on every tick's own QP (B=1)
-     against its plain versions, with its time and bound;
+     against its plain versions, with its time and bound; every tick counts
+     one wbc_qp (B9) and one solve_qp launch;
+  4b2. B9 (wbc_qp) on every tick's own inputs (B=1), on bench.py's standing
+     batch and on seeded walking states (mixed contact flags, both stance
+     modes) at B=4096: the six QP arrays against the float64 plain version
+     within max(tol, 2x the float32 plain version's error), bfloat16 landing
+     above the limit; kernel and plain times, the bound (``wbc_qp_cost``);
   4c. the batched WBC (``entry.wbc_chain``): B=4096 standing states, one
      cold tick, then a 6-tick warm chain, solves/s, solutions and accepted
      QPs per tick held against CPU float32 and float64 runs of every 16th
-     scenario;
+     scenario; one wbc_qp and one solve_qp launch per tick;
   4d. B5 riccati_solve_parallel on the real LQ data of the product shape
      (B=1, N=53) and of N=66 (the card's projection output): each output
      against the float64 exact plain version on the CPU, bfloat16 landing
@@ -55,7 +64,8 @@ Phases, each printing one JSON line:
   4f. the dummy closed loop (``entry.build_loop`` + ``run_loop``, 'soa') over
      the golden trace's 40 periods in both Riccati modes, held to
      tests/golden/stance_walk_40p.npz with tests/test_golden.py's checks,
-     ms per 10 ms period;
+     ms per 10 ms period; one wbc_qp and one solve_qp launch per tick (five
+     per period);
   5. the kernels line: launches, error, times and bound of each kernel, B6
      with one row per use (IK, absorbed into B8a on the MPC path; Kalman;
      observer).
@@ -99,7 +109,7 @@ REPS = 15
 # there, ~1e-3 to 1e-2 from the exact solve in float64 too) would not pass.
 TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4,
        "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4,
-       "leg_ik": 1e-4}
+       "leg_ik": 1e-4, "wbc_qp": 1e-4}
 # B8a (leg_ik) is held, on each pass's joints on their own scale, to the
 # float64 plain version within max(tol, TOL_FACTOR x the float32 plain
 # version's error).  The damped 5x5 systems have rank 3 (translation) plus
@@ -128,6 +138,12 @@ IK_OFFSET = {128: (0.02, 0.1, 0.03), 1: (0.05, 0.3, 0.08)}
 # SoA version's own error).  The mask is exact in every precision, so only
 # the other outputs must put bfloat16 above the limit.
 LIN_NAMES = ("xnext", "A", "B", "cost", "qx", "qu", "Qxx", "Quu", "Qux", "g", "C", "D", "mask")
+# B9 (wbc_qp) is held, array by array on its own scale, to the float64 plain
+# version within max(tol, TOL_FACTOR x the float32 plain version's error),
+# over every tick's QP of the tick path (B=1) and over B=4096 batches; bin is
+# a copy of the torque limits, exact in every precision, so only the other
+# arrays must put bfloat16 above the limit.
+WBC_QP_NAMES = ("H", "g", "Aeq", "beq", "Ain", "bin")
 MERIT_NAMES = ("cost", "metric")
 TOL_FACTOR = 2.0
 # Card main path vs the port's CPU runs, on states, inputs and cost relative
@@ -404,6 +420,31 @@ def ik_cost(batch, n_samples, trans_it, rot_it, nj=10):
     return (n_in + n_out) * 4, legs * (22 + 2 * per_pass)
 
 
+def wbc_qp_cost(batch, n=38, me=28, mi=40, rows=36, nq=16, links=11, nc=4):
+    """Bytes (x_des, u_des, rbd, flags in, 79 floats and the stance flag per
+    scenario; the model's 497 constants and the 17 gains once; the six QP
+    arrays out, 4,134 floats per scenario) and operations of csrc/wbc_qp.cu
+    per scenario: two FK chains (10 joints: two 3x3 products, two 3x3-vector
+    products, the Rodrigues matrix), the desired base velocity (the world
+    inertias, the CMM base block and its 3x3 inverse), two velocity passes,
+    per (state, link or contact) 16 Jacobian columns with their time
+    derivatives (~60 each) summed against v, M (16 x 16 entries over 11
+    links), nle, the desired base acceleration, the task rows, H (38 x 38
+    over 36 rows) and g."""
+    n_in = batch * (79 * 4 + 1) + (497 + 17) * 4
+    n_out = batch * (n * n + n + me * n + me + mi * n + mi) * 4
+    fk = 10 * (45 + 15 + 15 + 27 + 45 + 6) + 11 * 18 + 20
+    base_vel = 11 * 90 + 11 * 60 + 150 + 10 * 30
+    columns = 2 * (links + nc) * nq * 60
+    mass = nq * nq * links * 28
+    nle = nq * links * 12 + links * 40
+    acc = links * 60 + nc * 20 + 60
+    tasks = rows * n + 150
+    gram = n * n * rows * 2 + n * rows * 2
+    ops = 2 * fk + base_vel + 2 * 10 * 20 + columns + mass + nle + acc + tasks + gram
+    return n_in + n_out, batch * ops
+
+
 def gj_inverse_fma(A, pivot):
     """The plain Gauss-Jordan inverse (natural-order pivots) in float32 with
     the kernel's rounding: each update M - col prow rounded once, as a fused
@@ -489,13 +530,17 @@ def main():
 
     from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
                                                         build_loop, build_wbc_batch, mpc_chain,
-                                                        run_loop, standing_sensors, wbc_chain)
+                                                        run_loop, standing_sensors,
+                                                        walking_wbc_batch, wbc_chain)
     from hunter_bipedal_control_tpu_torch.estim import contact, kalman
     from hunter_bipedal_control_tpu_torch.kernels import _build
     from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
     from hunter_bipedal_control_tpu_torch.ops import linalg, qp
-    from hunter_bipedal_control_tpu_torch.profile_step import _profiled, profile_phases
+    from hunter_bipedal_control_tpu_torch.profile_step import (_profiled, profile_loop_phases,
+                                                               profile_phases,
+                                                               profile_tick_phases)
     from hunter_bipedal_control_tpu_torch.refs import ik as ik_mod
+    from hunter_bipedal_control_tpu_torch.runtime import controller as ctrl_mod
     from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
     from hunter_bipedal_control_tpu_torch.wbc import wbc as wbc_mod
 
@@ -700,7 +745,7 @@ def main():
                 "riccati_solve": riccati.riccati_solve,
                 "riccati_solve_parallel": riccati.riccati_solve_parallel, "solve_qp": qp.solve_qp,
                 "soa_linearize": soa_kernel.soa_linearize, "soa_merit": soa_kernel.soa_merit,
-                "leg_ik": ik_mod.leg_ik}
+                "leg_ik": ik_mod.leg_ik, "wbc_qp": wbc_mod.wbc_qp}
     b1 = ("soa_linearize", "soa_merit")
 
     # the inputs the linearization and the line search's merit get on a
@@ -743,10 +788,12 @@ def main():
             c.launches = 0
         linalg.gj_inverse.launches_by_n.clear()
 
-    def read_counts(path, kernels, absent=(), steps=0):
+    def read_counts(path, kernels, absent=(), steps=0, ticks=0):
         """The launches of the path's run; raise if one of its kernels (or one
-        of its B6 rows) had none, a kernel of ``absent`` had any, or leg_ik
-        was not launched exactly once per MPC step (``steps`` of them)."""
+        of its B6 rows) had none, a kernel of ``absent`` had any, leg_ik was
+        not launched exactly once per MPC step (``steps`` of them), or
+        wbc_qp not exactly once per control tick (``ticks`` of them), and
+        solve_qp beside it."""
         counts = {n: c.launches for n, c in counters.items()}
         path_launches[path] = counts
         gj_by_n[path] = dict(linalg.gj_inverse.launches_by_n)
@@ -759,6 +806,10 @@ def main():
         if counts["leg_ik"] != steps:
             raise AssertionError(f"leg_ik: {counts['leg_ik']} launches on the {path} path, "
                                  f"{steps} MPC steps")
+        if counts["wbc_qp"] != ticks or (ticks and counts["solve_qp"] != ticks):
+            raise AssertionError(f"wbc_qp / solve_qp: {counts['wbc_qp']} / "
+                                 f"{counts['solve_qp']} launches on the {path} path, "
+                                 f"{ticks} ticks")
         for row, (p, n) in gj_rows.items():
             if p == path and row not in gj_absorbed and gj_by_n[path].get(n, 0) <= 0:
                 raise AssertionError(f"{row} ({n}x{n}) was not launched on the {path} path")
@@ -870,7 +921,8 @@ def main():
           "step_size_equal": same_alpha, "launches_dense": dense_counts,
           "step_ms": {"soa": step_ms, "dense": statistics.median(dense_times) * 1e3},
           "device_launches_per_step": {k: v["device_launches"] for k, v in prof.items()},
-          "profiled": prof, "phases": phases})
+          "profiled": prof, "phases": phases, "tick_phases": profile_tick_phases(1, 3),
+          "loop_phases": profile_loop_phases(False, 2)})
     if not (all(d_sd[q] <= tol[q] for q in tol) and same_alpha):
         raise AssertionError(f"warm step: 'dense' vs 'soa' on the card: {d_sd} (tol {tol}), "
                              f"step sizes equal: {same_alpha}")
@@ -1063,22 +1115,29 @@ def main():
 
     # the WBC's QP of every tick, through the name wbc.py calls, for B4's
     # check at B=1
+    # and the WBC's inputs of every tick, through the name controller.py
+    # calls, for B9's check at B=1
     tick_qps, real_solve_qp = [], wbc_mod.solve_qp
+    tick_wbc, real_wbc_solve = [], ctrl_mod.wbc_solve
 
     def qp_cap(*a, **k):
         tick_qps.append((a, k))
         return real_solve_qp(*a, **k)
 
+    def wbc_cap(model_, params_, state_, *a):
+        tick_wbc.append((model_, params_, *(t.contiguous() for t in a)))
+        return real_wbc_solve(model_, params_, state_, *a)
+
     zero_counts()
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
-    wbc_mod.solve_qp = qp_cap
+    wbc_mod.solve_qp, ctrl_mod.wbc_solve = qp_cap, wbc_cap
     try:
         tcard = run_ticks(tsetup, p1, pflag.schedule, stamp)
     finally:
-        wbc_mod.solve_qp = real_solve_qp
+        wbc_mod.solve_qp, ctrl_mod.wbc_solve = real_solve_qp, real_wbc_solve
     touts = tcard[0]
-    tick_counts = read_counts("tick", ("gj_inverse", "solve_qp"))
+    tick_counts = read_counts("tick", ("gj_inverse", "solve_qp", "wbc_qp"), ticks=TICKS)
     tick_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     for f in ("tau_ff", "pos_des"):
         if not torch.isfinite(getattr(touts.command, f)).all():
@@ -1131,11 +1190,63 @@ def main():
     check("solve_qp B=1 ticks", err, TOL["solve_qp"])
     del tick_qps, runs
 
+    # ---- 4b2. B9 on every tick's own inputs (B=1), and at B=4096 ----
+    def wbc_qp_case(label, cases, row):
+        """wbc_qp on each argument tuple of ``cases`` (one launch each)
+        against its plain versions in float32, float64 and bfloat16 on the
+        card, the errors taken over all of them; times on the last case.
+        ``row``: these fill the kernels line's row, else a kernel_extra line."""
+        tol = TOL["wbc_qp"]
+        runs = {"kernel": [], "plain32": [], "plain64": [], "bf16": []}
+        for a in cases:
+            runs["kernel"].append(wbc_mod.wbc_qp(*a))
+            runs["plain32"].append(wbc_mod.wbc_qp_plain(*a))
+            for key, dt in (("plain64", torch.float64), ("bf16", torch.bfloat16)):
+                runs[key].append(wbc_mod.wbc_qp_plain(cast(a[0], dev, dt), cast(a[1], dev, dt),
+                                                      *(t.to(dt) for t in a[2:6]), a[6]))
+        torch.cuda.synchronize()
+        cat = {k: [torch.cat(o) for o in zip(*v)] for k, v in runs.items()}
+        err = errors(WBC_QP_NAMES, cat["kernel"], cat["plain32"], cat["plain64"])
+        limits = {n: max(tol, TOL_FACTOR * p64[1]) for n, (_, _, p64) in err.items()}
+        e_bf16 = {n: rel_err(b.float(), c)[1]
+                  for n, b, c in zip(WBC_QP_NAMES, cat["bf16"], cat["plain64"])}
+        a = cases[-1]
+        Bn = a[4].shape[0]
+        times = (cuda_ms(lambda: wbc_mod.wbc_qp(*a)),
+                 cuda_ms(lambda: wbc_mod.wbc_qp_plain(*a), reps=3))
+        cost = wbc_qp_cost(Bn)
+        info = {"label": label, "batch": Bn, "cases": len(cases),
+                "stance_modes": sorted(set(torch.cat([c[6] for c in cases]).tolist())),
+                "contact_modes": len(torch.unique(torch.cat([c[5] for c in cases]), dim=0)),
+                "plain_bf16_rel_err_vs_f64": e_bf16}
+        if row:
+            record("wbc_qp", "cuda", "hunter_bipedal_control_tpu_torch/csrc/wbc_qp.cu",
+                   "hunter_bipedal_control_tpu/wbc/wbc.py:123", err, tol, times[0], times[1],
+                   None, cost, info)
+        else:
+            b_ms, b_by = bound(*cost)
+            emit({"phase": "kernel_extra", "name": "wbc_qp", "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times[0], "plain_ms": times[1],
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **info})
+            check(f"wbc_qp {label}", err, tol)
+        low = {n: e for n, e in e_bf16.items() if n != "bin" and e <= limits[n]}
+        if low:
+            raise AssertionError(f"wbc_qp {label}: the bfloat16 plain version is within the "
+                                 f"limit on {low} (limits {limits})")
+
+    wbc_qp_case("every tick of the tick path, B=1", tick_wbc, True)
+    for label, wbq in (("standing, bench.py's batch", build_wbc_batch(WBC_BATCH, dev)),
+                       ("walking, seed 0", walking_wbc_batch(WBC_BATCH, dev, seed=0))):
+        wbc_qp_case(f"{label}, B={WBC_BATCH}", [(wbq.model, wbq.params, wbq.x_des, wbq.u_des,
+                                                 wbq.rbd, wbq.contact_flags, wbq.stance_mode)],
+                    False)
+    del tick_wbc, wbq
+
     # ---- 4c. the batched WBC: B=4096, one cold tick, then a 6-tick warm chain ----
     zero_counts()
     wxs, woks, _ = wbc_chain(wb, WBC_TICKS)
     torch.cuda.synchronize()
-    wbc_counts = read_counts("wbc_batch", ("solve_qp",))
+    wbc_counts = read_counts("wbc_batch", ("solve_qp", "wbc_qp"), ticks=WBC_TICKS)
     if not torch.isfinite(wxs).all():
         raise AssertionError("batched WBC: non-finite solution")
     wtimes = {}
@@ -1299,8 +1410,9 @@ def main():
         torch.cuda.synchronize()
         loop_s = time.perf_counter() - t
         counts = read_counts(path, ("leg_ik", "project_knot", riccati_kernel[par],
-                                    "solve_qp") + b1, (riccati_kernel[not par], "gj_inverse"),
-                             steps=n_periods)
+                                    "solve_qp", "wbc_qp") + b1,
+                             (riccati_kernel[not par], "gj_inverse"), steps=n_periods,
+                             ticks=n_periods * lsetup.config.ticks_per_mpc)
         gold = golden_check(telem, ref)
         emit({"phase": path, "batch": 1, "periods": n_periods, "launches": counts,
               "ms_per_period": loop_s / n_periods * 1e3, "seconds": loop_s, "golden": gold,
@@ -1310,7 +1422,7 @@ def main():
 
     # ---- 5. kernels ----
     for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp",
-              "leg_ik") + b1:
+              "leg_ik", "wbc_qp") + b1:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -1318,7 +1430,7 @@ def main():
         rows[row]["launches_by_path"] = {path: rows[row]["launches"]}
     emit({"kernels": [rows[n] for n in ("gj_inverse", "gj_inverse_kalman", "gj_inverse_observer",
                                         "project_knot", "riccati_solve", "riccati_solve_parallel",
-                                        "solve_qp") + b1 + ("leg_ik",)]})
+                                        "solve_qp") + b1 + ("leg_ik", "wbc_qp")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

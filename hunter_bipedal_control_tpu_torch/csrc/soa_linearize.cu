@@ -32,7 +32,7 @@
 //
 // Model constants come from the port's build_consts (ocp/soa_kernel.py) as
 // a device buffer; the tree's topology (nj=10, L=11, nc=4) is compiled in
-// (soa_model.cuh, shared with B8a's leg_ik.cu),
+// (soa_model.cuh, shared with B8a's leg_ik.cu and B9's wbc_qp.cu),
 // and hk_soa_topology hands it to the wrapper, which refuses a model whose
 // topology differs.  True float32: no fast math; a singular 3x3 GE gives
 // inf/NaN as soa.py::inv3 does.
@@ -56,31 +56,12 @@ constexpr int P_XY_GAIN = 0, P_Z_REF = 1, P_POS_GAIN = 2, P_MU_C = 3, P_CONE_REG
               P_LOWER = 15, P_UPPER = P_LOWER + NJ, P_VLIM = P_UPPER + NJ,
               N_PARAMS = P_VLIM + NJ;
 
-// euler-rate map E (omega = E dtheta_zyx) from the trig cache
-__device__ __forceinline__ void euler_E(const float* trig, float* E) {
-  const float cz = trig[0], sz = trig[1], cy = trig[2], sy = trig[3];
-  E[0] = 0.0f; E[1] = -sz; E[2] = cz * cy;
-  E[3] = 0.0f; E[4] = cz;  E[5] = sz * cy;
-  E[6] = 1.0f; E[7] = 0.0f; E[8] = -sy;
-}
-
 // ---------------------------------------------------------------------------
-// one knot's primal quantities (soa.py::combined_rows / flow)
+// one knot's primal quantities (soa.py::combined_rows / flow); the state's
+// kinematics (Kin, fk_dev, base_velocity_dev) are soa_model.cuh's
 // ---------------------------------------------------------------------------
 
-struct Work {
-  float R[L][9];        // world_R_link
-  float p[L][3];        // link origins
-  float com[L][3];      // link CoMs (world)
-  float aw[NJ][3];      // joint axes (world)
-  float anchor[NJ][3];  // joint anchors (world)
-  float trig[4];        // cz, sz, cy, sy of the base euler angles
-  float Iw[L][9];       // world inertias
-  float pcom[3];
-  float om[L][3];       // full velocity pass (scratch of the joint-only pass first)
-  float vo[L][3];
-  float A12[9], GE[9], iGE[9];
-  float vb[6];          // base velocity [p_dot; theta_dot]
+struct Work : Kin {
   float pc[NC][3], vc[NC][3];
   float flow[NX];
   float g[NEQ];         // equality rows before masking
@@ -89,127 +70,6 @@ struct Work {
   float xmid[NX];       // RK2 midpoint state and its flow
   float k2[NX];
 };
-
-__device__ void fk_dev(const float* K, const float* q, Work* w) {
-  const float cz = cosf(q[3]), sz = sinf(q[3]);
-  const float cy = cosf(q[4]), sy = sinf(q[4]);
-  const float cx = cosf(q[5]), sx = sinf(q[5]);
-  w->trig[0] = cz; w->trig[1] = sz; w->trig[2] = cy; w->trig[3] = sy;
-  float* R0 = w->R[0];
-  R0[0] = cz * cy; R0[1] = cz * sy * sx - sz * cx; R0[2] = cz * sy * cx + sz * sx;
-  R0[3] = sz * cy; R0[4] = sz * sy * sx + cz * cx; R0[5] = sz * sy * cx - cz * sx;
-  R0[6] = -sy;     R0[7] = cy * sx;                R0[8] = cy * cx;
-  w->p[0][0] = q[0]; w->p[0][1] = q[1]; w->p[0][2] = q[2];
-  for (int j = 0; j < NJ; ++j) {
-    const int par = c_parent[j], ch = c_child[j];
-    float Ror[9], t[3], rod[9];
-    mm3(w->R[par], K + K_OROT + 9 * j, Ror);
-    mv3(w->R[par], K + K_OPOS + 3 * j, t);
-    float por[3];
-    for (int i = 0; i < 3; ++i) por[i] = w->p[par][i] + t[i];
-    mv3(Ror, K + K_AXIS + 3 * j, w->aw[j]);
-    const float cj = cosf(q[6 + j]), sj = sinf(q[6 + j]);
-    const float u = 1.0f - cj;
-    for (int e = 0; e < 9; ++e)
-      rod[e] = ((e % 4 == 0) ? 1.0f : 0.0f) + sj * K[K_RK + 9 * j + e] + u * K[K_RKK + 9 * j + e];
-    mm3(Ror, rod, w->R[ch]);
-    for (int i = 0; i < 3; ++i) {
-      w->p[ch][i] = por[i];
-      w->anchor[j][i] = por[i];
-    }
-  }
-  for (int k = 0; k < L; ++k) {
-    float t[3];
-    mv3(w->R[k], K + K_COML + 3 * k, t);
-    for (int i = 0; i < 3; ++i) w->com[k][i] = w->p[k][i] + t[i];
-  }
-}
-
-// CoM, world inertias, base momentum block and the base velocity solving
-// Ab vb = m h - Aj vj (soa.py::base_velocity_from_momentum); leaves the
-// joint-only velocity pass in w->om / w->vo
-__device__ void base_velocity_dev(const float* K, const float* h, const float* vj, Work* w) {
-  const float m = K[K_M], inv_m = K[K_INVM];
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < L; ++k)
-    for (int i = 0; i < 3; ++i) acc[i] = acc[i] + K[K_MASS + k] * w->com[k][i];
-  for (int i = 0; i < 3; ++i) w->pcom[i] = inv_m * acc[i];
-  for (int k = 0; k < L; ++k) {
-    float RI[9];
-    mm3(w->R[k], K + K_INER + 9 * k, RI);
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j)
-        w->Iw[k][3 * i + j] = RI[3 * i] * w->R[k][3 * j] + RI[3 * i + 1] * w->R[k][3 * j + 1]
-                              + RI[3 * i + 2] * w->R[k][3 * j + 2];
-  }
-  // joint momentum by a base-fixed velocity pass
-  for (int i = 0; i < 3; ++i) w->om[0][i] = w->vo[0][i] = 0.0f;
-  for (int j = 0; j < NJ; ++j) {
-    const int par = c_parent[j], ch = c_child[j];
-    float dp[3], c[3];
-    for (int i = 0; i < 3; ++i) dp[i] = w->anchor[j][i] - w->p[par][i];
-    cross3(w->om[par], dp, c);
-    for (int i = 0; i < 3; ++i) {
-      w->vo[ch][i] = w->vo[par][i] + c[i];
-      w->om[ch][i] = w->om[par][i] + vj[j] * w->aw[j][i];
-    }
-  }
-  float hl[3] = {0.0f, 0.0f, 0.0f}, ha[3] = {0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < L; ++k) {
-    const float mk = K[K_MASS + k];
-    float r1[3], c[3], cdot[3], r[3], t[3], cr[3];
-    for (int i = 0; i < 3; ++i) r1[i] = w->com[k][i] - w->p[k][i];
-    cross3(w->om[k], r1, c);
-    for (int i = 0; i < 3; ++i) {
-      cdot[i] = w->vo[k][i] + c[i];
-      hl[i] = hl[i] + mk * cdot[i];
-      r[i] = w->com[k][i] - w->pcom[i];
-    }
-    mv3(w->Iw[k], w->om[k], t);
-    cross3(r, cdot, cr);
-    for (int i = 0; i < 3; ++i) ha[i] = (ha[i] + t[i]) + mk * cr[i];
-  }
-  // base block: GE = (Itot + tr(W) I - W) E, A12 = -m skew(pcom - pb) E
-  float Itot[9], W[9], E[9], G[9];
-  for (int e = 0; e < 9; ++e) Itot[e] = W[e] = 0.0f;
-  for (int k = 0; k < L; ++k) {
-    float d[3], r[3];
-    for (int i = 0; i < 3; ++i) {
-      d[i] = w->com[k][i] - w->p[0][i];
-      r[i] = w->com[k][i] - w->pcom[i];
-    }
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) {
-        Itot[3 * i + j] = Itot[3 * i + j] + w->Iw[k][3 * i + j];
-        W[3 * i + j] = W[3 * i + j] + K[K_MASS + k] * (d[i] * r[j]);
-      }
-  }
-  const float trW = tr3(W);
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      G[3 * i + j] = (Itot[3 * i + j] + (i == j ? trW : 0.0f)) - W[3 * i + j];
-  euler_E(w->trig, E);
-  mm3(G, E, w->GE);
-  float s[3], sk[9], sE[9];
-  for (int i = 0; i < 3; ++i) s[i] = w->pcom[i] - w->p[0][i];
-  sk[0] = 0.0f;  sk[1] = -s[2]; sk[2] = s[1];
-  sk[3] = s[2];  sk[4] = 0.0f;  sk[5] = -s[0];
-  sk[6] = -s[1]; sk[7] = s[0];  sk[8] = 0.0f;
-  mm3(sk, E, sE);
-  for (int e = 0; e < 9; ++e) w->A12[e] = -m * sE[e];
-  inv3(w->GE, w->iGE);
-  float rl[3], ra[3], x2[3], t[3];
-  for (int i = 0; i < 3; ++i) {
-    rl[i] = m * h[i] - hl[i];
-    ra[i] = m * h[3 + i] - ha[i];
-  }
-  mv3(w->iGE, ra, x2);
-  mv3(w->A12, x2, t);
-  for (int i = 0; i < 3; ++i) {
-    w->vb[i] = inv_m * (rl[i] - t[i]);
-    w->vb[3 + i] = x2[i];
-  }
-}
 
 __device__ void contact_points_dev(const float* K, Work* w) {
   for (int c = 0; c < NC; ++c) {
@@ -254,21 +114,7 @@ __device__ void combined_rows_dev(const float* K, const float* P, const float* x
   const float* vj = u + 3 * NC;
   fk_dev(K, x + 6, w);
   base_velocity_dev(K, x, vj, w);
-  // full velocity pass
-  float E[9];
-  euler_E(w->trig, E);
-  mv3(E, w->vb + 3, w->om[0]);
-  for (int i = 0; i < 3; ++i) w->vo[0][i] = w->vb[i];
-  for (int j = 0; j < NJ; ++j) {
-    const int par = c_parent[j], ch = c_child[j];
-    float dp[3], c[3];
-    for (int i = 0; i < 3; ++i) dp[i] = w->anchor[j][i] - w->p[par][i];
-    cross3(w->om[par], dp, c);
-    for (int i = 0; i < 3; ++i) {
-      w->vo[ch][i] = w->vo[par][i] + c[i];
-      w->om[ch][i] = w->om[par][i] + vj[j] * w->aw[j][i];
-    }
-  }
+  velocity_pass_dev(w->vb, vj, w);
   contact_points_dev(K, w);
   for (int c = 0; c < NC; ++c) {
     const int k = c_cparent[c];

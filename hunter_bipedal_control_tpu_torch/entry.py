@@ -13,7 +13,8 @@ readings of the repository's tick benchmark (``bench.py``).
 
 ``build_wbc_batch`` and ``wbc_chain`` run the WBC alone on a batch of
 standing states, as the repository's batched-WBC benchmark does: ticks
-carrying the WBC state, the first one cold.
+carrying the WBC state, the first one cold.  ``walking_wbc_batch`` draws a
+batch of walking robots (mixed contacts, both stance modes) from a seed.
 
 ``mpc_chain`` is the chained B=1 solve of the benchmark (``bench.py``'s
 ``chained`` and ``chained_rpar``): each solve starts from the flagship's
@@ -193,10 +194,47 @@ def build_wbc_batch(batch: int = 4096, device=None, dtype=torch.float32) -> WbcB
     x0 = torch.cat([torch.zeros(6, dtype=dtype, device=dev), q])
     rbd = q_v_to_rbd_state(m, q, torch.zeros(16, dtype=dtype, device=dev))
     rbds = rbd[None] + 1e-4 * torch.arange(batch, dtype=dtype, device=dev)[:, None]
-    return WbcBatch(m, wbc_mod.default_wbc_params(dev, dtype), x0.expand(batch, -1),
+    return WbcBatch(m, wbc_mod.default_wbc_params(dev, dtype), x0.expand(batch, -1).contiguous(),
                     torch.zeros((batch, 22), dtype=dtype, device=dev), rbds,
                     torch.ones((batch, 4), dtype=dtype, device=dev),
                     torch.zeros(batch, dtype=torch.bool, device=dev))
+
+
+# the contact modes walking_wbc_batch draws from: one leg (toe and heel),
+# the other, both, none
+WALK_FLAGS = ((1., 0., 1., 0.), (0., 1., 0., 1.), (1., 1., 1., 1.), (0., 0., 0., 0.))
+
+
+def walking_wbc_batch(batch: int = 4096, device=None, dtype=torch.float32,
+                      seed: int = 0) -> WbcBatch:
+    """``batch`` WBC problems of a walking robot, drawn from ``seed``: the
+    nominal standing state moved by normal offsets (base position 1 cm,
+    Euler angles 0.2 rad, joints 0.05 rad; velocities 0.5), desired states
+    around it (momentum 0.2, pose 0.05) with the weight-compensating forces
+    of each scenario's contacts plus noise (1 N, joint velocities 0.5), the
+    contact flags one of ``WALK_FLAGS`` per scenario and stance mode on
+    for about half of them."""
+    dev = resolve_device(device)
+    f64 = torch.float64
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, dtype=f64)
+
+    m64 = load_model(device="cpu", dtype=f64)
+    q0 = nominal_q(0.63, "cpu", f64)
+    q = q0 + torch.cat([0.01 * randn(batch, 3), 0.2 * randn(batch, 3),
+                        0.05 * randn(batch, 10)], dim=-1)
+    rbd = q_v_to_rbd_state(m64, q, 0.5 * randn(batch, 16))
+    x_des = torch.cat([0.2 * randn(batch, 6), q0 + 0.05 * randn(batch, 16)], dim=-1)
+    flags = torch.tensor(WALK_FLAGS, dtype=f64)[
+        torch.randint(len(WALK_FLAGS), (batch,), generator=g)]
+    u_des = (ocp.weight_compensating_input(m64, flags, 22)
+             + torch.cat([randn(batch, 12), 0.5 * randn(batch, 10)], dim=-1))
+    stance = torch.randint(2, (batch,), generator=g).bool()
+    t = lambda a: a.to(dev, dtype).contiguous()
+    return WbcBatch(load_model(device=dev, dtype=dtype), wbc_mod.default_wbc_params(dev, dtype),
+                    t(x_des), t(u_des), t(rbd), t(flags), stance.to(dev))
 
 
 def wbc_chain(wb: WbcBatch, n_ticks: int):

@@ -52,6 +52,8 @@ SIGNATURES = {
     # consts, lower, upper, 4 inputs, 2 outputs, decisions or NULL, batch, n_samples,
     # trans_it, rot_it, step, damp, stream
     "hk_leg_ik": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
+    # consts, params, 5 inputs, 6 outputs, batch, stream
+    "hk_wbc_qp": [_P] * 13 + [_I, _P],
 }
 
 _lib = None

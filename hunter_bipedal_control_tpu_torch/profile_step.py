@@ -5,6 +5,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step tick [batch] [ticks]
     python -m hunter_bipedal_control_tpu_torch.profile_step loop [sequential|parallel] [periods]
     python -m hunter_bipedal_control_tpu_torch.profile_step phases [batch] [knots] [horizon]
+    python -m hunter_bipedal_control_tpu_torch.profile_step tick_phases [batch] [ticks]
+    python -m hunter_bipedal_control_tpu_torch.profile_step loop_phases [sequential|parallel] [periods]
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
 ``--lin_backend=dense`` (the plain dense linearization and merit), so that
@@ -22,7 +24,9 @@ periods (default 2), each one MPC step and five ticks.  Each prints one
 JSON line: the wall time (per step, tick or period), the device's busy time
 (sum of kernel and copy durations) and idle share, the number of device
 launches (per step, tick or period), and the device time of the heaviest
-kernels.
+kernels.  ``phases`` splits one warm step's launch calls by phase,
+``tick_phases`` one tick's and ``loop_phases`` one walking period's by the
+tick's sub-phases (``TICK_PHASES``).
 """
 from __future__ import annotations
 
@@ -75,6 +79,23 @@ def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: i
 
     return {"phase": "profile", "batch": batch, "knots": knots, "lin_backend": lin_backend,
             **_profiled(run, 1, top)}
+
+
+def _charged_launches(prof):
+    """A profile's host launch calls: (their number, the number starting
+    inside each "phase:" range, charged to the innermost one, by name)."""
+    events = list(prof.events())
+    ranges = [(e.name[6:], e.time_range.start, e.time_range.end) for e in events
+              if e.name.startswith("phase:")]
+    launches = [e for e in events if "LaunchKernel" in e.name]
+    charged = {}
+    for ev in launches:
+        t = ev.time_range.start
+        inside = [r for r in ranges if r[1] <= t <= r[2]]
+        if inside:
+            name = max(inside, key=lambda r: r[1])[0]
+            charged[name] = charged.get(name, 0) + 1
+    return len(launches), charged
 
 
 PHASES = (("prepare_references", "mpc"), ("_warm_start", "mpc"),
@@ -139,23 +160,11 @@ def profile_phases(batch: int = 128, knots: int = 66, horizon: float = 1.0,
     finally:
         for mod, n, fn, _ in saved:
             setattr(mod, n, fn)
-    events = list(prof.events())
-    ranges = [(e.name[6:], e.time_range.start, e.time_range.end) for e in events
-              if e.name.startswith("phase:")]
-    launches = [e for e in events if "LaunchKernel" in e.name]
-    out = {name: 0 for name, _ in PHASES}
-    prep = {name: 0 for name, _ in PREP_PHASES}
-    for ev in launches:
-        t = ev.time_range.start
-        inside = [r for r in ranges if r[1] <= t <= r[2]]
-        if inside:
-            name = max(inside, key=lambda r: r[1])[0]
-            if name in prep:
-                prep[name] += 1
-                name = "prepare_references"
-            out[name] += 1
+    total, charged = _charged_launches(prof)
+    prep = {name: charged.get(name, 0) for name, _ in PREP_PHASES}
+    out = {name: charged.get(name, 0) for name, _ in PHASES}
+    out["prepare_references"] += sum(prep.values())
     prep["rest"] = out["prepare_references"] - sum(prep.values())
-    total = len(launches)
     out["other"] = total - sum(out.values())
     return {"phase": "profile_phases", "batch": batch, "knots": knots,
             "lin_backend": lin_backend, "device": torch.cuda.get_device_name(0),
@@ -163,16 +172,151 @@ def profile_phases(batch: int = 128, knots: int = 66, horizon: float = 1.0,
             "prepare_references_split": prep}
 
 
-def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12, lin_backend: str = "soa"):
+# the tick's sub-phases and the loop period's parts: (function, module);
+# a launch call is charged to the innermost of these calls it starts in
+TICK_PHASES = (("kalman_update", "kf"), ("momentum_observer_update", "obs"),
+               ("control_tick", "ctrl"), ("control_tick", "loop"), ("_at", "ctrl"),
+               ("wbc_solve", "ctrl"), ("wbc_qp", "wbc"), ("_measured_pipeline", "wbc"),
+               ("_desired_pipeline", "wbc"), ("solve_qp", "wbc"), ("mpc_step", "mpc"),
+               ("dummy_step", "loop"))
+
+
+def _launches_by_phase(run, table):
+    """Run ``run()`` (which ends synchronized) under the profiler with each
+    function of ``table`` wrapped in a range of its name: (the launch calls,
+    the launch calls charged to the innermost range, per name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from .estim import contact, kalman
+    from .runtime import controller, loop
+    from .solver import mpc as mpc_mod
+    from .wbc import wbc
+
+    mods = {"kf": kalman, "obs": contact, "ctrl": controller, "loop": loop, "wbc": wbc,
+            "mpc": mpc_mod}
+
+    def labelled(name, fn):
+        # wraps copies the launch counters the kernel wrappers bump on themselves
+        @functools.wraps(fn)
+        def call(*a, **k):
+            with record_function("phase:" + name):
+                return fn(*a, **k)
+        return call
+
+    saved = [(mods[m], n, getattr(mods[m], n)) for n, m in table]
+    try:
+        for mod, n, fn in saved:
+            setattr(mod, n, labelled(n, fn))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+    finally:
+        for mod, n, fn in reversed(saved):
+            setattr(mod, n, fn)
+    total, charged = _charged_launches(prof)
+    return total, {n: charged.get(n, 0) for n, _ in table}
+
+
+def _tick_split(total, by_name, per):
+    """Launch calls per unit by the tick's sub-phases, and ``wbc_qp``'s own
+    split (its plain version's measured and desired pipelines, the rest)."""
+    parts = {"kalman": by_name["kalman_update"], "observer": by_name["momentum_observer_update"],
+             "policy": by_name["_at"],
+             "wbc_qp": (by_name["wbc_qp"] + by_name["_measured_pipeline"]
+                        + by_name["_desired_pipeline"]),
+             "solve_qp": by_name["solve_qp"], "wbc_solve_rest": by_name["wbc_solve"],
+             "control_tick_rest": by_name["control_tick"], "mpc_step": by_name["mpc_step"],
+             "plant": by_name["dummy_step"]}
+    parts["other"] = total - sum(parts.values())
+    split = {"measured": by_name["_measured_pipeline"], "desired": by_name["_desired_pipeline"],
+             "stacking_or_kernel": by_name["wbc_qp"]}
+    return ({k: v / per for k, v in parts.items()}, {k: v / per for k, v in split.items()})
+
+
+def _tick_policy(batch: int, lin_backend: str):
+    """The product shape's flagship (53 knots over 0.8 s) and its cold policy."""
     import torch
 
-    from .entry import build_controller, build_flagship, tick_chain
+    from .entry import build_flagship
     from .solver.mpc import Mpc
 
     flag = build_flagship(53, 0.8, batch=batch, lin_backend=lin_backend)
     mpc = Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
     policy, _, _ = mpc(flag.state, flag.schedule, flag.target, 0.0, flag.x0,
                        torch.zeros(6, device=flag.x0.device), flag.default_joints)
+    return flag, policy
+
+
+def profile_tick_phases(batch: int = 1, ticks: int = 3, lin_backend: str = "soa"):
+    """Launch calls per tick of ``entry.tick_chain`` (after two warm-up
+    ticks) by sub-phase: the Kalman filter, the momentum observer, the
+    policy evaluation (``_at``), the WBC's QP assembly (``wbc_qp``: kernel
+    B9, or its plain version's pipelines and stacking), the PDIP
+    (``solve_qp``), the rest of ``wbc_solve`` and of ``control_tick``."""
+    import torch
+
+    from .entry import build_controller, tick_chain
+
+    flag, policy = _tick_policy(batch, lin_backend)
+    setup = build_controller(batch)
+    tick_chain(setup, policy, flag.schedule, 2)
+    torch.cuda.synchronize()
+
+    def run():
+        tick_chain(setup, policy, flag.schedule, ticks)
+        torch.cuda.synchronize()
+
+    total, by_name = _launches_by_phase(run, TICK_PHASES)
+    parts, split = _tick_split(total, by_name, ticks)
+    return {"phase": "profile_tick_phases", "batch": batch, "ticks": ticks,
+            "device": torch.cuda.get_device_name(0), "launch_calls_per_tick": total / ticks,
+            "launch_calls_by_phase": parts, "wbc_qp_split": split}
+
+
+def _walking_loop(riccati_parallel: bool, lin_backend: str):
+    """The golden scenario's loop past the gait switch (15 standing and 7
+    walking periods): (setup, the walking command)."""
+    import torch
+
+    from .entry import build_loop, run_loop
+
+    setup = build_loop(riccati_parallel=riccati_parallel, lin_backend=lin_backend)
+    walk = [0.3, 0.0, 0.0, 0.0]
+    state, _ = run_loop(setup, [[0.0] * 4] * 15 + [walk] * 7)
+    torch.cuda.synchronize()
+    return setup._replace(state=state), walk
+
+
+def profile_loop_phases(riccati_parallel: bool = False, periods: int = 2,
+                        lin_backend: str = "soa"):
+    """Launch calls per walking period of the dummy loop by part: the MPC
+    step, the plant, each of the tick's sub-phases summed over the period's
+    five ticks (the cheater state: no Kalman filter, no observer), and the
+    rest (the gait upkeep, the loop's own code)."""
+    import torch
+
+    from .entry import run_loop
+
+    setup, walk = _walking_loop(riccati_parallel, lin_backend)
+
+    def run():
+        run_loop(setup, [walk] * periods)
+        torch.cuda.synchronize()
+
+    total, by_name = _launches_by_phase(run, TICK_PHASES)
+    parts, split = _tick_split(total, by_name, periods)
+    return {"phase": "profile_loop_phases", "riccati_parallel": riccati_parallel,
+            "periods": periods, "device": torch.cuda.get_device_name(0),
+            "launch_calls_per_period": total / periods, "launch_calls_by_phase": parts,
+            "wbc_qp_split": split}
+
+
+def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12, lin_backend: str = "soa"):
+    import torch
+
+    from .entry import build_controller, tick_chain
+
+    flag, policy = _tick_policy(batch, lin_backend)
     setup = build_controller(batch)
     tick_chain(setup, policy, flag.schedule, 2)
     torch.cuda.synchronize()
@@ -189,13 +333,9 @@ def profile_loop(riccati_parallel: bool = False, periods: int = 2, top: int = 12
                  lin_backend: str = "soa"):
     import torch
 
-    from .entry import build_loop, run_loop
+    from .entry import run_loop
 
-    setup = build_loop(riccati_parallel=riccati_parallel, lin_backend=lin_backend)
-    walk = [0.3, 0.0, 0.0, 0.0]
-    state, _ = run_loop(setup, [[0.0] * 4] * 15 + [walk] * 7)
-    setup = setup._replace(state=state)
-    torch.cuda.synchronize()
+    setup, walk = _walking_loop(riccati_parallel, lin_backend)
 
     def run():
         run_loop(setup, [walk] * periods)
@@ -213,6 +353,12 @@ if __name__ == "__main__":
         print(json.dumps(profile_phases(int(a[1]) if len(a) > 1 else 128,
                                         int(a[2]) if len(a) > 2 else 66,
                                         float(a[3]) if len(a) > 3 else 1.0, **kw)))
+    elif a and a[0] == "tick_phases":
+        print(json.dumps(profile_tick_phases(int(a[1]) if len(a) > 1 else 1,
+                                             int(a[2]) if len(a) > 2 else 3, **kw)))
+    elif a and a[0] == "loop_phases":
+        print(json.dumps(profile_loop_phases(len(a) > 1 and a[1] == "parallel",
+                                             int(a[2]) if len(a) > 2 else 2, **kw)))
     elif a and a[0] == "loop":
         print(json.dumps(profile_loop(len(a) > 1 and a[1] == "parallel",
                                       int(a[2]) if len(a) > 2 else 2, **kw)))

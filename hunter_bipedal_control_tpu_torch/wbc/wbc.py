@@ -4,9 +4,11 @@ Port of ``hunter_bipedal_control_tpu/wbc/wbc.py``.  38 decision variables
 [accel (16), contact forces (12), joint torques (10)], 28 equality rows
 (equations of motion, swing-foot zero force) and 40 inequality rows
 (torque limits, friction pyramid); per-mode rows are fixed-size and
-masked.  Every function takes a leading batch dim B; the QP goes through
-``ops/qp.py::solve_qp`` (kernel B4 on the card).  An unacceptable QP
-returns the last accepted solution, as the reference's WBC does.
+masked.  Every function takes a leading batch dim B.  The QP data come
+from ``wbc_qp`` (kernel B9 on the card: ``csrc/wbc_qp.cu``; plain torch,
+``wbc_qp_plain``, on the CPU) and go through ``ops/qp.py::solve_qp``
+(kernel B4 on the card).  An unacceptable QP returns the last accepted
+solution, as the reference's WBC does.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import _build
 from ..models.centroidal import (base_kinematics_from_centroidal, rbd_to_q_v, state_input_to_v,
                                  state_to_q)
 from ..models.dynamics import mass_matrix, nle
@@ -22,6 +25,7 @@ from ..models.kinematics import (base_jacobian, base_jacobian_dot, contact_jacob
 from ..models.robot import RobotModel
 from ..models.spatial import (global_angular_velocity_from_euler_rates, rotation_error_in_world,
                               rotation_zyx)
+from ..ocp import soa_kernel
 from ..ops.qp import solve_qp
 
 NUM_FEET = 4
@@ -118,8 +122,8 @@ def _desired_pipeline(model: RobotModel, x_des, u_des):
     return q_des, v_des, p_feet, v_feet, base_kin
 
 
-def wbc_qp(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measured, contact_flags,
-           stance_mode):
+def wbc_qp_plain(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measured,
+                 contact_flags, stance_mode):
     """The weighted WBC's QP data (H, g, Aeq, beq, Ain, bin), batched (B, ...)."""
     dtype, dev = rbd_measured.dtype, rbd_measured.device
     Bn = rbd_measured.shape[0]
@@ -202,6 +206,68 @@ def wbc_qp(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measured, con
     return H, g, Aeq.contiguous(), beq, Ain.contiguous(), bin_
 
 
+# WbcParams' tensor fields, in the order csrc/wbc_qp.cu reads them
+N_PARAMS = 17
+# one block per scenario: grid.x
+MAX_BLOCKS = 2 ** 31 - 1
+
+
+def params_buffer(params: WbcParams) -> torch.Tensor:
+    """The WBC's gains and weights in the kernel's layout: the tensor fields
+    of ``WbcParams`` in order, one float32 tensor on their device (one
+    concatenation, no sync)."""
+    gains = (params.friction_coeff, params.swing_kp, params.swing_kd, params.base_accel_kp,
+             params.base_accel_kd, params.base_height_kp, params.base_height_kd,
+             params.base_angular_kp, params.base_angular_kd, params.weight_swing,
+             params.weight_base_accel, params.weight_contact_force)
+    if tuple(params.torque_limits.shape) != (5,) or any(t.ndim for t in gains):
+        raise ValueError("wbc_qp kernel: torque_limits must be (5,), the other gains 0-d")
+    return torch.cat([t.reshape(-1).to(torch.float32) for t in (params.torque_limits, *gains)])
+
+
+def wbc_qp(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measured, contact_flags,
+           stance_mode):
+    """Kernel B9: the weighted WBC's QP data (H, g, Aeq, beq, Ain, bin).
+
+    CPU: ``wbc_qp_plain``.  CUDA: one launch of ``hk_wbc_qp``, one block
+    per scenario, or an error: x_des, u_des (B, 22), rbd_measured (B, 32),
+    contact_flags (B, 4) float32 and stance_mode (B,) bool, contiguous, on
+    the card; the model's constants come from B1's buffer
+    (``soa_kernel.consts_buffer``, which refuses a model of another
+    topology)."""
+    if rbd_measured.device.type == "cpu":
+        return wbc_qp_plain(model, params, x_des, u_des, rbd_measured, contact_flags,
+                            stance_mode)
+    if rbd_measured.dim() != 2:
+        raise ValueError(f"rbd_measured: expected (B, 32), got {tuple(rbd_measured.shape)}")
+    Bn, dev, f32 = rbd_measured.shape[0], rbd_measured.device, torch.float32
+    if not 0 < Bn <= MAX_BLOCKS:
+        raise ValueError(f"wbc_qp: B = {Bn} blocks, the grid takes 1..{MAX_BLOCKS}")
+    for t, name, shape in ((x_des, "x_des", (Bn, 22)), (u_des, "u_des", (Bn, 22)),
+                           (rbd_measured, "rbd_measured", (Bn, 32)),
+                           (contact_flags, "contact_flags", (Bn, NUM_FEET))):
+        _build.require(t, name, f32, shape, dev)
+    _build.require(stance_mode, "stance_mode", torch.bool, (Bn,), dev)
+    K = soa_kernel.consts_buffer(model, dev)
+    P = params_buffer(params)
+    _build.require(P, "params", f32, (N_PARAMS,), dev)
+
+    def out(*tail):
+        return torch.empty((Bn, *tail), dtype=f32, device=dev)
+
+    outs = (out(NDEC, NDEC), out(NDEC), out(N_EQ_ROWS, NDEC), out(N_EQ_ROWS),
+            out(N_INEQ_ROWS, NDEC), out(N_INEQ_ROWS))
+    lib = _build.library()
+    _build.check(lib.hk_wbc_qp(*(t.data_ptr() for t in (K, P, x_des, u_des, rbd_measured,
+                                                        contact_flags, stance_mode) + outs),
+                               Bn, _build.stream(rbd_measured)), "wbc_qp")
+    wbc_qp.launches += 1
+    return outs
+
+
+wbc_qp.launches = 0
+
+
 def wbc_update(model: RobotModel, params: WbcParams, state: WbcState,
                x_des, u_des, rbd_measured, contact_flags, stance_mode):
     """One weighted-WBC update for B scenarios: returns (x (B, 38), new WbcState).
@@ -218,8 +284,8 @@ def wbc_solve(model: RobotModel, params: WbcParams, state: WbcState,
     """``wbc_update`` that also returns whether each QP passed the
     acceptance test (B,) bool: where it did not, x is the last solution."""
     dtype, dev = rbd_measured.dtype, rbd_measured.device
-    H, g, Aeq, beq, Ain, bin_ = wbc_qp(model, params, x_des, u_des, rbd_measured,
-                                       contact_flags, stance_mode)
+    H, g, Aeq, beq, Ain, bin_ = wbc_qp(model, params, *(t.contiguous() for t in (
+        x_des, u_des, rbd_measured, contact_flags, stance_mode)))
     if params.qp_warm_start:
         warm = state.has_last[:, None]
         if params.qp_warm_duals:

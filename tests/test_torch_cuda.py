@@ -22,12 +22,18 @@ leg_ik (B8a): both passes' joints, each within max(1e-4, 2 x the float32
 plain version's own error) of the float64 plain version, on its own scale,
 on main-path and random data at B=1/S=6 and B=128/S=7, both plain versions
 run on the CPU.
+wbc_qp (B9): each of the six QP arrays within max(1e-4, 2 x the float32
+plain version's own error) of the float64 plain version, on its own scale,
+on standing (bench.py's batch) and walking states (mixed contact flags, both
+stance modes) at B=1 and B=4096; a NaN measurement gives NaN in the same
+rows as the plain version.
 """
 import numpy as np
 import pytest
 import torch
 
-from hunter_bipedal_control_tpu_torch.entry import build_flagship, build_wbc_batch
+from hunter_bipedal_control_tpu_torch.entry import (build_flagship, build_wbc_batch,
+                                                    walking_wbc_batch)
 from hunter_bipedal_control_tpu_torch.models.robot import load_model
 from hunter_bipedal_control_tpu_torch.models.spatial import rotation_zyx
 from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
@@ -128,8 +134,10 @@ def test_gj_inverse_kernel_refuses_n_above_32(cuda):
 
 
 def _wbc_qp(device, dtype, batch=4096):
+    """The WBC's QP data of bench.py's standing batch, by the plain version
+    (in any dtype on the card)."""
     wb = build_wbc_batch(batch, device, dtype)
-    return wbc.wbc_qp(wb.model, wb.params, wb.x_des, wb.u_des, wb.rbd, wb.contact_flags,
+    return wbc.wbc_qp_plain(wb.model, wb.params, wb.x_des, wb.u_des, wb.rbd, wb.contact_flags,
                       wb.stance_mode)
 
 
@@ -509,3 +517,80 @@ def test_leg_ik_refuses_bad_input(cuda):
                       R_des)
     with pytest.raises(TypeError):
         ik_mod.leg_ik(model, poses, warm.double(), des, R_des)
+
+
+WBC_QP_TOL = 1e-4
+WBC_QP_NAMES = ("H", "g", "Aeq", "beq", "Ain", "bin")
+
+
+def _wbc_inputs(wb, dtype=torch.float32):
+    """(model, params, x_des, u_des, rbd, flags, stance) of a WbcBatch in ``dtype``."""
+    dev = wb.rbd.device
+    return (_cast(wb.model, dev, dtype), _cast(wb.params, dev, dtype),
+            *(t.to(dtype) for t in (wb.x_des, wb.u_des, wb.rbd, wb.contact_flags)),
+            wb.stance_mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walking", [False, True], ids=["standing", "walking"])
+@pytest.mark.parametrize("batch", [1, 4096])
+def test_wbc_qp_kernel(cuda, batch, walking):
+    wb = walking_wbc_batch(batch, cuda, seed=batch) if walking else build_wbc_batch(batch, cuda)
+    args = _wbc_inputs(wb)
+    before = wbc.wbc_qp.launches
+    got = wbc.wbc_qp(*args)
+    torch.cuda.synchronize()
+    assert wbc.wbc_qp.launches == before + 1
+    ref32 = wbc.wbc_qp_plain(*args)
+    ref64 = wbc.wbc_qp_plain(*_wbc_inputs(wb, torch.float64))
+    for name, a, b, c in zip(WBC_QP_NAMES, got, ref32, ref64):
+        assert a.shape == c.shape and a.dtype == torch.float32, name
+        assert torch.isfinite(a).all(), name
+        assert _own_scale_err(a, c) <= max(WBC_QP_TOL, 2.0 * _own_scale_err(b, c)), name
+    if walking and batch > 1:
+        assert wb.stance_mode.any() and not wb.stance_mode.all()
+        assert len(torch.unique(wb.contact_flags, dim=0)) == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("col", [3, 6, 16, 22], ids=["base_pos", "joint", "omega", "joint_vel"])
+def test_wbc_qp_kernel_nan_rows(cuda, col):
+    """A NaN in one scenario's measurement gives NaN QP data in that
+    scenario, in the rows where the plain version has NaN."""
+    wb = walking_wbc_batch(8, cuda, seed=5)
+    rbd = wb.rbd.clone()
+    rbd[3, col] = float("nan")
+    args = list(_wbc_inputs(wb))
+    args[4] = rbd
+    got = wbc.wbc_qp(*args)
+    ref = wbc.wbc_qp_plain(*args)
+    torch.cuda.synchronize()
+
+    def nan_rows(t):
+        return torch.isnan(t).any(-1) if t.dim() == 3 else torch.isnan(t)
+
+    for name, a, b in zip(WBC_QP_NAMES, got, ref):
+        assert torch.equal(nan_rows(a), nan_rows(b)), name
+        assert not nan_rows(a)[[0, 1, 2, 4, 5, 6, 7]].any(), name
+    assert nan_rows(got[3])[3].any()
+
+
+@pytest.mark.cuda
+def test_wbc_qp_kernel_refuses_bad_input(cuda):
+    wb = walking_wbc_batch(4, cuda, seed=1)
+    model, params, x_des, u_des, rbd, flags, stance = _wbc_inputs(wb)
+    before = wbc.wbc_qp.launches
+    with pytest.raises(TypeError):
+        wbc.wbc_qp(model, params, x_des.double(), u_des, rbd, flags, stance)
+    with pytest.raises(ValueError):
+        wbc.wbc_qp(model, params, x_des.t().contiguous().t(), u_des, rbd, flags, stance)
+    with pytest.raises(ValueError):
+        wbc.wbc_qp(model, params, x_des, u_des[:, :21].contiguous(), rbd, flags, stance)
+    with pytest.raises(TypeError):
+        wbc.wbc_qp(model, params, x_des, u_des, rbd, flags, stance.float())
+    bad = load_model(device="cpu")
+    bad = _cast(bad._replace(joint_parent=torch.tensor([0, 1, 2, 3, 4, 0, 6, 7, 8, 8])), cuda,
+                torch.float32)
+    with pytest.raises(ValueError, match="topology"):
+        wbc.wbc_qp(bad, params, x_des, u_des, rbd, flags, stance)
+    assert wbc.wbc_qp.launches == before
