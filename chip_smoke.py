@@ -66,6 +66,27 @@ Phases, each printing one JSON line:
      tests/golden/stance_walk_40p.npz with tests/test_golden.py's checks,
      ms per 10 ms period; one wbc_qp and one solve_qp launch per tick (five
      per period);
+  4g. the full-order closed loop (``entry.build_sim_loop`` +
+     ``run_sim_loop``: the plant's substeps by B11, sensing, the Kalman
+     filter and momentum observer in the loop, the MPC, the WBC; bench.py's
+     rt_factor configuration) over 40 periods in the default Riccati mode,
+     held to tests/golden/sim_stance_walk_40p.npz with tests/test_golden.py's
+     checks, its first 3 periods to the port's CPU float64 run; ms per 10 ms
+     period, rt_factor; one sim_step, wbc_qp and solve_qp launch per tick,
+     6 Kalman 28x28 and 5 observer 5x5 B6 launches per period and no 16x16;
+     launches per walking period by part (``profile_sim_loop_phases``) and
+     its device busy time (``profile_sim_loop``);
+  4h. B11 (sim_step) on every tick's inputs of 4g's loop (B=1, one launch
+     each) and on a sweep-shaped batch (``entry.sim_step_batch``, B=1024: a
+     9 ms delay ring, feet on both sides of the contact surface, per-scenario
+     mass scale and field): q, v, the last acceleration and the contact
+     forces against the float64 plain version within max(tol, 2x the
+     float32 plain version's error), outside the scenarios whose in-contact
+     decisions flipped, the flips counted, bfloat16 landing above the
+     limit; A_sys = M + diag(armature + dt damping), which the kernel
+     eliminates without pivoting, positive definite on every substep (its
+     smallest eigenvalue and largest condition number from the float64
+     plain version); kernel and plain times, the bound (``sim_step_cost``);
   5. the kernels line: launches, error, times and bound of each kernel, B6
      with one row per use (IK, absorbed into B8a on the MPC path; Kalman;
      observer).
@@ -109,7 +130,7 @@ REPS = 15
 # there, ~1e-3 to 1e-2 from the exact solve in float64 too) would not pass.
 TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4,
        "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4,
-       "leg_ik": 1e-4, "wbc_qp": 1e-4}
+       "leg_ik": 1e-4, "wbc_qp": 1e-4, "sim_step": 1e-4}
 # B8a (leg_ik) is held, on each pass's joints on their own scale, to the
 # float64 plain version within max(tol, TOL_FACTOR x the float32 plain
 # version's error).  The damped 5x5 systems have rank 3 (translation) plus
@@ -144,6 +165,20 @@ LIN_NAMES = ("xnext", "A", "B", "cost", "qx", "qu", "Qxx", "Quu", "Qux", "g", "C
 # a copy of the torque limits, exact in every precision, so only the other
 # arrays must put bfloat16 above the limit.
 WBC_QP_NAMES = ("H", "g", "Aeq", "beq", "Ain", "bin")
+# B11 (sim_step) is held, output by output on its own scale, to the float64
+# plain version within max(tol, TOL_FACTOR x the float32 plain version's
+# error), one tick's inputs at a time (eight semi-implicit substeps at
+# 2e4 N/m compound any difference along a trajectory).  The contact law
+# branches on the penetration's sign: near touchdown float32 and float64
+# take different branches, and one flipped contact moves the scenario's
+# whole step.  So the errors are taken outside the scenarios where the
+# kernel's or the float32 plain version's in-contact decisions in some
+# substep differ from the float64 plain version's (the kernel reports its
+# decisions), and the kernel may flip at most SIM_FLIP_FACTOR times the
+# float32 plain version's scenarios plus SIM_FLIP_FLOOR.
+SIM_NAMES = ("q", "v", "acc", "contact_forces")
+SIM_FLIP_FACTOR, SIM_FLIP_FLOOR = 2, 2
+SIM_BATCH = 1024
 MERIT_NAMES = ("cost", "metric")
 TOL_FACTOR = 2.0
 # Card main path vs the port's CPU runs, on states, inputs and cost relative
@@ -186,6 +221,14 @@ K_CHAIN = 20
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
                       "stance_walk_40p.npz")
 GOLDEN_BAND = {"z": 5e-3, "planar": 2e-2, "joints": 3e-2}
+# The full-order loop (bench.py's rt_factor scenario, 40 periods) against
+# the golden trace of the JAX package's loop, with the same checks (planar:
+# the base's linear velocity); its first SIM_CPU_PERIODS periods against the
+# port's CPU float64 run within MAIN_FACTOR times the CPU float32 run's
+# distance (or TICK_FLOOR), on each quantity's scale max(1, max |CPU f64|).
+SIM_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                          "sim_stance_walk_40p.npz")
+SIM_CPU_PERIODS = 3
 
 
 T_START = time.perf_counter()
@@ -382,6 +425,74 @@ def golden_check(telem, ref):
     return out
 
 
+def sim_golden_check(telem, ref):
+    """tests/test_golden.py's checks of the full-order loop's telemetry
+    (B=1) against its golden trace: gait levels, base z, the base's planar
+    velocity, joints, median violation."""
+    import numpy as np
+
+    q = telem["q"][:, 0].double().cpu().numpy()
+    v = telem["v"][:, 0].double().cpu().numpy()
+    levels = telem["gait_level"][:, 0].cpu().numpy()
+    out = {"gait_level_equal": bool(np.array_equal(levels, ref["gait_level"])),
+           "z": float(np.abs(q[:, 2] - ref["q"][:, 2]).max()),
+           "planar": float(np.abs(v[:, 0:2] - ref["v"][:, 0:2]).max()),
+           "joints": float(np.abs(q[:, 6:] - ref["q"][:, 6:]).max()),
+           "violation_median": float(np.median(telem["violation"].double().cpu().numpy())),
+           "violation_limit": float(2 * max(np.median(ref["violation"]), 1e-4)),
+           "band": GOLDEN_BAND}
+    out["ok"] = (out["gait_level_equal"] and all(out[k] <= GOLDEN_BAND[k] for k in GOLDEN_BAND)
+                 and out["violation_median"] <= out["violation_limit"])
+    return out
+
+
+def sim_step_cost(batch, substeps, scaled, field, nq=16, nc=4, nj=10,
+                  parent=(0, 1, 2, 3, 4, 0, 6, 7, 8, 9), contact_link=(5, 10, 5, 10)):
+    """Bytes (q, v, the active command, the mass scale and field in: 86
+    floats per scenario; the model's 497 constants, the 8 plant scalars and
+    the effort limits once; q, v, the acceleration and the contact forces
+    out, 60 floats) and the operations one physics substep needs per
+    scenario, counting only the Jacobian columns that are not identically
+    zero (a link's 3 translation and 3 Euler-rate columns and those of its
+    ancestor joints, ``parent`` giving each joint's parent link, joint j
+    moving link j + 1; soa_kernel.check_topology holds the model to it):
+    FK (per joint two 3x3 products, three 3x3-vector products, the
+    Rodrigues matrix; the link CoMs), the world inertias (one product and
+    the 6 distinct entries of R I R'), the velocity pass; per link its
+    CoM's columns with their time derivatives and J v, dJ/dt v; per
+    contact its point, its linear columns and its velocity from the
+    velocity pass (its dJ/dt v is not needed); the links' wrench terms;
+    M's 136 distinct entries, I_k J_k formed once per angular column, each
+    link adding to the pairs of its nonzero columns; nle; the field term
+    and the mass scale only where the run gives them (``field``,
+    ``scaled``); the contact law, the motors, Jc' f, the right-hand side;
+    the solve of the positive definite A_sys by Cholesky (n^3/3 + 2 n^2,
+    where csrc/sim_step.cu's Gauss-Jordan spends ~n^3); the Euler update."""
+    n_in = batch * (2 * nq + 5 * nj + 4) + (497 + 8 + nj)
+    n_out = batch * (3 * nq + 3 * nc)
+    depth = [0] * (nj + 1)
+    for j, par in enumerate(parent):
+        depth[j + 1] = depth[par] + 1
+    chain = 22 + nj * 162 + (nj + 1) * 18 + (nj + 1) * 75 + 15 + nj * 21 + 20
+    # per link: its CoM's velocity and offsets (21); per Euler column the
+    # linear column and its derivative (30) and three sums against v (18);
+    # per ancestor joint the column and its derivative (45) and the sums (18)
+    links = sum(21 + 3 * 48 + 63 * d for d in depth)
+    contacts = sum(18 + 15 + 3 + 3 * 9 + 12 * depth[k] for k in contact_link)
+    wrench = (nj + 1) * 46
+    mass = sum(7 * (6 + d) * (7 + d) // 2 + 6 * (3 + d) * (4 + d) // 2 + 15 * (3 + d)
+               for d in depth)
+    nle = sum(3 * 6 + 12 * (3 + d) for d in depth)
+    extra = (7 * sum(6 + d for d in depth) + nq if field else 0) + (136 + nq if scaled else 0)
+    law_motor = nc * 20 + nj * 8
+    jtf = sum(6 * (6 + depth[k]) for k in contact_link) + nj
+    rhs = nj + 3 * nq
+    solve = nq ** 3 // 3 + 2 * nq * nq + nq
+    per_substep = (chain + links + contacts + wrench + mass + nle + extra + law_motor + jtf
+                   + rhs + solve + 4 * nq)
+    return (n_in + n_out) * 4, batch * substeps * per_substep
+
+
 def qp_cost(batch, iters, n=38, me=28, mi=40):
     """Bytes (QP data, start point and floors in; x, duals, residual out)
     and flops of ``iters`` PDIP iterations (see csrc/solve_qp.cu).  The
@@ -528,16 +639,20 @@ def main():
 
     import numpy as np
 
+    from hunter_bipedal_control_tpu_torch.backends import fullorder
     from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
-                                                        build_loop, build_wbc_batch, mpc_chain,
-                                                        run_loop, standing_sensors,
-                                                        walking_wbc_batch, wbc_chain)
+                                                        build_loop, build_sim_loop,
+                                                        build_wbc_batch, mpc_chain, run_loop,
+                                                        run_sim_loop, sim_step_batch,
+                                                        standing_sensors, walking_wbc_batch,
+                                                        wbc_chain)
     from hunter_bipedal_control_tpu_torch.estim import contact, kalman
     from hunter_bipedal_control_tpu_torch.kernels import _build
     from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
     from hunter_bipedal_control_tpu_torch.ops import linalg, qp
     from hunter_bipedal_control_tpu_torch.profile_step import (_profiled, profile_loop_phases,
-                                                               profile_phases,
+                                                               profile_phases, profile_sim_loop,
+                                                               profile_sim_loop_phases,
                                                                profile_tick_phases)
     from hunter_bipedal_control_tpu_torch.refs import ik as ik_mod
     from hunter_bipedal_control_tpu_torch.runtime import controller as ctrl_mod
@@ -745,7 +860,7 @@ def main():
                 "riccati_solve": riccati.riccati_solve,
                 "riccati_solve_parallel": riccati.riccati_solve_parallel, "solve_qp": qp.solve_qp,
                 "soa_linearize": soa_kernel.soa_linearize, "soa_merit": soa_kernel.soa_merit,
-                "leg_ik": ik_mod.leg_ik, "wbc_qp": wbc_mod.wbc_qp}
+                "leg_ik": ik_mod.leg_ik, "wbc_qp": wbc_mod.wbc_qp, "sim_step": fullorder.sim_step}
     b1 = ("soa_linearize", "soa_merit")
 
     # the inputs the linearization and the line search's merit get on a
@@ -788,12 +903,13 @@ def main():
             c.launches = 0
         linalg.gj_inverse.launches_by_n.clear()
 
-    def read_counts(path, kernels, absent=(), steps=0, ticks=0):
+    def read_counts(path, kernels, absent=(), steps=0, ticks=0, plant_ticks=0):
         """The launches of the path's run; raise if one of its kernels (or one
         of its B6 rows) had none, a kernel of ``absent`` had any, leg_ik was
-        not launched exactly once per MPC step (``steps`` of them), or
-        wbc_qp not exactly once per control tick (``ticks`` of them), and
-        solve_qp beside it."""
+        not launched exactly once per MPC step (``steps`` of them), wbc_qp
+        not exactly once per control tick (``ticks`` of them), and solve_qp
+        beside it, or sim_step not once per tick of the full-order plant
+        (``plant_ticks``)."""
         counts = {n: c.launches for n, c in counters.items()}
         path_launches[path] = counts
         gj_by_n[path] = dict(linalg.gj_inverse.launches_by_n)
@@ -806,6 +922,9 @@ def main():
         if counts["leg_ik"] != steps:
             raise AssertionError(f"leg_ik: {counts['leg_ik']} launches on the {path} path, "
                                  f"{steps} MPC steps")
+        if counts["sim_step"] != plant_ticks:
+            raise AssertionError(f"sim_step: {counts['sim_step']} launches on the {path} path, "
+                                 f"{plant_ticks} plant ticks")
         if counts["wbc_qp"] != ticks or (ticks and counts["solve_qp"] != ticks):
             raise AssertionError(f"wbc_qp / solve_qp: {counts['wbc_qp']} / "
                                  f"{counts['solve_qp']} launches on the {path} path, "
@@ -1420,9 +1539,173 @@ def main():
         if not gold["ok"]:
             raise AssertionError(f"{path}: off the golden trace: {gold}")
 
+    # ---- 4g. the full-order closed loop (B11 for the plant) against its golden trace ----
+    sref = np.load(SIM_GOLDEN)
+    s_periods = sref["cmds"].shape[0]
+    ssetup = build_sim_loop(dev)
+    s_ticks = s_periods * ssetup.config.ticks_per_mpc
+    plant_inputs, real_substeps = [], fullorder.substeps
+
+    def substeps_cap(model_, params_, q_, v_, active_, **kw):
+        plant_inputs.append((model_, params_, q_, v_, active_))
+        return real_substeps(model_, params_, q_, v_, active_, **kw)
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fullorder.substeps = substeps_cap
+    try:
+        sfin, stelem = run_sim_loop(ssetup, sref["cmds"])
+        torch.cuda.synchronize()
+    finally:
+        fullorder.substeps = real_substeps
+    sim_s = time.perf_counter() - t
+    counts = read_counts("sim_loop", ("leg_ik", "project_knot", "riccati_solve", "solve_qp",
+                                      "wbc_qp", "sim_step", "gj_inverse") + b1,
+                         ("riccati_solve_parallel",), steps=s_periods, ticks=s_ticks,
+                         plant_ticks=s_ticks)
+    # B6 in this loop: the Kalman filter's 28x28 six times and the
+    # observer's 5x5 five times per period; the plant's 16x16 is inside B11
+    want = {28: 6 * s_periods, 5: 5 * s_periods}
+    if gj_by_n["sim_loop"] != want:
+        raise AssertionError(f"sim_loop: gj_inverse launches by size {gj_by_n['sim_loop']}, "
+                             f"expected {want}")
+    if not all(torch.isfinite(v.double()).all() for v in stelem.values()):
+        raise AssertionError("sim_loop: non-finite telemetry")
+    sgold = sim_golden_check(stelem, sref)
+
+    def cpu_sim(dtype):
+        cs = build_sim_loop("cpu", dtype)
+        return run_sim_loop(cs, sref["cmds"][:SIM_CPU_PERIODS])[1]
+
+    t = time.perf_counter()
+    c32 = cpu_sim(torch.float32)
+    sim_cpu_s = time.perf_counter() - t
+    c64 = cpu_sim(torch.float64)
+    sim_cmp = {}
+    for k in ("q", "v", "contact_fz", "est_force_norm", "cost"):
+        noise = scaled(c32[k], c64[k])
+        sim_cmp[k] = {"vs_cpu_f64": scaled(stelem[k][:SIM_CPU_PERIODS], c64[k]),
+                      "cpu_f32_vs_f64": noise, "limit": max(TICK_FLOOR, MAIN_FACTOR * noise)}
+    # one more walking period from the run's final state, profiled
+    s_prof = profile_sim_loop(False, 1, setup=ssetup._replace(state=sfin))
+    s_phases = profile_sim_loop_phases(False, 1, setup=ssetup._replace(state=sfin))
+    emit({"phase": "sim_loop", "batch": 1, "periods": s_periods, "launches": counts,
+          "ms_per_period": sim_s / s_periods * 1e3, "seconds": sim_s,
+          "rt_factor": s_periods * 0.01 / sim_s, "golden": sgold,
+          "card_vs_cpu_first_periods": sim_cmp, "cpu_f32_run_s": sim_cpu_s,
+          "z_range": [stelem["base_z"].min().item(), stelem["base_z"].max().item()],
+          "profiled": s_prof, "phases": s_phases["launch_calls_by_phase"],
+          "launch_calls_per_period": s_phases["launch_calls_per_period"],
+          "final_q": sfin.plant.q[0].cpu().tolist()})
+    if not sgold["ok"]:
+        raise AssertionError(f"sim_loop: off the golden trace: {sgold}")
+    bad = {k: c for k, c in sim_cmp.items() if not c["vs_cpu_f64"] <= c["limit"]}
+    if bad:
+        raise AssertionError(f"sim_loop: first periods off the CPU float64 run: {bad}")
+    if bool(sfin.emergency_stop.any()):
+        raise AssertionError("sim_loop: emergency stop")
+
+    # ---- 4h. B11 on every tick's inputs of the loop (B=1), and on a sweep batch ----
+    def sim_case(label, cases, row):
+        """sim_step's kernel on each argument tuple of ``cases`` (one launch
+        each) against its plain versions in float32, float64 and bfloat16 on
+        the card, the errors taken over all of them outside the flipped
+        scenarios; times on the last case.  ``row``: these fill the kernels
+        line's row, else a kernel_extra line."""
+        tol = TOL["sim_step"]
+        runs = {"kernel": [], "plain32": [], "plain64": [], "bf16": []}
+        mats = []
+        decs = {"kernel": [], "plain32": [], "plain64": []}
+        for m_, p_, q_, v_, a_ in cases:
+            *out, dk = real_substeps(m_, p_, q_, v_, a_, with_decisions=True)
+            runs["kernel"].append(out)
+            decs["kernel"].append(dk)
+        for key, dt in (("plain32", torch.float32), ("plain64", torch.float64),
+                        ("bf16", torch.bfloat16)):
+            # the plain versions on all cases at once: the scenarios are independent
+            m_, p_ = cases[0][0], cases[0][1]
+            knobs = {f: (None if getattr(p_, f) is None else
+                         torch.cat([getattr(c[1], f).expand(c[2].shape[0], *getattr(
+                             p_, f).shape[1:]) for c in cases]).to(dt))
+                     for f in ("mass_scale", "gravity_delta")}
+            pp = fullorder.SimParams(*(a.to(dt) if torch.is_tensor(a) else a
+                                       for a in p_))._replace(**knobs)
+            dec = []
+            out = fullorder.substeps_plain(cast(m_, dev, dt), pp,
+                                           *(torch.cat([c[i] for c in cases]).to(dt)
+                                             for i in (2, 3, 4)), dec,
+                                           a_sys=mats if key == "plain64" else None)
+            runs[key].append(list(out))
+            if key in decs:
+                decs[key].append(torch.stack(dec, 1))
+        # the kernel eliminates A_sys without pivoting: it must stay positive
+        # definite on every substep of these inputs (float64 plain version)
+        eig = torch.linalg.eigvalsh(torch.stack(mats))
+        a_sys = {"min_eig": eig[..., 0].min().item(),
+                 "max_cond": (eig[..., -1] / eig[..., 0]).max().item()}
+        del mats, eig
+        torch.cuda.synchronize()
+        cat = {k: [torch.cat(o) for o in zip(*v)] for k, v in runs.items()}
+        dk, d32, d64 = (torch.cat(decs[k]) for k in ("kernel", "plain32", "plain64"))
+        flip_k = (dk != d64).flatten(1).any(-1)
+        flip_p = (d32 != d64).flatten(1).any(-1)
+        keep = ~(flip_k | flip_p)
+        err = errors(SIM_NAMES, *([t[keep] for t in cat[k]] for k in ("kernel", "plain32",
+                                                                      "plain64")))
+        limits = {n: max(tol, TOL_FACTOR * p64[1]) for n, (_, _, p64) in err.items()}
+        e_bf16 = {n: rel_err(b[keep].float(), c[keep])[1]
+                  for n, b, c in zip(SIM_NAMES, cat["bf16"], cat["plain64"])}
+        flips = {"kernel": int(flip_k.sum()), "plain32": int(flip_p.sum()),
+                 "limit": SIM_FLIP_FACTOR * int(flip_p.sum()) + SIM_FLIP_FLOOR,
+                 "scenarios": int(keep.numel()), "held": int(keep.sum())}
+        last = cases[-1]
+        Bn, n_sub = last[2].shape[0], last[1].substeps
+        times = (cuda_ms(lambda: real_substeps(*last)),
+                 cuda_ms(lambda: fullorder.substeps_plain(*last), reps=3))
+        cost = sim_step_cost(Bn, n_sub, last[1].mass_scale is not None,
+                             last[1].gravity_delta is not None)
+
+        def plain_tick():
+            fullorder.substeps_plain(*last)
+            torch.cuda.synchronize()
+
+        info = {"label": label, "batch": Bn, "cases": len(cases), "substeps": n_sub,
+                "delay_steps": last[1].delay_steps, "flips": flips,
+                "in_contact_share": float(d64.double().mean()), "a_sys": a_sys,
+                "plain_bf16_rel_err_vs_f64": e_bf16}
+        if row:
+            # the launches B11 takes away from each tick
+            info["plain_device_launches_per_tick"] = _profiled(plain_tick, 1, 1)["device_launches"]
+            record("sim_step", "cuda", "hunter_bipedal_control_tpu_torch/csrc/sim_step.cu",
+                   "hunter_bipedal_control_tpu/backends/fullorder.py:126", err, tol, times[0],
+                   times[1], None, cost, info)
+        else:
+            b_ms, b_by = bound(*cost)
+            emit({"phase": "kernel_extra", "name": "sim_step", "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times[0], "plain_ms": times[1],
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **info})
+            check(f"sim_step {label}", err, tol)
+        if not a_sys["min_eig"] > 0.0:
+            raise AssertionError(f"sim_step {label}: A_sys not positive definite: {a_sys}")
+        if flips["kernel"] > flips["limit"]:
+            raise AssertionError(f"sim_step {label}: {flips['kernel']} flipped scenarios, "
+                                 f"limit {flips['limit']}")
+        low = {n: e for n, e in e_bf16.items() if e <= limits[n]}
+        if low:
+            raise AssertionError(f"sim_step {label}: the bfloat16 plain version is within the "
+                                 f"limit on {low} (limits {limits})")
+
+    sim_case("every tick of the sim loop, B=1", plant_inputs, True)
+    sb = sim_step_batch(SIM_BATCH, dev, seed=0, delay_ms=9.0)
+    _, _, sb_active = fullorder._push_command(sb.params, sb.state, sb.command)
+    sim_case(f"sweep batch (9 ms delay ring, mass scale, field), B={SIM_BATCH}",
+             [(sb.model, sb.params, sb.state.q, sb.state.v, sb_active.contiguous())], False)
+    del plant_inputs, sb
+
     # ---- 5. kernels ----
     for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp",
-              "leg_ik", "wbc_qp") + b1:
+              "leg_ik", "wbc_qp", "sim_step") + b1:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -1430,7 +1713,7 @@ def main():
         rows[row]["launches_by_path"] = {path: rows[row]["launches"]}
     emit({"kernels": [rows[n] for n in ("gj_inverse", "gj_inverse_kalman", "gj_inverse_observer",
                                         "project_knot", "riccati_solve", "riccati_solve_parallel",
-                                        "solve_qp") + b1 + ("leg_ik", "wbc_qp")]})
+                                        "solve_qp") + b1 + ("leg_ik", "wbc_qp", "sim_step")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 
 from .backends.dummy import DummyPlantState
+from .backends.fullorder import SimParams, SimState
+from .backends.sensor_noise import NoiseState, SensorNoiseParams
 from .device import resolve_device
 from .estim.contact import ContactObserverParams, ContactObserverState
 from .estim.kalman import KalmanParams, KalmanState
@@ -22,6 +24,7 @@ from .refs.swing_planner import PlannerState, SwingConfig
 from .refs.targets import CmdVelConfig, TargetTrajectories
 from .runtime.controller import GainConfig
 from .runtime.loop import LoopState
+from .runtime.sim_loop import SimLoopState
 from .solver.mpc import MpcState
 from .solver.sqp import SqpSolution
 from .wbc.wbc import WbcParams, WbcState
@@ -30,9 +33,18 @@ _TYPES = {cls.__name__: cls for cls in (
     RobotModel, OcpParams, SwingConfig, CmdVelConfig, ModeSchedule, TargetTrajectories,
     MpcState, PlannerState, WbcParams, WbcState, GainConfig, KalmanParams, KalmanState,
     ContactObserverParams, ContactObserverState, SqpSolution, GaitRunState, DummyPlantState,
-    LoopState)}
+    LoopState, SimParams, SimState, SensorNoiseParams, NoiseState, SimLoopState)}
 # fields that stay Python values, with their types
-_SETTINGS = {"WbcParams": {f: type(d) for f, d in WbcParams._field_defaults.items()}}
+_SETTINGS = {"WbcParams": {f: type(d) for f, d in WbcParams._field_defaults.items()},
+             "SimParams": {"substeps": int, "delay_steps": int}}
+
+
+def _generator(key, dev) -> torch.Generator:
+    """A generator for a JAX PRNG key: seeded from the key's words (the two
+    streams differ; the seed only keeps the conversion deterministic)."""
+    words = np.asarray(key).astype(np.uint64).ravel()[-2:]
+    seed = int(words[0]) << 32 | int(words[-1])
+    return torch.Generator(device=dev).manual_seed(seed)
 
 
 def _leaf(v, dev, dtype):
@@ -52,9 +64,13 @@ def from_numpy(obj, device=None, dtype=torch.float32):
     TargetTrajectories, MpcState, SqpSolution (a policy), WbcParams (its
     Python settings, the ``qp_*`` fields, stay Python values), WbcState,
     GainConfig, KalmanParams, KalmanState, ContactObserverParams,
-    ContactObserverState, and the dummy loop's GaitRunState, DummyPlantState
-    and LoopState.  The port's states are batched: map a JAX state that is
-    not to (1, ...) leaves first."""
+    ContactObserverState, the dummy loop's GaitRunState, DummyPlantState
+    and LoopState, and the full-order loop's SimParams (its ``substeps`` and
+    ``delay_steps`` stay Python ints, a None knob stays None), SimState,
+    SensorNoiseParams, NoiseState (a generator seeded from the JAX key's
+    words in place of the key) and SimLoopState.  The port's states are
+    batched: map a JAX state that is not to (1, ...) leaves first; params
+    stay unbatched."""
     dev = resolve_device(device)
     name = type(obj).__name__
     if name not in _TYPES:
@@ -62,6 +78,9 @@ def from_numpy(obj, device=None, dtype=torch.float32):
     cls = _TYPES[name]
     fields = {}
     for field in cls._fields:
+        if name == "NoiseState" and field == "generator":
+            fields[field] = _generator(obj.key, dev)
+            continue
         v = getattr(obj, field)
         if name == "RobotModel" and field in ("nj", "n_links"):
             fields[field] = int(v)
@@ -75,6 +94,8 @@ def from_numpy(obj, device=None, dtype=torch.float32):
         elif field == "collision":
             if v is not None:
                 raise NotImplementedError("self-collision parameters are not ported yet")
+            fields[field] = None
+        elif v is None:
             fields[field] = None
         elif type(v).__name__ in _TYPES:
             fields[field] = from_numpy(v, dev, dtype)

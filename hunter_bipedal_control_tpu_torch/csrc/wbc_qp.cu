@@ -40,25 +40,24 @@
 // multiply-adds (~0.1 MFLOP): bytes bound.  The first design is simple and
 // latency bound at B=1 (two serial chains in one lane each).
 //
-// Model constants come from B1's constants buffer
+// The state's chain, Jacobian columns and the M / nle sums are
+// rbd_dynamics.cuh's, shared with B11 (sim_step.cu).  Model constants come
+// from B1's constants buffer
 // (ocp/soa_kernel.py::consts_buffer), whose topology check guards this
 // kernel too; the WBC's gains from one float32 buffer
 // (wbc/wbc.py::params_buffer).  True float32: no fast math.
 #include <cuda_runtime.h>
 
-#include "soa_model.cuh"
+#include "rbd_dynamics.cuh"
 
 namespace {
 
-constexpr int NQ = 6 + NJ;              // 16
 constexpr int NX = 12 + NJ;             // 22
 constexpr int NRBD = 2 * NQ;            // 32
-constexpr int NF = 3 * NC;              // 12
 constexpr int NDEC = NQ + NF + NJ;      // 38
 constexpr int NEQ = NQ + NF;            // 28
 constexpr int NIN = 2 * NJ + 5 * NC;    // 40
 constexpr int NROW = NF + 2 + 1 + 3 + NF + 6;  // 36 weighted task rows
-constexpr float GRAVITY = 9.81f;
 constexpr int THREADS = 128;
 
 // WbcParams' tensor fields in order (wbc/wbc.py::params_buffer); 8 and 9,
@@ -70,135 +69,6 @@ constexpr int P_TL = 0, P_MU = 5, P_SW_KP = 6, P_SW_KD = 7, P_BH_KP = 10, P_BH_K
 // task row ranges
 constexpr int R_SW = 0, R_XY = NF, R_HZ = R_XY + 2, R_ANG = R_HZ + 1, R_CF = R_ANG + 3,
               R_ST = R_CF + NF;
-
-// one state (measured or desired) and what the block derives from it
-struct State {
-  Kin k;
-  float v[NQ];
-  float E[9], Ed[9];        // E(theta) and dE/dt along theta_dot
-  float Jl[L][NQ][3];       // link CoM Jacobians: linear, angular columns
-  float Ja[L][NQ][3];
-  float w[L][3];            // J v: angular velocity
-  float wd[L][3], cdd[L][3];  // dJ/dt v: angular, CoM
-  float pc[NC][3], vc[NC][3], ac[NC][3];  // contact points: p, J v, dJ/dt v
-  float Jc[NF][NQ];         // contact Jacobians (linear rows)
-};
-
-__device__ __forceinline__ void euler_Edot(const float* trig, const float* thd, float* Ed) {
-  const float cz = trig[0], sz = trig[1], cy = trig[2], sy = trig[3];
-  const float zd = thd[0], yd = thd[1];
-  Ed[0] = 0.0f; Ed[1] = -cz * zd; Ed[2] = -sz * zd * cy - cz * sy * yd;
-  Ed[3] = 0.0f; Ed[4] = -sz * zd; Ed[5] = cz * zd * cy - sz * sy * yd;
-  Ed[6] = 0.0f; Ed[7] = 0.0f;     Ed[8] = -cy * yd;
-}
-
-// column i of a point's Jacobian (linear lin, angular ang) and its time
-// derivative (dlin, dang) for a point x with velocity xd on link k
-__device__ void point_column(const State* s, int k, int i, const float* x, const float* xd,
-                             float* lin, float* ang, float* dlin, float* dang) {
-  const Kin* w = &s->k;
-  if (i < 3) {
-    for (int a = 0; a < 3; ++a) {
-      lin[a] = a == i ? 1.0f : 0.0f;
-      ang[a] = dlin[a] = dang[a] = 0.0f;
-    }
-  } else if (i < 6) {
-    const int c = i - 3;
-    const float Ec[3] = {s->E[c], s->E[3 + c], s->E[6 + c]};
-    const float Edc[3] = {s->Ed[c], s->Ed[3 + c], s->Ed[6 + c]};
-    float r[3], rd[3], t1[3], t2[3];
-    for (int a = 0; a < 3; ++a) {
-      r[a] = x[a] - w->p[0][a];
-      rd[a] = xd[a] - s->v[a];
-    }
-    cross3(Ec, r, lin);
-    cross3(Edc, r, t1);
-    cross3(Ec, rd, t2);
-    for (int a = 0; a < 3; ++a) {
-      ang[a] = Ec[a];
-      dlin[a] = t1[a] + t2[a];
-      dang[a] = Edc[a];
-    }
-  } else {
-    const int j = i - 6;
-    const float mask = static_cast<float>(c_anc[k][j]);
-    const float* aj = w->aw[j];
-    float r[3], rd[3], ad[3], l[3], t1[3], t2[3];
-    for (int a = 0; a < 3; ++a) {
-      r[a] = x[a] - w->anchor[j][a];
-      rd[a] = xd[a] - w->vo[c_child[j]][a];
-    }
-    cross3(w->om[c_parent[j]], aj, ad);
-    cross3(aj, r, l);
-    cross3(ad, r, t1);
-    cross3(aj, rd, t2);
-    for (int a = 0; a < 3; ++a) {
-      lin[a] = l[a] * mask;
-      ang[a] = aj[a] * mask;
-      dlin[a] = (t1[a] + t2[a]) * mask;
-      dang[a] = ad[a] * mask;
-    }
-  }
-}
-
-// the velocity of a point x on link k, by the velocity pass
-__device__ __forceinline__ void point_velocity(const Kin* w, int k, const float* x, float* xd) {
-  float d[3], t[3];
-  for (int a = 0; a < 3; ++a) d[a] = x[a] - w->p[k][a];
-  cross3(w->om[k], d, t);
-  for (int a = 0; a < 3; ++a) xd[a] = w->vo[k][a] + t[a];
-}
-
-// lane of phase 2: link k's CoM Jacobian (stored), its angular velocity
-// J_ang v and dJ/dt v
-__device__ void link_columns(State* s, int k) {
-  const float* x = s->k.com[k];
-  float xd[3];
-  point_velocity(&s->k, k, x, xd);
-  float w[3] = {0.0f, 0.0f, 0.0f}, wd[3] = {0.0f, 0.0f, 0.0f}, cdd[3] = {0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < NQ; ++i) {
-    float lin[3], ang[3], dlin[3], dang[3];
-    point_column(s, k, i, x, xd, lin, ang, dlin, dang);
-    const float vi = s->v[i];
-    for (int a = 0; a < 3; ++a) {
-      s->Jl[k][i][a] = lin[a];
-      s->Ja[k][i][a] = ang[a];
-      w[a] = w[a] + ang[a] * vi;
-      cdd[a] = cdd[a] + dlin[a] * vi;
-      wd[a] = wd[a] + dang[a] * vi;
-    }
-  }
-  for (int a = 0; a < 3; ++a) {
-    s->w[k][a] = w[a];
-    s->wd[k][a] = wd[a];
-    s->cdd[k][a] = cdd[a];
-  }
-}
-
-// lane of phase 2: contact c's point, Jacobian (stored), J v and dJ/dt v
-__device__ void contact_columns(const float* K, State* s, int c) {
-  const int k = c_cparent[c];
-  float x[3], xd[3], t[3];
-  mv3(s->k.R[k], K + K_CPOS + 3 * c, t);
-  for (int a = 0; a < 3; ++a) x[a] = s->k.p[k][a] + t[a];
-  point_velocity(&s->k, k, x, xd);
-  float vc[3] = {0.0f, 0.0f, 0.0f}, ac[3] = {0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < NQ; ++i) {
-    float lin[3], ang[3], dlin[3], dang[3];
-    point_column(s, k, i, x, xd, lin, ang, dlin, dang);
-    const float vi = s->v[i];
-    for (int a = 0; a < 3; ++a) {
-      s->Jc[3 * c + a][i] = lin[a];
-      vc[a] = vc[a] + lin[a] * vi;
-      ac[a] = ac[a] + dlin[a] * vi;
-    }
-  }
-  for (int a = 0; a < 3; ++a) {
-    s->pc[c][a] = x[a];
-    s->vc[c][a] = vc[a];
-    s->ac[c][a] = ac[a];
-  }
-}
 
 // SO(3) log of a rotation (spatial.py::log3), the angle by atan2
 __device__ void log3_dev(const float* R, float* out) {
@@ -272,11 +142,7 @@ wbc_qp_kernel(const float* __restrict__ gK, const float* __restrict__ gP,
     const float ty = sy / cy;
     const float Einv[9] = {cz * ty, sz * ty, 1.0f, -sz, cz, 0.0f, cz / cy, sz / cy, 0.0f};
     mv3(Einv, rbd + NQ, sm.v + 3);
-    fk_dev(K, q, &sm.k);
-    world_inertias_dev(K, &sm.k);
-    velocity_pass_dev(sm.v, sm.v + 6, &sm.k);
-    euler_E(sm.k.trig, sm.E);
-    euler_Edot(sm.k.trig, sm.v + 3, sm.Ed);
+    state_chain(K, q, &sm);
   } else if (tid == 32) {
     fk_dev(K, xd + 6, &sd.k);
     base_velocity_dev(K, xd, ud + NF, &sd.k);
@@ -293,18 +159,8 @@ wbc_qp_kernel(const float* __restrict__ gK, const float* __restrict__ gP,
     State* s = tid < L ? &sm : &sd;
     const int k = tid % L;
     link_columns(s, k);
-    if (tid < L) {
-      // the measured link's wrench terms of nle
-      const float mk = K[K_MASS + k];
-      float Iw_w[3], Iw_wd[3], wx[3];
-      mv3(sm.k.Iw[k], sm.w[k], Iw_w);
-      mv3(sm.k.Iw[k], sm.wd[k], Iw_wd);
-      cross3(sm.w[k], Iw_w, wx);
-      for (int a = 0; a < 3; ++a) {
-        F[k][a] = mk * (sm.cdd[k][a] + (a == 2 ? GRAVITY : 0.0f));
-        T[k][a] = Iw_wd[a] + wx[a];
-      }
-    }
+    // the measured link's wrench terms of nle
+    if (tid < L) link_wrench(K, &sm, k, F[k], T[k]);
   } else if (tid >= 32 && tid < 32 + 2 * NC) {
     const int c = (tid - 32) % NC;
     contact_columns(K, tid < 32 + NC ? &sm : &sd, c);
@@ -325,29 +181,10 @@ wbc_qp_kernel(const float* __restrict__ gK, const float* __restrict__ gP,
   __syncthreads();
 
   // ---- 3. M, nle, the desired base acceleration ----
-  for (int e = tid; e < NQ * NQ; e += THREADS) {
-    const int i = e / NQ, j = e % NQ;
-    float lin = 0.0f, ang = 0.0f;
-    for (int k = 0; k < L; ++k) {
-      const float* li = sm.Jl[k][i];
-      const float* lj = sm.Jl[k][j];
-      const float* ai = sm.Ja[k][i];
-      float Ia[3];
-      mv3(sm.k.Iw[k], sm.Ja[k][j], Ia);
-      lin = lin + K[K_MASS + k] * ((li[0] * lj[0] + li[1] * lj[1]) + li[2] * lj[2]);
-      ang = ang + ((ai[0] * Ia[0] + ai[1] * Ia[1]) + ai[2] * Ia[2]);
-    }
-    M[i][j] = lin + ang;
-  }
+  for (int e = tid; e < NQ * NQ; e += THREADS)
+    M[e / NQ][e % NQ] = mass_entry(K, &sm, e / NQ, e % NQ);
   if (tid < NQ) {
-    float s = 0.0f;
-    for (int k = 0; k < L; ++k) {
-      const float* li = sm.Jl[k][tid];
-      const float* ai = sm.Ja[k][tid];
-      s = s + (((li[0] * F[k][0] + li[1] * F[k][1]) + li[2] * F[k][2])
-               + ((ai[0] * T[k][0] + ai[1] * T[k][1]) + ai[2] * T[k][2]));
-    }
-    h[tid] = s;
+    h[tid] = nle_entry(&sm, F, T, tid);
   } else if (tid == 64) {
     // (dA/dt) v: the centroidal momentum's rate with the accelerations held
     const Kin* w = &sd.k;

@@ -22,6 +22,12 @@ cold state and consumes the previous solution's one-step state, in either
 Riccati mode.  ``build_loop`` and ``run_loop`` run the dummy closed loop
 (100 Hz MPC + five 500 Hz ticks per period against the dummy plant) on the
 repository's golden stance -> walk scenario.
+
+``build_sim_loop`` and ``run_sim_loop`` run the full-order closed loop
+(``runtime/sim_loop.py``: the plant's physics substeps, sensing, the Kalman
+filter and momentum observer in the loop, the MPC, the WBC) in the
+configuration of the repository benchmark's real-time demonstration
+(``bench.py``'s ``rt_factor``), on the commands ``rt_commands`` gives.
 """
 from __future__ import annotations
 
@@ -35,12 +41,16 @@ from .estim import contact as obs_mod
 from .estim import kalman as kf_mod
 from .gait import mode_schedule as ms
 from .models.centroidal import q_v_to_rbd_state
+from .models.kinematics import contact_positions, fk
 from .models.robot import RobotModel, load_model
 from .models.spatial import zyx_to_quat
 from .ocp import problem as ocp
 from .refs import swing_planner as swp
 from .refs import targets as tg
+from .backends import fullorder
+from .backends import sensor_noise as sn
 from .runtime import loop as loop_mod
+from .runtime import sim_loop as sim_loop_mod
 from .runtime.controller import Controller, GainConfig, JointCommand, TickOutput, default_gains
 from .solver import mpc as mpc_mod
 from .solver import sqp
@@ -326,3 +336,134 @@ def run_loop(setup: LoopSetup, cmds):
                                    setup.planner_cfg, setup.wbc_params, setup.gains,
                                    setup.cmd_cfg, setup.config, setup.state, cmds, cmds.shape[0],
                                    setup.default_joints)
+
+
+class SimLoopSetup(NamedTuple):
+    model: RobotModel
+    settings: sqp.SqpSettings
+    params: ocp.OcpParams
+    planner_cfg: swp.SwingConfig
+    wbc_params: wbc_mod.WbcParams
+    gains: GainConfig
+    cmd_cfg: tg.CmdVelConfig
+    kalman_params: kf_mod.KalmanParams
+    observer_params: obs_mod.ContactObserverParams
+    sim_params: fullorder.SimParams
+    config: loop_mod.LoopConfig
+    state: sim_loop_mod.SimLoopState
+    default_joints: torch.Tensor
+    noise_params: sn.SensorNoiseParams | None
+
+
+def build_sim_loop(device=None, dtype=torch.float32, riccati_parallel: bool = False,
+                   lin_backend: str = "soa", noise: bool = False, n_intervals: int = 53,
+                   horizon: float = 0.8, noise_seed: int = 0) -> SimLoopSetup:
+    """The full-order closed loop of the benchmark's real-time demonstration
+    for one scenario: ``SqpSettings`` of ``n_intervals`` knots over
+    ``horizon`` seconds (the product shape by default) in the given Riccati
+    mode and linearization backend, the input cost made at the nominal
+    stance (z = 0.63), default swing, WBC, gain, command, Kalman, observer
+    and plant parameters (8 substeps of 0.25 ms per 2 ms tick, no delay),
+    the robot at z = 0.624 on the nominal joints; with ``noise`` the
+    default sensor noise, seeded with ``noise_seed``."""
+    dev = resolve_device(device)
+    m = load_model(device=dev, dtype=dtype)
+    settings = sqp.SqpSettings(n_intervals=n_intervals, horizon=horizon,
+                               riccati_parallel=riccati_parallel, lin_backend=lin_backend)
+    qnom = nominal_q(0.63, dev, dtype)
+    params = ocp.make_input_cost(m, ocp.default_ocp_params(m, dtype), qnom)
+    noise_params = sn.default_sensor_noise_params(dev, dtype) if noise else None
+    state = sim_loop_mod.init_sim_loop_state(m, settings, nominal_q(TICK_BASE_Z, dev, dtype)[None],
+                                             noise_params=noise_params, noise_seed=noise_seed)
+    return SimLoopSetup(m, settings, params, swp.default_swing_config(dev, dtype),
+                        wbc_mod.default_wbc_params(dev, dtype), default_gains(dev, dtype),
+                        tg.default_cmd_vel_config(nj=m.nj, device=dev, dtype=dtype),
+                        kf_mod.default_kalman_params(dev, dtype),
+                        obs_mod.default_contact_params(dev, dtype),
+                        fullorder.default_sim_params(dev, dtype), loop_mod.LoopConfig(), state,
+                        qnom[6:], noise_params)
+
+
+class SimBatch(NamedTuple):
+    model: RobotModel
+    params: fullorder.SimParams
+    state: fullorder.SimState
+    command: JointCommand
+
+
+def sim_step_batch(batch: int = 1024, device=None, dtype=torch.float32, seed: int = 0,
+                   delay_ms: float = 9.0) -> SimBatch:
+    """``batch`` plant states and joint commands of a scenario sweep, drawn
+    from ``seed``: the standing robot with its base lowered to where the
+    feet touch the contact surface, then moved by normal offsets (base 3 mm
+    and 0.05 rad, joints 0.05 rad), so that about half the contact points
+    are in contact; the second half of the scenarios walking (velocities
+    0.3 m/s, 0.5 rad/s, joints 1 rad/s), the first half nearly still; PD
+    commands around the state (kp 20-40, kd 1-2, feedforward 5 N m), the
+    command ring full of such commands with heads on both sides of the
+    delay (``delay_ms``, counted in substeps) and past the ring's wrap;
+    per-scenario mass_scale in [0.9, 1.1] and gravity_delta in +-0.5 m/s^2."""
+    dev = resolve_device(device)
+    f64 = torch.float64
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, dtype=f64)
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=g, dtype=f64)
+
+    m64 = load_model(device="cpu", dtype=f64)
+    params64 = fullorder.default_sim_params("cpu", f64, delay_ms=delay_ms)
+    q0 = nominal_q(TICK_BASE_Z, "cpu", f64)
+    feet_z = contact_positions(m64, fk(m64, q0))[:, 2].mean()
+    q0[2] -= feet_z - params64.sole_drop
+    q = q0 + torch.cat([0.003 * randn(batch, 3), 0.05 * randn(batch, 3),
+                        0.05 * randn(batch, fullorder.NJ)], dim=-1)
+    walking = (torch.arange(batch) >= batch // 2).to(f64)[:, None]
+    scale = torch.cat([torch.full((3,), 0.3, dtype=f64), torch.full((3,), 0.5, dtype=f64),
+                       torch.ones(fullorder.NJ, dtype=f64)])
+    v = (0.02 + 0.98 * walking) * scale * randn(batch, fullorder.NV)
+
+    def commands(*lead):
+        nj = fullorder.NJ
+        return torch.stack([q[:, 6:].reshape(batch, *([1] * (len(lead) - 1)), nj)
+                            + 0.05 * randn(*lead, nj), 0.5 * randn(*lead, nj),
+                            uniform(20.0, 40.0, *lead, nj), uniform(1.0, 2.0, *lead, nj),
+                            5.0 * randn(*lead, nj)], dim=-2)
+
+    cmd = commands(batch)
+    ring = commands(batch, fullorder.MAX_DELAY)
+    head = torch.randint(0, 3 * fullorder.MAX_DELAY, (batch,), generator=g)
+    params64 = params64._replace(mass_scale=uniform(0.9, 1.1, batch),
+                                 gravity_delta=uniform(-0.5, 0.5, batch, 3))
+    t = lambda a: a.to(dev, dtype).contiguous()
+    state = fullorder.SimState(q=t(q), v=t(v), t=t(torch.zeros(batch, dtype=f64)),
+                               base_acc=t(torch.zeros(batch, 6, dtype=f64)),
+                               contact_forces=t(torch.zeros(batch, fullorder.NUM_FEET, 3,
+                                                            dtype=f64)),
+                               cmd_buffer=t(ring), buf_head=head.to(dev))
+    params = fullorder.SimParams(*(t(a) if torch.is_tensor(a) else a for a in params64))
+    return SimBatch(load_model(device=dev, dtype=dtype), params, state,
+                    JointCommand(*(t(c) for c in cmd.unbind(-2))))
+
+
+def rt_commands(periods: int):
+    """The real-time demonstration's commands (P, 4): 0.1 s of stance, then
+    0.3 m/s forward."""
+    cmds = torch.zeros((periods, 4), dtype=torch.float64)
+    cmds[10:, 0] = 0.3
+    return cmds
+
+
+def run_sim_loop(setup: SimLoopSetup, cmds):
+    """The full-order closed loop over the commands cmds (P, 4) (or
+    (P, B, 4)), one MPC period each, from ``setup.state``.  Returns (final
+    SimLoopState, telemetry (P, B, ...))."""
+    cmds = torch.as_tensor(cmds, dtype=setup.state.plant.q.dtype,
+                           device=setup.state.plant.q.device)
+    return sim_loop_mod.run_sim_loop(setup.model, setup.settings, setup.params,
+                                     setup.planner_cfg, setup.wbc_params, setup.gains,
+                                     setup.cmd_cfg, setup.kalman_params, setup.observer_params,
+                                     setup.sim_params, setup.config, setup.state, cmds,
+                                     cmds.shape[0], setup.default_joints, setup.noise_params)

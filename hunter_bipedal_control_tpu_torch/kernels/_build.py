@@ -54,6 +54,8 @@ SIGNATURES = {
     "hk_leg_ik": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
     # consts, params, 5 inputs, 6 outputs, batch, stream
     "hk_wbc_qp": [_P] * 13 + [_I, _P],
+    # consts, params, effort, 5 inputs, 4 outputs, decisions or NULL, batch, substeps, stream
+    "hk_sim_step": [_P] * 13 + [_I, _I, _P],
 }
 
 _lib = None

@@ -51,6 +51,27 @@ def nle(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return dMv - dTdq + gravity_vector(model, q)
 
 
+def mass_matrix_and_nle(model: RobotModel, q: torch.Tensor, v: torch.Tensor):
+    """(M (..., nv, nv), nle (..., nv)) from one evaluation of M, by
+    reverse-mode autograd (the full-order plant's substeps call it eight
+    times per tick; ``torch.func``'s forward mode in ``nle`` is slow on the
+    CPU where a traced tensor meets the model's constant ones).  nle =
+    d(M v)/dq . v - dT/dq + dV/dq: one reverse pass gives G = J' w - dT/dq
+    + dV/dq, J = d(M v)/dq, at w = 0; a second one differentiates G . v by
+    w, which is J v."""
+    with torch.enable_grad():
+        qd = q.detach().requires_grad_(True)
+        vd = v.detach()
+        w = torch.zeros_like(vd, requires_grad=True)
+        M = mass_matrix(model, qd)
+        Mv = (M @ vd[..., None])[..., 0]
+        lagrangian = ((w * Mv).sum() - 0.5 * (vd * Mv).sum()
+                      + potential_energy(model, qd).sum())
+        G = torch.autograd.grad(lagrangian, qd, create_graph=True)[0]
+        dMv = torch.autograd.grad((G * vd).sum(), w)[0]
+    return M.detach(), dMv + G.detach()
+
+
 def mass_matrix_jacobian(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
     """(..., nv, nv, nv) dM_ij/dq_k: one forward-mode pass over nv tangents,
     the batch widened by nv (``jax.jacfwd`` of ``mass_matrix``)."""

@@ -7,6 +7,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step phases [batch] [knots] [horizon]
     python -m hunter_bipedal_control_tpu_torch.profile_step tick_phases [batch] [ticks]
     python -m hunter_bipedal_control_tpu_torch.profile_step loop_phases [sequential|parallel] [periods]
+    python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop [sequential|parallel] [n]
+    python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop_phases [sequential|parallel] [n]
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
 ``--lin_backend=dense`` (the plain dense linearization and merit), so that
@@ -26,7 +28,13 @@ JSON line: the wall time (per step, tick or period), the device's busy time
 launches (per step, tick or period), and the device time of the heaviest
 kernels.  ``phases`` splits one warm step's launch calls by phase,
 ``tick_phases`` one tick's and ``loop_phases`` one walking period's by the
-tick's sub-phases (``TICK_PHASES``).
+tick's sub-phases (``TICK_PHASES``).  ``sim_loop`` runs the full-order
+closed loop (``entry.build_sim_loop``: the real-time demonstration's 10
+standing periods and 5 walking ones, past the gait switch) and records
+``periods`` more walking periods; ``sim_loop_phases`` splits one such
+period's launch calls by ``SIM_PHASES`` (the plant, sensing, the Kalman
+filter, the observer, the contact classification, the MPC step, the
+control tick with its QP assembly and PDIP).
 """
 from __future__ import annotations
 
@@ -193,8 +201,10 @@ def _launches_by_phase(run, table):
     from .solver import mpc as mpc_mod
     from .wbc import wbc
 
+    from .runtime import sim_loop
+
     mods = {"kf": kalman, "obs": contact, "ctrl": controller, "loop": loop, "wbc": wbc,
-            "mpc": mpc_mod}
+            "mpc": mpc_mod, "sim": sim_loop}
 
     def labelled(name, fn):
         # wraps copies the launch counters the kernel wrappers bump on themselves
@@ -311,6 +321,85 @@ def profile_loop_phases(riccati_parallel: bool = False, periods: int = 2,
             "wbc_qp_split": split}
 
 
+# the full-order loop's parts, as sim_loop.py calls them
+SIM_PHASES = (("sim_step", "sim"), ("_sense_and_estimate", "sim"), ("kalman_update", "sim"),
+              ("momentum_observer_update", "sim"), ("_classify_contacts", "sim"),
+              ("swing_windows", "sim"), ("control_tick", "sim"), ("wbc_qp", "wbc"),
+              ("solve_qp", "wbc"), ("mpc_step", "mpc"))
+
+
+# the real-time demonstration's walking command
+WALK = [0.3, 0.0, 0.0, 0.0]
+
+
+def _walking_sim_loop(riccati_parallel: bool, lin_backend: str):
+    """The real-time demonstration's loop past the gait switch (10 standing
+    and 5 walking periods): the setup at that state."""
+    import torch
+
+    from .entry import build_sim_loop, rt_commands, run_sim_loop
+
+    setup = build_sim_loop(riccati_parallel=riccati_parallel, lin_backend=lin_backend)
+    state, _ = run_sim_loop(setup, rt_commands(15))
+    torch.cuda.synchronize()
+    return setup._replace(state=state)
+
+
+def profile_sim_loop_phases(riccati_parallel: bool = False, periods: int = 2,
+                            lin_backend: str = "soa", setup=None):
+    """Launch calls per walking period of the full-order loop (from
+    ``setup``, a ``SimLoopSetup`` whose state walks; by default one warmed
+    up by ``_walking_sim_loop``) by part: the
+    plant (``sim_step``: the ring and kernel B11), sensing
+    (``_sense_and_estimate`` but the filter: the IMU, the rbd and centroidal
+    states), the Kalman filter (six updates per period), the observer, the
+    contact classification (with the period's swing windows), the MPC step,
+    the control tick (the QP assembly and the PDIP apart), the rest (the gait
+    upkeep, the command filter, the loop's own code)."""
+    import torch
+
+    from .entry import run_sim_loop
+
+    if setup is None:
+        setup = _walking_sim_loop(riccati_parallel, lin_backend)
+
+    def run():
+        run_sim_loop(setup, [WALK] * periods)
+        torch.cuda.synchronize()
+
+    total, by = _launches_by_phase(run, SIM_PHASES)
+    parts = {"plant": by["sim_step"], "sensing": by["_sense_and_estimate"],
+             "kalman": by["kalman_update"], "observer": by["momentum_observer_update"],
+             "classification": by["_classify_contacts"] + by["swing_windows"],
+             "mpc_step": by["mpc_step"], "wbc_qp": by["wbc_qp"], "solve_qp": by["solve_qp"],
+             "control_tick_rest": by["control_tick"]}
+    parts["other"] = total - sum(parts.values())
+    return {"phase": "profile_sim_loop_phases", "riccati_parallel": riccati_parallel,
+            "periods": periods, "device": torch.cuda.get_device_name(0),
+            "launch_calls_per_period": total / periods,
+            "launch_calls_by_phase": {k: v / periods for k, v in parts.items()}}
+
+
+def profile_sim_loop(riccati_parallel: bool = False, periods: int = 2, top: int = 12,
+                     lin_backend: str = "soa", setup=None):
+    """``_profiled`` over walking periods of the full-order loop (from
+    ``setup``, as ``profile_sim_loop_phases`` takes it)."""
+    import torch
+
+    from .entry import run_sim_loop
+
+    if setup is None:
+        setup = _walking_sim_loop(riccati_parallel, lin_backend)
+
+    def run():
+        run_sim_loop(setup, [WALK] * periods)
+        torch.cuda.synchronize()
+
+    return {"phase": "profile_sim_loop", "riccati_parallel": riccati_parallel,
+            "periods": periods, "lin_backend": lin_backend, "per": "period",
+            **_profiled(run, periods, top)}
+
+
 def profile_tick(batch: int = 1, ticks: int = 3, top: int = 12, lin_backend: str = "soa"):
     import torch
 
@@ -359,6 +448,10 @@ if __name__ == "__main__":
     elif a and a[0] == "loop_phases":
         print(json.dumps(profile_loop_phases(len(a) > 1 and a[1] == "parallel",
                                              int(a[2]) if len(a) > 2 else 2, **kw)))
+    elif a and a[0] in ("sim_loop", "sim_loop_phases"):
+        fn = profile_sim_loop if a[0] == "sim_loop" else profile_sim_loop_phases
+        print(json.dumps(fn(len(a) > 1 and a[1] == "parallel", int(a[2]) if len(a) > 2 else 2,
+                            **kw)))
     elif a and a[0] == "loop":
         print(json.dumps(profile_loop(len(a) > 1 and a[1] == "parallel",
                                       int(a[2]) if len(a) > 2 else 2, **kw)))

@@ -27,18 +27,29 @@ plain version's own error) of the float64 plain version, on its own scale,
 on standing (bench.py's batch) and walking states (mixed contact flags, both
 stance modes) at B=1 and B=4096; a NaN measurement gives NaN in the same
 rows as the plain version.
+sim_step (B11): the tick's q, v, last acceleration and contact forces, each
+within max(1e-4, 2 x the float32 plain version's own error) of the float64
+plain version, on its own scale, outside the scenarios whose in-contact
+decisions went the other way from the float64 plain version's in some
+substep; the kernel flips at most 2 x the float32 plain version's
+scenarios + 2; on the standing robot (B=1) and on a sweep-shaped batch
+(``entry.sim_step_batch``, B=1024, a 9 ms delay ring, per-scenario mass
+scale and field); a NaN state gives NaN where the plain version has it.
 """
 import numpy as np
 import pytest
 import torch
 
-from hunter_bipedal_control_tpu_torch.entry import (build_flagship, build_wbc_batch,
+from hunter_bipedal_control_tpu_torch.backends import fullorder
+from hunter_bipedal_control_tpu_torch.entry import (SimBatch, build_flagship, build_sim_loop,
+                                                    build_wbc_batch, sim_step_batch,
                                                     walking_wbc_batch)
 from hunter_bipedal_control_tpu_torch.models.robot import load_model
 from hunter_bipedal_control_tpu_torch.models.spatial import rotation_zyx
 from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
 from hunter_bipedal_control_tpu_torch.ops import linalg, qp
 from hunter_bipedal_control_tpu_torch.refs import ik as ik_mod
+from hunter_bipedal_control_tpu_torch.runtime.controller import JointCommand
 from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
 from hunter_bipedal_control_tpu_torch.wbc import wbc
 
@@ -594,3 +605,126 @@ def test_wbc_qp_kernel_refuses_bad_input(cuda):
     with pytest.raises(ValueError, match="topology"):
         wbc.wbc_qp(bad, params, x_des, u_des, rbd, flags, stance)
     assert wbc.wbc_qp.launches == before
+
+
+SIM_TOL = 1e-4
+SIM_NAMES = ("q", "v", "acc", "contact_forces")
+
+
+def _sim_inputs(sb, dtype):
+    """(model, params, q, v, active) of a SimBatch in ``dtype``, the active
+    command read from its ring."""
+    dev = sb.state.q.device
+    params = fullorder.SimParams(*(a.to(dtype) if torch.is_tensor(a) else a for a in sb.params))
+    state = sb.state._replace(**{f: getattr(sb.state, f).to(dtype) for f in
+                                 ("q", "v", "t", "base_acc", "contact_forces", "cmd_buffer")})
+    cmd = type(sb.command)(*(c.to(dtype) for c in sb.command))
+    _, _, active = fullorder._push_command(params, state, cmd)
+    return _cast(sb.model, dev, dtype), params, state.q, state.v, active.contiguous()
+
+
+def _sim_held(sb):
+    """The kernel against the float32 and float64 plain versions: per output
+    (kernel error, float32 plain error) outside the flipped scenarios, and
+    the flipped scenarios of the kernel and of the float32 plain version."""
+    args32 = _sim_inputs(sb, torch.float32)
+    got = fullorder.substeps(*args32, with_decisions=True)
+    args64 = _sim_inputs(sb, torch.float64)
+    dec32, dec64 = [], []
+    ref32 = fullorder.substeps_plain(*args32, decisions=dec32)
+    ref64 = fullorder.substeps_plain(*args64, decisions=dec64)
+    torch.cuda.synchronize()
+    d64 = torch.stack(dec64, 1)
+    flip_k = (got[4] != d64).flatten(1).any(-1)
+    flip_p = (torch.stack(dec32, 1) != d64).flatten(1).any(-1)
+    keep = ~(flip_k | flip_p)
+    errs = {n: (_own_scale_err(a[keep], c[keep]), _own_scale_err(b[keep], c[keep]))
+            for n, a, b, c in zip(SIM_NAMES, got[:4], ref32, ref64)}
+    return got, errs, int(flip_k.sum()), int(flip_p.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 1024])
+def test_sim_step_kernel(cuda, batch):
+    if batch == 1:
+        # the sim loop's standing robot under a PD hold at its joints
+        setup = build_sim_loop(cuda)
+        st = setup.state.plant
+        zeros = torch.zeros((1, 10), device=cuda)
+        cmd = JointCommand(st.q[:, 6:], zeros, torch.full_like(zeros, 40.0),
+                           torch.full_like(zeros, 2.0), zeros)
+        sb = SimBatch(setup.model, setup.sim_params, st, cmd)
+    else:
+        sb = sim_step_batch(batch, cuda, seed=3)
+    before = fullorder.sim_step.launches
+    got, errs, flips, flips32 = _sim_held(sb)
+    assert fullorder.sim_step.launches == before + 1
+    for name, a in zip(SIM_NAMES, got[:4]):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), name
+    for name, (e, e32) in errs.items():
+        assert e <= max(SIM_TOL, 2.0 * e32), (name, e, e32)
+    assert flips <= 2 * flips32 + 2, (flips, flips32)
+    if batch > 1:
+        share = got[4].float().mean().item()
+        assert 0.2 < share < 0.8, share
+
+
+@pytest.mark.cuda
+def test_sim_step_wrapper_launches_once(cuda):
+    """sim_step on the card: the ring in torch and one kernel launch.  Its
+    q, v, base_acc and contact forces are those of the held launch on the
+    same inputs bit for bit, which _sim_held holds to the float64 plain
+    substeps within max(SIM_TOL, 2x the float32 plain version's error)
+    outside the scenarios whose contact decisions flipped."""
+    sb = sim_step_batch(64, cuda, seed=4)
+    before = fullorder.sim_step.launches
+    nxt = fullorder.sim_step(sb.model, sb.params, sb.state, sb.command)
+    torch.cuda.synchronize()
+    assert fullorder.sim_step.launches == before + 1
+    buf, head, _ = fullorder._push_command(sb.params, sb.state, sb.command)
+    assert torch.equal(nxt.cmd_buffer, buf) and torch.equal(nxt.buf_head, head)
+    assert torch.equal(nxt.t, sb.state.t + sb.params.dt * sb.params.substeps)
+    got, errs, flips, flips32 = _sim_held(sb)
+    for name, b in (("q", got[0]), ("v", got[1]), ("base_acc", got[2][:, 0:6]),
+                    ("contact_forces", got[3])):
+        assert torch.equal(getattr(nxt, name), b), name
+    for name, (e, e32) in errs.items():
+        assert e <= max(SIM_TOL, 2.0 * e32), (name, e, e32)
+    assert flips <= 2 * flips32 + 2, (flips, flips32)
+
+
+@pytest.mark.cuda
+def test_sim_step_kernel_nan(cuda):
+    sb = sim_step_batch(8, cuda, seed=5)
+    q = sb.state.q.clone()
+    q[3, 4] = float("nan")
+    sb = sb._replace(state=sb.state._replace(q=q))
+    args = _sim_inputs(sb, torch.float32)
+    got = fullorder.substeps(*args)
+    ref = fullorder.substeps_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(SIM_NAMES, got, ref):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+        assert not torch.isnan(a[[0, 1, 2, 4, 5, 6, 7]]).any(), name
+    assert torch.isnan(got[0][3]).all()
+
+
+@pytest.mark.cuda
+def test_sim_step_kernel_refuses_bad_input(cuda):
+    sb = sim_step_batch(4, cuda, seed=1)
+    model, params, q, v, active = _sim_inputs(sb, torch.float32)
+    before = fullorder.sim_step.launches
+    with pytest.raises(TypeError):
+        fullorder.substeps(model, params, q.double(), v, active)
+    with pytest.raises(ValueError):
+        fullorder.substeps(model, params, q[:, :15].contiguous(), v, active)
+    with pytest.raises(ValueError):
+        fullorder.substeps(model, params, q, v.t().contiguous().t(), active)
+    with pytest.raises(ValueError):
+        fullorder.substeps(model, params, q, v, active[:, :4].contiguous())
+    bad = load_model(device="cpu")
+    bad = _cast(bad._replace(joint_parent=torch.tensor([0, 1, 2, 3, 4, 0, 6, 7, 8, 8])), cuda,
+                torch.float32)
+    with pytest.raises(ValueError, match="topology"):
+        fullorder.substeps(bad, params, q, v, active)
+    assert fullorder.sim_step.launches == before
