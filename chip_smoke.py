@@ -8,8 +8,8 @@ Phases, each printing one JSON line:
   2. build of the hand-written kernels (csrc/*.cu, nvcc for sm_90a);
   3. each kernel against its plain PyTorch version on the card, at its
      paths' shapes: B6 gj_inverse (IK-shaped 5x5, the use B8a absorbed,
-     projection 16x16, the Kalman filter's 28x28 innovation, the momentum
-     observer's 5x5 leg systems),
+     projection 16x16, the Kalman filter's 28x28 innovation and the
+     momentum observer's 5x5 leg systems, the uses B12 and B10 absorbed),
      B2 project_knot, B3 riccati_solve, B4 solve_qp on the WBC's own QPs at
      B=4096, cold and warm (errors against the float32 and float64 plain
      versions; kernel / plain / library times by CUDA events, medians of 15);
@@ -43,7 +43,8 @@ Phases, each printing one JSON line:
      solution and the final estimator and WBC states held against the
      port's CPU float32 and float64 runs; B4 on every tick's own QP (B=1)
      against its plain versions, with its time and bound; every tick counts
-     one wbc_qp (B9) and one solve_qp launch;
+     one kalman_update (B12), one momentum_observer (B10), one wbc_qp (B9)
+     and one solve_qp launch, and no gj_inverse (B6);
   4b2. B9 (wbc_qp) on every tick's own inputs (B=1), on bench.py's standing
      batch and on seeded walking states (mixed contact flags, both stance
      modes) at B=4096: the six QP arrays against the float64 plain version
@@ -72,10 +73,11 @@ Phases, each printing one JSON line:
      rt_factor configuration) over 40 periods in the default Riccati mode,
      held to tests/golden/sim_stance_walk_40p.npz with tests/test_golden.py's
      checks, its first 3 periods to the port's CPU float64 run; ms per 10 ms
-     period, rt_factor; one sim_step, wbc_qp and solve_qp launch per tick,
-     6 Kalman 28x28 and 5 observer 5x5 B6 launches per period and no 16x16;
-     launches per walking period by part (``profile_sim_loop_phases``) and
-     its device busy time (``profile_sim_loop``);
+     period, rt_factor; one sim_step, momentum_observer, wbc_qp and
+     solve_qp launch per tick, six kalman_update launches per period (the
+     period's own and one per tick) and no gj_inverse; launches per walking
+     period by part (``profile_sim_loop_phases``) and its device busy time
+     (``profile_sim_loop``);
   4h. B11 (sim_step) on every tick's inputs of 4g's loop (B=1, one launch
      each) and on a sweep-shaped batch (``entry.sim_step_batch``, B=1024: a
      9 ms delay ring, feet on both sides of the contact surface, per-scenario
@@ -87,9 +89,17 @@ Phases, each printing one JSON line:
      eliminates without pivoting, positive definite on every substep (its
      smallest eigenvalue and largest condition number from the float64
      plain version); kernel and plain times, the bound (``sim_step_cost``);
+  4i. B10 (momentum_observer) and B12 (kalman_update) on every update's
+     inputs of 4g's loop (B=1, one launch each: 200 and 240) and on a
+     seeded walking batch (``entry.estimator_batch``, B=4096): the
+     observer's p_scg_z, est_forces and tau_dist and the filter's x_hat, P,
+     position and velocity against the float64 plain version within
+     max(tol, 2x the float32 plain version's error), bfloat16 landing above
+     the limit; kernel and plain times, the bounds (``observer_cost``,
+     ``kalman_cost``);
   5. the kernels line: launches, error, times and bound of each kernel, B6
-     with one row per use (IK, absorbed into B8a on the MPC path; Kalman;
-     observer).
+     with one row per use (IK, absorbed into B8a on the MPC path; Kalman,
+     absorbed into B12; observer, absorbed into B10).
 The last line is {"ok": true, "device": {...}}.  Any failed check raises.
 Exits non-zero without a card, and outside the repository.
 """
@@ -130,7 +140,8 @@ REPS = 15
 # there, ~1e-3 to 1e-2 from the exact solve in float64 too) would not pass.
 TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4,
        "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4,
-       "leg_ik": 1e-4, "wbc_qp": 1e-4, "sim_step": 1e-4}
+       "leg_ik": 1e-4, "wbc_qp": 1e-4, "sim_step": 1e-4, "momentum_observer": 1e-4,
+       "kalman_update": 1e-4}
 # B8a (leg_ik) is held, on each pass's joints on their own scale, to the
 # float64 plain version within max(tol, TOL_FACTOR x the float32 plain
 # version's error).  The damped 5x5 systems have rank 3 (translation) plus
@@ -177,6 +188,16 @@ WBC_QP_NAMES = ("H", "g", "Aeq", "beq", "Ain", "bin")
 # decisions), and the kernel may flip at most SIM_FLIP_FACTOR times the
 # float32 plain version's scenarios plus SIM_FLIP_FLOOR.
 SIM_NAMES = ("q", "v", "acc", "contact_forces")
+# B10 (momentum_observer) and B12 (kalman_update) are held, output by output
+# on its own scale, to the float64 plain version within max(tol, TOL_FACTOR
+# x the float32 plain version's error), over every update of the full-order
+# loop (B=1) and over a seeded B=4096 batch.  The observer's tau_dist is
+# beta p - p_scg_z with beta ~324 at 500 Hz, a difference of terms ~10x its
+# size; the filter's 28x28 innovation covariance mixes covariances of up to
+# 100 m^2 with the feet-height noise of 1e-2.
+OBS_NAMES = ("p_scg_z", "est_forces", "tau_dist")
+KF_NAMES = ("x_hat", "P", "pos", "vel")
+EST_BATCH = 4096
 SIM_FLIP_FACTOR, SIM_FLIP_FLOOR = 2, 2
 SIM_BATCH = 1024
 MERIT_NAMES = ("cost", "metric")
@@ -493,6 +514,64 @@ def sim_step_cost(batch, substeps, scaled, field, nq=16, nc=4, nj=10,
     return (n_in + n_out) * 4, batch * substeps * per_substep
 
 
+def _rbd_ops(nj=10, parent=(0, 1, 2, 3, 4, 0, 6, 7, 8, 9)):
+    """Operations of one state's chain and its link CoMs' Jacobian columns
+    with their time derivatives, as ``sim_step_cost`` counts them: (the
+    chain, the columns, each link's depth in the tree)."""
+    depth = [0] * (nj + 1)
+    for j, par in enumerate(parent):
+        depth[j + 1] = depth[par] + 1
+    chain = 22 + nj * 162 + (nj + 1) * 18 + (nj + 1) * 75 + 15 + nj * 21 + 20
+    links = sum(21 + 3 * 48 + 63 * d for d in depth)
+    return chain, links, depth
+
+
+def observer_cost(batch, nq=16, nj=10):
+    """Bytes (rbd, the torques and the filter state in: 58 floats per
+    scenario; the model's 497 constants and the cutoff once; p_scg_z,
+    est_forces and tau_dist out, 48 floats) and the operations one observer
+    update needs per scenario: rbd -> q, v; the chain and the link CoMs'
+    columns with their time derivatives (``_rbd_ops``); per link its
+    momentum h_k (the CoM's velocity, I_k w_k, m_k c_dot); per link and
+    nonzero column p += J' h, C' v += dJ' h (11 each) and g's mass-weighted
+    z entry (2); the filter (exp, beta, 16 x 9); per leg A A' (15 distinct
+    entries of 6 products), its Cholesky solve (n^3/3 + 2 n^2), w = A' y
+    and the two norms."""
+    chain, links, depth = _rbd_ops()
+    n_in = batch * (2 * nq + nj + nq) + 497 + 1
+    n_out = batch * 3 * nq
+    momenta = len(depth) * (9 + 3 + 15 + 3)
+    sums = sum((6 + d) * 24 for d in depth)
+    filt = 20 + nq * 9
+    legs = 2 * (15 * 11 + 5 + 125 // 3 + 50 + 6 * 9 + 3 * 2 + 6 * 2 + 2)
+    return (n_in + n_out) * 4, batch * (30 + chain + links + momenta + sums + filt + legs)
+
+
+def kalman_cost(batch, ns=18, nm=28, nc=4, nj=10, contact_link=(5, 10, 5, 10)):
+    """Bytes (the sensors, contact flags, x_hat, P and the feet heights in:
+    383 floats per scenario; the model's 497 constants and the 8 filter
+    scalars once; x_hat and P out, 342 floats) and the operations one filter
+    update needs per scenario: the chain at a zero base (``_rbd_ops``); per
+    contact its point and linear columns (as ``sim_step_cost``) and J v;
+    quaternion -> R (~60) and the world acceleration; the gates; Pm =
+    A P A' + Q on A's three dt rows and columns; x_pred; y and ey; Ssy =
+    C Pm C' + R (406 distinct entries of up to four terms) and Pm C' (504
+    entries of up to two); Ssy's Cholesky (n^3/3) and its solves against
+    ey and C Pm (2 n^2 each, 19 right-hand sides); x_new; the symmetric
+    P_new = Pm - (Pm C') (Ssy^-1 C Pm) (171 entries of nm products); the
+    conditioning."""
+    chain, _, depth = _rbd_ops()
+    n_in = batch * (3 + 2 * nj + 3 + 4 + 3 + nc + ns + ns * ns + nc) + 497 + 8
+    n_out = batch * (ns + ns * ns)
+    contacts = sum(18 + 15 + 3 + 3 * 9 + 12 * depth[k] + 6 * (6 + depth[k])
+                   for k in contact_link)
+    small = 60 + 18 + 4 * 4 + 234 + 18 + nm * 3
+    forms = 406 * 4 + nm + (ns * nm) * 2
+    solve = nm ** 3 // 3 + (1 + ns) * 2 * nm * nm
+    update = ns * nm * 2 + (ns * (ns + 1) // 2) * 2 * nm + ns * ns + 10
+    return (n_in + n_out) * 4, batch * (chain + contacts + small + forms + solve + update)
+
+
 def qp_cost(batch, iters, n=38, me=28, mi=40):
     """Bytes (QP data, start point and floors in; x, duals, residual out)
     and flops of ``iters`` PDIP iterations (see csrc/solve_qp.cu).  The
@@ -642,10 +721,10 @@ def main():
     from hunter_bipedal_control_tpu_torch.backends import fullorder
     from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
                                                         build_loop, build_sim_loop,
-                                                        build_wbc_batch, mpc_chain, run_loop,
-                                                        run_sim_loop, sim_step_batch,
-                                                        standing_sensors, walking_wbc_batch,
-                                                        wbc_chain)
+                                                        build_wbc_batch, estimator_batch,
+                                                        mpc_chain, run_loop, run_sim_loop,
+                                                        sim_step_batch, standing_sensors,
+                                                        walking_wbc_batch, wbc_chain)
     from hunter_bipedal_control_tpu_torch.estim import contact, kalman
     from hunter_bipedal_control_tpu_torch.kernels import _build
     from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
@@ -656,6 +735,7 @@ def main():
                                                                profile_tick_phases)
     from hunter_bipedal_control_tpu_torch.refs import ik as ik_mod
     from hunter_bipedal_control_tpu_torch.runtime import controller as ctrl_mod
+    from hunter_bipedal_control_tpu_torch.runtime import sim_loop as sim_loop_mod
     from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
     from hunter_bipedal_control_tpu_torch.wbc import wbc as wbc_mod
 
@@ -839,19 +919,22 @@ def main():
     del qdata, qp_rows, got, ref, ref64
 
     # B6 on the Kalman filter's own 28x28 innovation covariance (the tick's
-    # first update, B=1), and 4096 copies of it for timing
+    # first update, B=1), and 4096 copies of it for timing; B12's
+    # kalman_update eliminates it on the tick and loop paths now
     tsetup = build_controller(1, dev)
     *_, Ssy, _ = kalman.innovation(tsetup.controller.model, tsetup.kalman_params,
                                    tsetup.kalman, **standing_sensors(tsetup), dt=TICK_DT)
-    kalman_use = "Kalman 28x28 innovation (estim/kalman.py:158-159), tick"
+    kalman_use = ("Kalman 28x28 innovation (estim/kalman.py:158-159): absorbed into B12's "
+                  "kalman_update on the tick and loop paths")
     gj_case(Ssy.contiguous(), True, "gj_inverse_kalman", kalman_use)
     gj_case(Ssy.expand(WBC_BATCH, 28, 28).contiguous(), True, use=kalman_use + ", x4096")
     # the momentum observer's two 5x5 leg systems: they depend on the joint
     # angles and the base orientation alone, which the standing tick holds
-    # at q0
+    # at q0; B10's momentum_observer solves them on the tick and loop paths
     _, AAt = contact.leg_systems(tsetup.controller.model, tsetup.q0[None])
     gj_case(AAt, True, "gj_inverse_observer",
-            "momentum observer 2 x 5x5 (estim/contact.py:92-93), tick")
+            "momentum observer 2 x 5x5 (estim/contact.py:92-93): absorbed into B10's "
+            "momentum_observer on the tick and loop paths")
 
     # ---- 4. the MPC path ----
     mpc = mpc_mod.Mpc(model, settings, params, flag.planner_cfg)
@@ -860,7 +943,9 @@ def main():
                 "riccati_solve": riccati.riccati_solve,
                 "riccati_solve_parallel": riccati.riccati_solve_parallel, "solve_qp": qp.solve_qp,
                 "soa_linearize": soa_kernel.soa_linearize, "soa_merit": soa_kernel.soa_merit,
-                "leg_ik": ik_mod.leg_ik, "wbc_qp": wbc_mod.wbc_qp, "sim_step": fullorder.sim_step}
+                "leg_ik": ik_mod.leg_ik, "wbc_qp": wbc_mod.wbc_qp, "sim_step": fullorder.sim_step,
+                "momentum_observer": contact.momentum_observer_update,
+                "kalman_update": kalman.kalman_update}
     b1 = ("soa_linearize", "soa_merit")
 
     # the inputs the linearization and the line search's merit get on a
@@ -892,10 +977,10 @@ def main():
             ik_mod.joint_reference_ik = ik
         
     # the kernels line's B6 rows: each counts the launches of its matrix size
-    # on its path (the IK use: none, B8a solves its systems on the MPC path)
+    # on its path (none: B8a solves the IK's systems on the MPC path, B12 and
+    # B10 the estimators' on the tick; read_counts holds every path to no B6)
     gj_rows = {"gj_inverse": ("mpc_step", 5), "gj_inverse_kalman": ("tick", 28),
                "gj_inverse_observer": ("tick", 5)}
-    gj_absorbed = ("gj_inverse",)
     path_launches, gj_by_n = {}, {}
 
     def zero_counts():
@@ -903,13 +988,15 @@ def main():
             c.launches = 0
         linalg.gj_inverse.launches_by_n.clear()
 
-    def read_counts(path, kernels, absent=(), steps=0, ticks=0, plant_ticks=0):
-        """The launches of the path's run; raise if one of its kernels (or one
-        of its B6 rows) had none, a kernel of ``absent`` had any, leg_ik was
+    def read_counts(path, kernels, absent=(), steps=0, ticks=0, plant_ticks=0, observer=0,
+                    filter_updates=0):
+        """The launches of the path's run; raise if one of its kernels had
+        none, a kernel of ``absent`` had any, leg_ik was
         not launched exactly once per MPC step (``steps`` of them), wbc_qp
         not exactly once per control tick (``ticks`` of them), and solve_qp
-        beside it, or sim_step not once per tick of the full-order plant
-        (``plant_ticks``)."""
+        beside it, sim_step not once per tick of the full-order plant
+        (``plant_ticks``), or momentum_observer and kalman_update not once per
+        observer and filter update (``observer``, ``filter_updates``)."""
         counts = {n: c.launches for n, c in counters.items()}
         path_launches[path] = counts
         gj_by_n[path] = dict(linalg.gj_inverse.launches_by_n)
@@ -925,13 +1012,15 @@ def main():
         if counts["sim_step"] != plant_ticks:
             raise AssertionError(f"sim_step: {counts['sim_step']} launches on the {path} path, "
                                  f"{plant_ticks} plant ticks")
+        if (counts["momentum_observer"], counts["kalman_update"]) != (observer, filter_updates):
+            raise AssertionError(f"momentum_observer / kalman_update: "
+                                 f"{counts['momentum_observer']} / {counts['kalman_update']} "
+                                 f"launches on the {path} path, {observer} observer and "
+                                 f"{filter_updates} filter updates")
         if counts["wbc_qp"] != ticks or (ticks and counts["solve_qp"] != ticks):
             raise AssertionError(f"wbc_qp / solve_qp: {counts['wbc_qp']} / "
                                  f"{counts['solve_qp']} launches on the {path} path, "
                                  f"{ticks} ticks")
-        for row, (p, n) in gj_rows.items():
-            if p == path and row not in gj_absorbed and gj_by_n[path].get(n, 0) <= 0:
-                raise AssertionError(f"{row} ({n}x{n}) was not launched on the {path} path")
         return {**counts, "gj_inverse_by_n": gj_by_n[path]}
 
     zero_counts()
@@ -1256,7 +1345,9 @@ def main():
     finally:
         wbc_mod.solve_qp, ctrl_mod.wbc_solve = real_solve_qp, real_wbc_solve
     touts = tcard[0]
-    tick_counts = read_counts("tick", ("gj_inverse", "solve_qp", "wbc_qp"), ticks=TICKS)
+    tick_counts = read_counts("tick", ("solve_qp", "wbc_qp", "momentum_observer",
+                                       "kalman_update"), ("gj_inverse",), ticks=TICKS,
+                              observer=TICKS, filter_updates=TICKS)
     tick_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     for f in ("tau_ff", "pos_des"):
         if not torch.isfinite(getattr(touts.command, f)).all():
@@ -1365,7 +1456,8 @@ def main():
     zero_counts()
     wxs, woks, _ = wbc_chain(wb, WBC_TICKS)
     torch.cuda.synchronize()
-    wbc_counts = read_counts("wbc_batch", ("solve_qp", "wbc_qp"), ticks=WBC_TICKS)
+    wbc_counts = read_counts("wbc_batch", ("solve_qp", "wbc_qp"), ("gj_inverse",),
+                             ticks=WBC_TICKS)
     if not torch.isfinite(wxs).all():
         raise AssertionError("batched WBC: non-finite solution")
     wtimes = {}
@@ -1545,31 +1637,45 @@ def main():
     ssetup = build_sim_loop(dev)
     s_ticks = s_periods * ssetup.config.ticks_per_mpc
     plant_inputs, real_substeps = [], fullorder.substeps
+    # every observer and filter update's inputs, through the names
+    # sim_loop.py calls, for 4i's checks at B=1
+    obs_inputs, real_observer = [], sim_loop_mod.momentum_observer_update
+    kf_inputs, real_kalman = [], sim_loop_mod.kalman_update
 
     def substeps_cap(model_, params_, q_, v_, active_, **kw):
         plant_inputs.append((model_, params_, q_, v_, active_))
         return real_substeps(model_, params_, q_, v_, active_, **kw)
 
+    def observer_cap(*a):
+        obs_inputs.append(a)
+        return real_observer(*a)
+
+    def kalman_cap(*a):
+        kf_inputs.append(a)
+        return real_kalman(*a)
+
     zero_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     fullorder.substeps = substeps_cap
+    sim_loop_mod.momentum_observer_update, sim_loop_mod.kalman_update = observer_cap, kalman_cap
     try:
         sfin, stelem = run_sim_loop(ssetup, sref["cmds"])
         torch.cuda.synchronize()
     finally:
         fullorder.substeps = real_substeps
+        sim_loop_mod.momentum_observer_update = real_observer
+        sim_loop_mod.kalman_update = real_kalman
     sim_s = time.perf_counter() - t
+    # five observer updates per period (one per tick), six filter updates
+    # (the period's own and one per tick); B6 nowhere, the plant's 16x16 is
+    # inside B11, the estimators' systems inside B10 and B12
     counts = read_counts("sim_loop", ("leg_ik", "project_knot", "riccati_solve", "solve_qp",
-                                      "wbc_qp", "sim_step", "gj_inverse") + b1,
-                         ("riccati_solve_parallel",), steps=s_periods, ticks=s_ticks,
-                         plant_ticks=s_ticks)
-    # B6 in this loop: the Kalman filter's 28x28 six times and the
-    # observer's 5x5 five times per period; the plant's 16x16 is inside B11
-    want = {28: 6 * s_periods, 5: 5 * s_periods}
-    if gj_by_n["sim_loop"] != want:
-        raise AssertionError(f"sim_loop: gj_inverse launches by size {gj_by_n['sim_loop']}, "
-                             f"expected {want}")
+                                      "wbc_qp", "sim_step", "momentum_observer",
+                                      "kalman_update") + b1,
+                         ("riccati_solve_parallel", "gj_inverse"), steps=s_periods,
+                         ticks=s_ticks, plant_ticks=s_ticks, observer=s_ticks,
+                         filter_updates=s_periods + s_ticks)
     if not all(torch.isfinite(v.double()).all() for v in stelem.values()):
         raise AssertionError("sim_loop: non-finite telemetry")
     sgold = sim_golden_check(stelem, sref)
@@ -1703,9 +1809,109 @@ def main():
              [(sb.model, sb.params, sb.state.q, sb.state.v, sb_active.contiguous())], False)
     del plant_inputs, sb
 
+    # ---- 4i. B10 and B12 on every update's inputs of the loop (B=1), and at B=4096 ----
+    def observer_run(a):
+        st, dist = contact.momentum_observer_update(*a)
+        return [st.p_scg_z_last, st.est_forces, dist]
+
+    def observer_plain(a):
+        st, dist = contact.momentum_observer_plain(*a)
+        return [st.p_scg_z_last, st.est_forces, dist]
+
+    def kalman_run(a):
+        st, pos, vel = kalman.kalman_update(*a)
+        return [st.x_hat, st.P, pos, vel]
+
+    def kalman_plain(a):
+        st, pos, vel = kalman.kalman_update_plain(*a)
+        return [st.x_hat, st.P, pos, vel]
+
+    est = {"momentum_observer": (OBS_NAMES, observer_run, observer_plain, observer_cost,
+                                 "hunter_bipedal_control_tpu_torch/csrc/momentum_observer.cu",
+                                 "hunter_bipedal_control_tpu/estim/contact.py:49"),
+           "kalman_update": (KF_NAMES, kalman_run, kalman_plain, kalman_cost,
+                             "hunter_bipedal_control_tpu_torch/csrc/kalman_update.cu",
+                             "hunter_bipedal_control_tpu/estim/kalman.py:91")}
+
+    def est_cast(a, dt_):
+        """An update's arguments (model, params, state, tensors..., dt) in
+        the float dtype dt_ on the card."""
+        return (cast(a[0], dev, dt_), cast(a[1], dev, dt_), cast(a[2], dev, dt_),
+                *(t.to(dt_) for t in a[3:-1]), a[-1])
+
+    def est_cat(cases):
+        """The cases' arguments concatenated along the batch (the scenarios
+        are independent; model, params and dt are the first case's)."""
+        a0 = cases[0]
+        return (a0[0], a0[1], type(a0[2])(*(torch.cat([c[2][i] for c in cases])
+                                            for i in range(len(a0[2])))),
+                *(torch.cat([c[i] for c in cases]) for i in range(3, len(a0) - 1)), a0[-1])
+
+    def est_case(name, label, cases, row):
+        """The estimator kernel ``name`` on each argument tuple of ``cases``
+        (one launch each) against its plain versions in float32, float64 and
+        bfloat16 on the card (all cases at once), the errors taken over all
+        of them; times on the last case.  ``row``: these fill the kernels
+        line's row, else a kernel_extra line."""
+        names, run, plain, cost_fn, source, replaces = est[name]
+        tol = TOL[name]
+        got = [run(a) for a in cases]
+        torch.cuda.synchronize()
+        got = [torch.cat(o) for o in zip(*got)]
+        cat = est_cat(cases)
+        p32, p64, pbf = (plain(est_cast(cat, dt_))
+                         for dt_ in (torch.float32, torch.float64, torch.bfloat16))
+        err = errors(names, got, p32, p64)
+        limits = {n: max(tol, TOL_FACTOR * e[2][1]) for n, e in err.items()}
+        e_bf16 = {n: rel_err(b.float(), c)[1] for n, b, c in zip(names, pbf, p64)}
+        last = cases[-1]
+        Bn = last[3].shape[0]
+        times = (cuda_ms(lambda: run(last)), cuda_ms(lambda: plain(last), reps=3))
+        info = {"label": label, "batch": Bn, "cases": len(cases),
+                "plain_bf16_rel_err_vs_f64": e_bf16}
+        if name == "kalman_update":
+            info["xy_conditioned_share"] = float((p64[1][:, 0:2, 2:] == 0).flatten(1).all(-1)
+                                                 .double().mean())
+
+        def plain_update():
+            plain(last)
+            torch.cuda.synchronize()
+
+        if row:
+            # the launches the kernel takes away from each update
+            info["plain_device_launches_per_update"] = _profiled(plain_update, 1, 1)[
+                "device_launches"]
+            record(name, "cuda", source, replaces, err, tol, times[0], times[1], None,
+                   cost_fn(Bn), info)
+        else:
+            b_ms, b_by = bound(*cost_fn(Bn))
+            emit({"phase": "kernel_extra", "name": name, "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times[0], "plain_ms": times[1],
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **info})
+            check(f"{name} {label}", err, tol)
+        low = {n: e for n, e in e_bf16.items() if e <= limits[n]}
+        if low:
+            raise AssertionError(f"{name} {label}: the bfloat16 plain version is within the "
+                                 f"limit on {low} (limits {limits})")
+
+    if (len(obs_inputs), len(kf_inputs)) != (s_ticks, s_periods + s_ticks):
+        raise AssertionError(f"sim_loop: {len(obs_inputs)} observer and {len(kf_inputs)} "
+                             f"filter updates captured")
+    est_case("momentum_observer", "every update of the sim loop, B=1", obs_inputs, True)
+    est_case("kalman_update", "every update of the sim loop, B=1", kf_inputs, True)
+    eb = estimator_batch(EST_BATCH, dev, seed=0)
+    est_case("momentum_observer", f"seeded walking batch, B={EST_BATCH}",
+             [(eb.model, eb.observer_params, eb.observer, eb.rbd, eb.cmd_torque, TICK_DT)], False)
+    est_case("kalman_update", f"seeded walking batch, B={EST_BATCH}",
+             [(eb.model, eb.kalman_params, eb.kalman,
+               *(eb.sensors[k] for k in ("zyx", "joint_pos", "joint_vel", "omega_world",
+                                         "quat_xyzw", "linear_accel_local", "contact_flags")),
+               TICK_DT)], False)
+    del obs_inputs, kf_inputs, eb
+
     # ---- 5. kernels ----
     for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp",
-              "leg_ik", "wbc_qp", "sim_step") + b1:
+              "leg_ik", "wbc_qp", "sim_step", "momentum_observer", "kalman_update") + b1:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -1713,7 +1919,9 @@ def main():
         rows[row]["launches_by_path"] = {path: rows[row]["launches"]}
     emit({"kernels": [rows[n] for n in ("gj_inverse", "gj_inverse_kalman", "gj_inverse_observer",
                                         "project_knot", "riccati_solve", "riccati_solve_parallel",
-                                        "solve_qp") + b1 + ("leg_ik", "wbc_qp", "sim_step")]})
+                                        "solve_qp") + b1 + ("leg_ik", "wbc_qp", "sim_step",
+                                                            "momentum_observer",
+                                                            "kalman_update")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,5 +1,6 @@
 // One state's rigid-body dynamics on the compiled model, shared by B9
-// (wbc_qp.cu) and B11 (sim_step.cu): the kinematic chain of soa_model.cuh,
+// (wbc_qp.cu), B10 (momentum_observer.cu), B11 (sim_step.cu) and B12
+// (kalman_update.cu): the kinematic chain of soa_model.cuh,
 // every link CoM's and contact point's 16 Jacobian columns (v[3:6] are ZYX
 // Euler rates, so the base columns carry E(theta)) with their time
 // derivatives along v, and the mass matrix and nonlinear effects summed
@@ -7,7 +8,8 @@
 //   M = sum_k J_k' diag(m_k, I_k) J_k,
 //   nle = sum_k J_k' [m_k (dJ_k v + g e_z); I_k dw_k + w_k x I_k w_k]
 // (Newton-Euler at each link CoM in the Euler-rate coordinates: the same
-// equations as the Lagrangian C v + g).  The entry of a joint that does not
+// equations as the Lagrangian C v + g), and the links' momenta and their
+// share of C(q, v)' v = sum_k dJ_k' h_k.  The entry of a joint that does not
 // move a point is its column's value times 0 (the ancestor mask), so a NaN
 // state spreads as it does in the plain versions.
 #pragma once
@@ -39,6 +41,29 @@ __device__ __forceinline__ void euler_Edot(const float* trig, const float* thd, 
   Ed[0] = 0.0f; Ed[1] = -cz * zd; Ed[2] = -sz * zd * cy - cz * sy * yd;
   Ed[3] = 0.0f; Ed[4] = -sz * zd; Ed[5] = cz * zd * cy - sz * sy * yd;
   Ed[6] = 0.0f; Ed[7] = 0.0f;     Ed[8] = -cy * yd;
+}
+
+// ZYX Euler rates from a world angular velocity: E(zyx)^-1 om
+__device__ void euler_rates_dev(const float* zyx, const float* om, float* rates) {
+  const float cz = cosf(zyx[0]), sz = sinf(zyx[0]), cy = cosf(zyx[1]), sy = sinf(zyx[1]);
+  const float ty = sy / cy;
+  const float Einv[9] = {cz * ty, sz * ty, 1.0f, -sz, cz, 0.0f, cz / cy, sz / cy, 0.0f};
+  mv3(Einv, om, rates);
+}
+
+// an rbd state [theta_zyx, p, qj, omega_world, p_dot, qj_dot] -> q and v in
+// the Euler-rate form
+__device__ void rbd_to_qv(const float* rbd, float* q, float* v) {
+  for (int a = 0; a < 3; ++a) {
+    q[a] = rbd[3 + a];
+    q[3 + a] = rbd[a];
+    v[a] = rbd[NQ + 3 + a];
+  }
+  for (int j = 0; j < NJ; ++j) {
+    q[6 + j] = rbd[6 + j];
+    v[6 + j] = rbd[NQ + 6 + j];
+  }
+  euler_rates_dev(rbd, rbd + NQ, v + 3);
 }
 
 // lane of the chain: FK of q, world inertias, the velocity pass of s->v,
@@ -171,6 +196,27 @@ __device__ void link_wrench(const float* K, const State* s, int k, float* F, flo
     F[a] = mk * (s->cdd[k][a] + (a == 2 ? GRAVITY : 0.0f));
     T[a] = Iw_wd[a] + wx[a];
   }
+}
+
+// link k's momentum at its CoM (after link_columns): the CoM's velocity cd,
+// hl = m_k cd and ha = I_k w_k
+__device__ void link_momentum(const float* K, const State* s, int k, float* cd, float* hl,
+                              float* ha) {
+  point_velocity(&s->k, k, s->k.com[k], cd);
+  mv3(s->k.Iw[k], s->w[k], ha);
+  const float mk = K[K_MASS + k];
+  for (int a = 0; a < 3; ++a) hl[a] = mk * cd[a];
+}
+
+// link k's term of column i of sum_k dJ_k' h_k, which is C(q, v)' v (from
+// Mdot = C + C' and C v = sum_k J_k' [m_k dJ_k v; I_k dw_k + w_k x I_k w_k]:
+// Mdot v - C v = sum_k dJ_k' h_k); cd, hl, ha from link_momentum
+__device__ float momentum_rate_term(const State* s, int k, int i, const float* cd,
+                                    const float* hl, const float* ha) {
+  float lin[3], ang[3], dlin[3], dang[3];
+  point_column(s, k, i, s->k.com[k], cd, lin, ang, dlin, dang);
+  return ((dlin[0] * hl[0] + dlin[1] * hl[1]) + dlin[2] * hl[2])
+         + ((dang[0] * ha[0] + dang[1] * ha[1]) + dang[2] * ha[2]);
 }
 
 // M[i][j] over the links' columns

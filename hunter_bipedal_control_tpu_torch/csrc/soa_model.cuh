@@ -4,8 +4,9 @@
 // models/soa.py::build_consts, the 3-vector / 3x3 helpers, and one state's
 // kinematics (FK, world inertias, the base velocity from the centroidal
 // momentum, the velocity pass).  Shared by B1 (soa_linearize.cu), B8a
-// (leg_ik.cu) and B9 (wbc_qp.cu); soa_kernel.py::check_topology refuses a
-// model whose topology differs from this one.
+// (leg_ik.cu) and, through rbd_dynamics.cuh, B9-B12;
+// soa_kernel.py::check_topology refuses a model whose topology differs
+// from this one.
 #pragma once
 
 #include <cuda_runtime.h>

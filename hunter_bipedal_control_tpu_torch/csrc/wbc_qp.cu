@@ -127,21 +127,8 @@ wbc_qp_kernel(const float* __restrict__ gK, const float* __restrict__ gP,
 
   // ---- 1. the two states' chains ----
   if (tid == 0) {
-    // rbd = [theta_zyx, p, qj, omega_world, p_dot, qj_dot] -> q, v (Euler rates)
     float q[NQ];
-    for (int a = 0; a < 3; ++a) {
-      q[a] = rbd[3 + a];
-      q[3 + a] = rbd[a];
-      sm.v[a] = rbd[NQ + 3 + a];
-    }
-    for (int j = 0; j < NJ; ++j) {
-      q[6 + j] = rbd[6 + j];
-      sm.v[6 + j] = rbd[NQ + 6 + j];
-    }
-    const float cz = cosf(rbd[0]), sz = sinf(rbd[0]), cy = cosf(rbd[1]), sy = sinf(rbd[1]);
-    const float ty = sy / cy;
-    const float Einv[9] = {cz * ty, sz * ty, 1.0f, -sz, cz, 0.0f, cz / cy, sz / cy, 0.0f};
-    mv3(Einv, rbd + NQ, sm.v + 3);
+    rbd_to_qv(rbd, q, sm.v);
     state_chain(K, q, &sm);
   } else if (tid == 32) {
     fk_dev(K, xd + 6, &sd.k);

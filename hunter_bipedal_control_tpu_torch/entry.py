@@ -14,7 +14,8 @@ readings of the repository's tick benchmark (``bench.py``).
 ``build_wbc_batch`` and ``wbc_chain`` run the WBC alone on a batch of
 standing states, as the repository's batched-WBC benchmark does: ticks
 carrying the WBC state, the first one cold.  ``walking_wbc_batch`` draws a
-batch of walking robots (mixed contacts, both stance modes) from a seed.
+batch of walking robots (mixed contacts, both stance modes) from a seed,
+``estimator_batch`` the inputs of both estimators' updates.
 
 ``mpc_chain`` is the chained B=1 solve of the benchmark (``bench.py``'s
 ``chained`` and ``chained_rpar``): each solve starts from the flagship's
@@ -446,6 +447,74 @@ def sim_step_batch(batch: int = 1024, device=None, dtype=torch.float32, seed: in
     params = fullorder.SimParams(*(t(a) if torch.is_tensor(a) else a for a in params64))
     return SimBatch(load_model(device=dev, dtype=dtype), params, state,
                     JointCommand(*(t(c) for c in cmd.unbind(-2))))
+
+
+class EstimatorBatch(NamedTuple):
+    model: RobotModel
+    observer_params: obs_mod.ContactObserverParams
+    observer: obs_mod.ContactObserverState
+    rbd: torch.Tensor            # (B, 32) measured states
+    cmd_torque: torch.Tensor     # (B, 10)
+    kalman_params: kf_mod.KalmanParams
+    kalman: kf_mod.KalmanState
+    sensors: dict                # kalman_update's sensor arguments, (B, ...)
+
+
+def estimator_batch(batch: int = 4096, device=None, dtype=torch.float32,
+                    seed: int = 0) -> EstimatorBatch:
+    """``batch`` inputs of both estimators' updates, of walking robots drawn
+    from ``seed``.  The observer: the nominal standing state moved by normal
+    offsets (base 1 cm, Euler angles 0.2 rad, joints 0.05 rad), velocities
+    of scale 1 (so the Coriolis term matters), torques of 5 N m, and a
+    filter state near its zero-disturbance value beta M v (plus 5 of
+    noise).  The Kalman filter: the same joints and angles as sensors
+    (angular velocity 0.3 rad/s, specific force g plus 0.5 m/s^2 of noise),
+    contact flags one of ``WALK_FLAGS`` for half the scenarios and uniform
+    fractions in [0, 1] for the rest; a state of base 0.6 m up, velocities
+    0.3 m/s, feet 5 cm around the origin, and a covariance X X' / 18 +
+    0.1 I scaled per scenario by 10^u, u uniform in [-5, 2] (so that
+    the xy conditioning's test goes both ways)."""
+    from .models.dynamics import mass_matrix
+
+    dev = resolve_device(device)
+    f64 = torch.float64
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, dtype=f64)
+
+    m64 = load_model(device="cpu", dtype=f64)
+    q = nominal_q(0.63, "cpu", f64) + torch.cat([0.01 * randn(batch, 3), 0.2 * randn(batch, 3),
+                                                 0.05 * randn(batch, 10)], dim=-1)
+    v = randn(batch, 16)
+    rbd = q_v_to_rbd_state(m64, q, v)
+    op64 = obs_mod.default_contact_params("cpu", f64)
+    gama = torch.exp(-op64.cutoff_frequency * TICK_DT)
+    beta = (1.0 - gama) / (gama * TICK_DT)
+    p = (mass_matrix(m64, q) @ v[..., None])[..., 0]
+    observer = obs_mod.ContactObserverState(p_scg_z_last=beta * p + 5.0 * randn(batch, 16),
+                                            est_forces=torch.full((batch, 16), 50.0, dtype=f64))
+    zyx = q[:, 3:6]
+    flags = torch.tensor(WALK_FLAGS, dtype=f64)[
+        torch.randint(len(WALK_FLAGS), (batch,), generator=g)]
+    frac = torch.rand(batch, 4, generator=g, dtype=f64)
+    flags = torch.where((torch.arange(batch) % 2 == 1)[:, None], frac, flags)
+    sensors = dict(zyx=zyx, joint_pos=q[:, 6:], joint_vel=v[:, 6:],
+                   omega_world=0.3 * randn(batch, 3), quat_xyzw=zyx_to_quat(zyx),
+                   linear_accel_local=torch.tensor([0., 0., 9.81], dtype=f64)
+                   + 0.5 * randn(batch, 3), contact_flags=flags)
+    X = randn(batch, kf_mod.NS, kf_mod.NS)
+    scale = 10.0 ** (-5.0 + 7.0 * torch.rand(batch, 1, 1, generator=g, dtype=f64))
+    P = scale * (X @ X.transpose(-1, -2) / kf_mod.NS + 0.1 * torch.eye(kf_mod.NS, dtype=f64))
+    x_hat = torch.cat([torch.tensor([0., 0., 0.6], dtype=f64) + 0.01 * randn(batch, 3),
+                       0.3 * randn(batch, 3), 0.05 * randn(batch, 12)], dim=-1)
+    kalman = kf_mod.KalmanState(x_hat=x_hat, P=P, feet_heights=0.01 * randn(batch, 4))
+    t = lambda a: a.to(dev, dtype).contiguous()
+    return EstimatorBatch(
+        load_model(device=dev, dtype=dtype), obs_mod.default_contact_params(dev, dtype),
+        obs_mod.ContactObserverState(*(t(a) for a in observer)), t(rbd),
+        t(5.0 * randn(batch, 10)), kf_mod.default_kalman_params(dev, dtype),
+        kf_mod.KalmanState(*(t(a) for a in kalman)), {k: t(a) for k, a in sensors.items()})
 
 
 def rt_commands(periods: int):

@@ -1,10 +1,11 @@
 """Contact-force estimation (generalized-momentum disturbance observer) and
 contact-state classification / early-late contact detection, batched.
 
-Port of ``hunter_bipedal_control_tpu/estim/contact.py``.  The per-leg
-wrench is a damped least-squares solve whose 5 x 5 systems (two legs per
-scenario) go through ``ops/linalg.py::gj_inverse`` (kernel B6 on the card)
-in one launch.
+Port of ``hunter_bipedal_control_tpu/estim/contact.py``.  The observer's
+update is kernel B10 (``csrc/momentum_observer.cu``, one launch per update)
+for a CUDA tensor and ``momentum_observer_plain`` for a CPU tensor: M, the
+Coriolis matrix, g and the two legs' damped least-squares wrench solves
+(5 x 5 Gauss-Jordan) in plain torch.
 """
 from __future__ import annotations
 
@@ -12,15 +13,19 @@ from typing import NamedTuple
 
 import torch
 
+from ..kernels import _build
 from ..models.centroidal import rbd_to_q_v
 from ..models.dynamics import coriolis_matrix, gravity_vector, mass_matrix
 from ..models.kinematics import contact_jacobians, fk
 from ..models.robot import RobotModel
-from ..ops.linalg import gj_inverse
+from ..ocp import soa_kernel
+from ..ops.linalg import gj_inverse_plain
 
 NUM_FEET = 4
 NV = 16
 NJ = 10
+# one block per scenario: grid.x
+MAX_BLOCKS = 2 ** 31 - 1
 
 
 class ContactObserverParams(NamedTuple):
@@ -57,8 +62,8 @@ def leg_systems(model: RobotModel, q):
     return A, AAt.contiguous()
 
 
-def momentum_observer_update(model: RobotModel, params: ContactObserverParams,
-                             state: ContactObserverState, rbd_measured, cmd_torque, dt):
+def momentum_observer_plain(model: RobotModel, params: ContactObserverParams,
+                            state: ContactObserverState, rbd_measured, cmd_torque, dt):
     """First-order disturbance observer on the generalized momentum; per-leg
     wrench by min-norm least squares of S_l J' w = S_l tau_dist.  Returns
     (new state, tau_dist (B, 16)).  ``dt`` is a Python float."""
@@ -80,7 +85,7 @@ def momentum_observer_update(model: RobotModel, params: ContactObserverParams,
 
     A, AAt = leg_systems(model, q)
     b = torch.stack([tau_dist[:, 6:11], tau_dist[:, 11:16]], dim=1)  # (B, 2, 5)
-    w = (A.transpose(-1, -2) @ (gj_inverse(AAt) @ b[..., None]))[..., 0]
+    w = (A.transpose(-1, -2) @ (gj_inverse_plain(AAt) @ b[..., None]))[..., 0]
     w_l, w_r = w[:, 0], w[:, 1]
     f_norms = torch.stack([torch.linalg.vector_norm(w_l[:, 0:3], dim=-1),
                            torch.linalg.vector_norm(w_r[:, 0:3], dim=-1)], dim=-1)
@@ -88,6 +93,51 @@ def momentum_observer_update(model: RobotModel, params: ContactObserverParams,
                            torch.linalg.vector_norm(w_r, dim=-1)], dim=-1)
     est = torch.cat([w_l, w_r, f_norms, w_norms], dim=-1)
     return ContactObserverState(p_scg_z_last=p_scg_z, est_forces=est), tau_dist
+
+
+def params_buffer(params: ContactObserverParams) -> torch.Tensor:
+    """The cutoff frequency as the kernel reads it: one float32 on its
+    device (no sync)."""
+    if params.cutoff_frequency.ndim:
+        raise ValueError("momentum_observer kernel: the cutoff frequency must be 0-d")
+    return params.cutoff_frequency.reshape(1).to(torch.float32)
+
+
+def momentum_observer_update(model: RobotModel, params: ContactObserverParams,
+                             state: ContactObserverState, rbd_measured, cmd_torque, dt):
+    """Kernel B10: one observer update.
+
+    CPU: ``momentum_observer_plain``.  CUDA: one launch of
+    ``hk_momentum_observer``, one block per scenario, or an error:
+    rbd_measured (B, 32), cmd_torque (B, 10) and the state's (B, 16) fields
+    float32 on the card (made contiguous here); the model's constants from
+    B1's buffer (``soa_kernel.consts_buffer``, which refuses a model of
+    another topology).  Returns (new state, tau_dist (B, 16)); ``dt`` is a
+    Python float."""
+    if rbd_measured.device.type == "cpu":
+        return momentum_observer_plain(model, params, state, rbd_measured, cmd_torque, dt)
+    if rbd_measured.dim() != 2:
+        raise ValueError(f"rbd_measured: expected (B, 32), got {tuple(rbd_measured.shape)}")
+    Bn, dev, f32 = rbd_measured.shape[0], rbd_measured.device, torch.float32
+    if not 0 < Bn <= MAX_BLOCKS:
+        raise ValueError(f"momentum_observer: B = {Bn} blocks, the grid takes 1..{MAX_BLOCKS}")
+    rbd, tau, p_last = (t.contiguous() for t in (rbd_measured, cmd_torque, state.p_scg_z_last))
+    for t, name, shape in ((rbd, "rbd_measured", (Bn, 2 * NV)), (tau, "cmd_torque", (Bn, NJ)),
+                           (p_last, "p_scg_z_last", (Bn, NV))):
+        _build.require(t, name, f32, shape, dev)
+    K = soa_kernel.consts_buffer(model, dev)
+    P = params_buffer(params)
+    _build.require(P, "params", f32, (1,), dev)
+    p_scg_z, est, tau_dist = (torch.empty((Bn, NV), dtype=f32, device=dev) for _ in range(3))
+    lib = _build.library()
+    _build.check(lib.hk_momentum_observer(*(t.data_ptr() for t in (K, P, rbd, tau, p_last, p_scg_z,
+                                                                  est, tau_dist)),
+                                          Bn, float(dt), _build.stream(rbd)), "momentum_observer")
+    momentum_observer_update.launches += 1
+    return ContactObserverState(p_scg_z_last=p_scg_z, est_forces=est), tau_dist
+
+
+momentum_observer_update.launches = 0
 
 
 def classify_contact(params: ContactObserverParams, est_forces, cmd_contact_flags,

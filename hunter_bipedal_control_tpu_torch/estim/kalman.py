@@ -7,9 +7,10 @@ fused with leg odometry,
     meas   y (28) = [-p_foot_rel (12), -v_foot_rel (12), foot heights (4)]
 
 with contact-gated noise inflation, the 28 x 28 innovation solve by
-Gauss-Jordan (``ops/linalg.py::gj_inverse``, kernel B6 on the card),
-covariance symmetrization and xy conditioning.  Every function takes a
-leading batch dim B.
+Gauss-Jordan, covariance symmetrization and xy conditioning.  The update is
+kernel B12 (``csrc/kalman_update.cu``, one launch per update) for a CUDA
+tensor and ``kalman_update_plain`` for a CPU tensor.  Every function takes
+a leading batch dim B.
 """
 from __future__ import annotations
 
@@ -18,14 +19,19 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..kernels import _build
 from ..models.kinematics import contact_jacobians, contact_positions, fk
 from ..models.robot import RobotModel
 from ..models.spatial import euler_rates_from_global_angular_velocity, quat_to_zyx, rotation_zyx
-from ..ops.linalg import gj_inverse
+from ..ocp import soa_kernel
+from ..ops.linalg import gj_inverse_plain
 
 NS = 18
 NM = 28
 NUM_FEET = 4
+NJ = 10
+# one block per scenario: grid.x
+MAX_BLOCKS = 2 ** 31 - 1
 
 
 class KalmanParams(NamedTuple):
@@ -132,16 +138,16 @@ def innovation(model: RobotModel, params: KalmanParams, state: KalmanState, zyx,
     return x_pred, Pm, ey, Ssy, C
 
 
-def kalman_update(model: RobotModel, params: KalmanParams, state: KalmanState,
-                  zyx, joint_pos, joint_vel, omega_world, quat_xyzw,
-                  linear_accel_local, contact_flags, dt):
+def kalman_update_plain(model: RobotModel, params: KalmanParams, state: KalmanState,
+                        zyx, joint_pos, joint_vel, omega_world, quat_xyzw,
+                        linear_accel_local, contact_flags, dt):
     """One filter tick for B scenarios; returns (new KalmanState, base
     position (B, 3), base velocity (B, 3)).  ``dt`` is a Python float."""
     x_pred, Pm, ey, Ssy, C = innovation(model, params, state, zyx, joint_pos, joint_vel,
                                         omega_world, quat_xyzw, linear_accel_local,
                                         contact_flags, dt)
     Bn = ey.shape[0]
-    sol = gj_inverse(Ssy.contiguous()) @ torch.cat(
+    sol = gj_inverse_plain(Ssy) @ torch.cat(
         [ey[..., None], C.expand(Bn, NM, NS)], dim=-1)
     s_ey, s_C = sol[..., 0], sol[..., 1:]
     PmCt = Pm @ C.T
@@ -159,6 +165,60 @@ def kalman_update(model: RobotModel, params: KalmanParams, state: KalmanState,
     P_new = torch.where((det_xy > 1e-6)[:, None, None], P_cond, P_new)
     new_state = KalmanState(x_hat=x_new, P=P_new, feet_heights=state.feet_heights)
     return new_state, x_new[:, 0:3], x_new[:, 3:6]
+
+
+def params_buffer(params: KalmanParams) -> torch.Tensor:
+    """KalmanParams' eight scalars in order, one float32 tensor on their
+    device (one concatenation, no sync)."""
+    if any(t.ndim for t in params):
+        raise ValueError("kalman_update kernel: the KalmanParams fields must be 0-d")
+    return torch.cat([t.reshape(1).to(torch.float32) for t in params])
+
+
+def kalman_update(model: RobotModel, params: KalmanParams, state: KalmanState,
+                  zyx, joint_pos, joint_vel, omega_world, quat_xyzw,
+                  linear_accel_local, contact_flags, dt):
+    """Kernel B12: one filter tick for B scenarios.
+
+    CPU: ``kalman_update_plain``.  CUDA: one launch of ``hk_kalman_update``,
+    one block per scenario, or an error: the sensors zyx, omega_world,
+    linear_accel_local (B, 3), joint_pos, joint_vel (B, 10), quat_xyzw,
+    contact_flags (B, 4) and the state's x_hat (B, 18), P (B, 18, 18),
+    feet_heights (B, 4) float32 on the card (made contiguous here); the
+    model's constants from B1's buffer (``soa_kernel.consts_buffer``, which
+    refuses a model of another topology).  Returns (new KalmanState, base
+    position (B, 3), base velocity (B, 3)); ``dt`` is a Python float."""
+    if state.x_hat.device.type == "cpu":
+        return kalman_update_plain(model, params, state, zyx, joint_pos, joint_vel, omega_world,
+                                   quat_xyzw, linear_accel_local, contact_flags, dt)
+    if state.x_hat.dim() != 2:
+        raise ValueError(f"x_hat: expected (B, 18), got {tuple(state.x_hat.shape)}")
+    Bn, dev, f32 = state.x_hat.shape[0], state.x_hat.device, torch.float32
+    if not 0 < Bn <= MAX_BLOCKS:
+        raise ValueError(f"kalman_update: B = {Bn} blocks, the grid takes 1..{MAX_BLOCKS}")
+    ins = [t.contiguous() for t in (zyx, joint_pos, joint_vel, omega_world, quat_xyzw,
+                                    linear_accel_local, contact_flags, state.x_hat, state.P,
+                                    state.feet_heights)]
+    names = ("zyx", "joint_pos", "joint_vel", "omega_world", "quat_xyzw",
+             "linear_accel_local", "contact_flags", "x_hat", "P", "feet_heights")
+    shapes = ((Bn, 3), (Bn, NJ), (Bn, NJ), (Bn, 3), (Bn, 4), (Bn, 3), (Bn, NUM_FEET), (Bn, NS),
+              (Bn, NS, NS), (Bn, NUM_FEET))
+    for t, name, shape in zip(ins, names, shapes):
+        _build.require(t, name, f32, shape, dev)
+    K = soa_kernel.consts_buffer(model, dev)
+    P = params_buffer(params)
+    _build.require(P, "params", f32, (len(KalmanParams._fields),), dev)
+    x_new = torch.empty((Bn, NS), dtype=f32, device=dev)
+    P_new = torch.empty((Bn, NS, NS), dtype=f32, device=dev)
+    lib = _build.library()
+    _build.check(lib.hk_kalman_update(*(t.data_ptr() for t in (K, P, *ins, x_new, P_new)), Bn,
+                                      float(dt), _build.stream(x_new)), "kalman_update")
+    kalman_update.launches += 1
+    new_state = KalmanState(x_hat=x_new, P=P_new, feet_heights=state.feet_heights)
+    return new_state, x_new[:, 0:3], x_new[:, 3:6]
+
+
+kalman_update.launches = 0
 
 
 def reset_kalman(batch: int = 1, device=None, dtype=torch.float32) -> KalmanState:

@@ -56,6 +56,10 @@ SIGNATURES = {
     "hk_wbc_qp": [_P] * 13 + [_I, _P],
     # consts, params, effort, 5 inputs, 4 outputs, decisions or NULL, batch, substeps, stream
     "hk_sim_step": [_P] * 13 + [_I, _I, _P],
+    # consts, params, rbd, tau, p_scg_z_last, 3 outputs, batch, dt, stream
+    "hk_momentum_observer": [_P] * 8 + [_I, _F, _P],
+    # consts, params, 10 inputs, 2 outputs, batch, dt, stream
+    "hk_kalman_update": [_P] * 14 + [_I, _F, _P],
 }
 
 _lib = None

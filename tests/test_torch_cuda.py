@@ -35,6 +35,12 @@ substep; the kernel flips at most 2 x the float32 plain version's
 scenarios + 2; on the standing robot (B=1) and on a sweep-shaped batch
 (``entry.sim_step_batch``, B=1024, a 9 ms delay ring, per-scenario mass
 scale and field); a NaN state gives NaN where the plain version has it.
+momentum_observer (B10) and kalman_update (B12): each output (the observer's
+p_scg_z, est_forces and tau_dist; the filter's x_hat and P) within
+max(1e-4, 2 x the float32 plain version's own error) of the float64 plain
+version, on its own scale, on seeded walking inputs
+(``entry.estimator_batch``) at B=1 and B=4096, one launch each and no B6
+launch; a NaN measurement gives NaN where the plain version has it.
 """
 import numpy as np
 import pytest
@@ -42,8 +48,9 @@ import torch
 
 from hunter_bipedal_control_tpu_torch.backends import fullorder
 from hunter_bipedal_control_tpu_torch.entry import (SimBatch, build_flagship, build_sim_loop,
-                                                    build_wbc_batch, sim_step_batch,
-                                                    walking_wbc_batch)
+                                                    build_wbc_batch, estimator_batch,
+                                                    sim_step_batch, walking_wbc_batch)
+from hunter_bipedal_control_tpu_torch.estim import contact, kalman
 from hunter_bipedal_control_tpu_torch.models.robot import load_model
 from hunter_bipedal_control_tpu_torch.models.spatial import rotation_zyx
 from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
@@ -728,3 +735,122 @@ def test_sim_step_kernel_refuses_bad_input(cuda):
     with pytest.raises(ValueError, match="topology"):
         fullorder.substeps(bad, params, q, v, active)
     assert fullorder.sim_step.launches == before
+
+
+EST_TOL = 1e-4
+EST_DT = 0.002
+KF_SENSORS = ("zyx", "joint_pos", "joint_vel", "omega_world", "quat_xyzw", "linear_accel_local",
+              "contact_flags")
+
+
+def _observer_args(eb, dtype):
+    return (_cast(eb.model, eb.rbd.device, dtype), _cast(eb.observer_params, eb.rbd.device, dtype),
+            _cast(eb.observer, eb.rbd.device, dtype), eb.rbd.to(dtype), eb.cmd_torque.to(dtype),
+            EST_DT)
+
+
+def _observer_outputs(res):
+    return (res[0].p_scg_z_last, res[0].est_forces, res[1])
+
+
+def _kalman_args(eb, dtype):
+    dev = eb.rbd.device
+    return ((_cast(eb.model, dev, dtype), _cast(eb.kalman_params, dev, dtype),
+             _cast(eb.kalman, dev, dtype)),
+            {**{k: eb.sensors[k].to(dtype) for k in KF_SENSORS}, "dt": EST_DT})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4096])
+def test_momentum_observer_kernel(cuda, batch):
+    eb = estimator_batch(batch, cuda, seed=batch)
+    before = (contact.momentum_observer_update.launches, linalg.gj_inverse.launches)
+    got = _observer_outputs(contact.momentum_observer_update(*_observer_args(eb, torch.float32)))
+    torch.cuda.synchronize()
+    assert (contact.momentum_observer_update.launches,
+            linalg.gj_inverse.launches) == (before[0] + 1, before[1])
+    ref32 = _observer_outputs(contact.momentum_observer_plain(*_observer_args(eb, torch.float32)))
+    ref64 = _observer_outputs(contact.momentum_observer_plain(*_observer_args(eb, torch.float64)))
+    for name, a, b, c in zip(("p_scg_z", "est_forces", "tau_dist"), got, ref32, ref64):
+        assert a.shape == (batch, 16) and a.dtype == torch.float32, name
+        assert torch.isfinite(a).all(), name
+        assert _own_scale_err(a, c) <= max(EST_TOL, 2.0 * _own_scale_err(b, c)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4096])
+def test_kalman_update_kernel(cuda, batch):
+    eb = estimator_batch(batch, cuda, seed=batch + 1)
+    args, kw = _kalman_args(eb, torch.float32)
+    before = (kalman.kalman_update.launches, linalg.gj_inverse.launches)
+    st, pos, vel = kalman.kalman_update(*args, **kw)
+    torch.cuda.synchronize()
+    assert (kalman.kalman_update.launches, linalg.gj_inverse.launches) == (before[0] + 1,
+                                                                           before[1])
+    assert torch.equal(pos, st.x_hat[:, 0:3]) and torch.equal(vel, st.x_hat[:, 3:6])
+    assert st.feet_heights is args[2].feet_heights
+    ref32 = kalman.kalman_update_plain(*args, **kw)[0]
+    args64, kw64 = _kalman_args(eb, torch.float64)
+    ref64 = kalman.kalman_update_plain(*args64, **kw64)[0]
+    for name in ("x_hat", "P"):
+        a, b, c = (getattr(r, name) for r in (st, ref32, ref64))
+        assert a.shape == c.shape and a.dtype == torch.float32, name
+        assert torch.isfinite(a).all(), name
+        assert _own_scale_err(a, c) <= max(EST_TOL, 2.0 * _own_scale_err(b, c)), name
+    # the xy conditioning as the float64 plain version decided it
+    cond = (st.P[:, 0:2, 2:] == 0).flatten(1).all(-1)
+    assert torch.equal(cond, (ref64.P[:, 0:2, 2:] == 0).flatten(1).all(-1))
+    if batch > 1:
+        assert cond.any() and (~cond).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["observer", "kalman"])
+def test_estimator_kernels_nan(cuda, which):
+    """A NaN in one scenario's measurement gives NaN in that scenario's
+    outputs where the plain version has it, and nowhere else (the filter's
+    covariance does not depend on the measurement: it stays finite)."""
+    eb = estimator_batch(8, cuda, seed=6)
+    if which == "observer":
+        rbd = eb.rbd.clone()
+        rbd[3, 7] = float("nan")
+        args = list(_observer_args(eb, torch.float32))
+        args[3] = rbd
+        got = _observer_outputs(contact.momentum_observer_update(*args))
+        ref = _observer_outputs(contact.momentum_observer_plain(*args))
+    else:
+        args, kw = _kalman_args(eb, torch.float32)
+        kw["joint_pos"] = kw["joint_pos"].clone()
+        kw["joint_pos"][3, 2] = float("nan")
+        got = kalman.kalman_update(*args, **kw)[0][:2]
+        ref = kalman.kalman_update_plain(*args, **kw)[0][:2]
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert not torch.isnan(a[[0, 1, 2, 4, 5, 6, 7]]).any()
+    assert torch.isnan(got[0][3]).any()
+
+
+@pytest.mark.cuda
+def test_estimator_kernels_refuse_bad_input(cuda):
+    eb = estimator_batch(4, cuda, seed=7)
+    model, op, ost, rbd, tau, dt = _observer_args(eb, torch.float32)
+    (_, kp, kst), kw = _kalman_args(eb, torch.float32)
+    before = (contact.momentum_observer_update.launches, kalman.kalman_update.launches)
+    with pytest.raises(TypeError):
+        contact.momentum_observer_update(model, op, ost, rbd.double(), tau, dt)
+    with pytest.raises(ValueError):
+        contact.momentum_observer_update(model, op, ost, rbd, tau[:, :9], dt)
+    with pytest.raises(TypeError):
+        kalman.kalman_update(model, kp, kst._replace(P=kst.P.double()), **kw)
+    with pytest.raises(ValueError):
+        kalman.kalman_update(model, kp, kst, **{**kw, "quat_xyzw": kw["quat_xyzw"][:, :3]})
+    bad = load_model(device="cpu")
+    bad = _cast(bad._replace(joint_parent=torch.tensor([0, 1, 2, 3, 4, 0, 6, 7, 8, 8])), cuda,
+                torch.float32)
+    with pytest.raises(ValueError, match="topology"):
+        contact.momentum_observer_update(bad, op, ost, rbd, tau, dt)
+    with pytest.raises(ValueError, match="topology"):
+        kalman.kalman_update(bad, kp, kst, **kw)
+    assert (contact.momentum_observer_update.launches,
+            kalman.kalman_update.launches) == before

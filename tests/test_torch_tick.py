@@ -27,6 +27,7 @@ from hunter_bipedal_control_tpu.wbc import wbc as jwbc
 from hunter_bipedal_control_tpu_torch import convert
 from hunter_bipedal_control_tpu_torch.entry import (TICK_BASE_Z, build_controller,
                                                     build_wbc_batch, tick_chain, wbc_chain)
+from hunter_bipedal_control_tpu_torch.estim import contact as tcon, kalman as tkf
 from hunter_bipedal_control_tpu_torch.ops import linalg as tlinalg, qp as tqp
 from hunter_bipedal_control_tpu_torch.runtime import controller as tctrl
 
@@ -211,8 +212,10 @@ def test_tick_entry_points_refuse_missing_cuda():
 
 def test_cpu_tick_and_wbc_launch_no_kernel(jax_run):
     policy, schedule = port_inputs(jax_run)
-    before = (tlinalg.gj_inverse.launches, tqp.solve_qp.launches)
+    counters = (tlinalg.gj_inverse, tqp.solve_qp, tcon.momentum_observer_update,
+                tkf.kalman_update)
+    before = tuple(c.launches for c in counters)
     tick_chain(build_controller(B, "cpu", F64), policy, schedule, 2)
     xs, accepted, _ = wbc_chain(build_wbc_batch(4, "cpu"), 2)
-    assert (tlinalg.gj_inverse.launches, tqp.solve_qp.launches) == before == (0, 0)
+    assert tuple(c.launches for c in counters) == before == (0, 0, 0, 0)
     assert xs.shape == (4, 2, 38) and accepted.all()
