@@ -65,8 +65,9 @@ Phases, each printing one JSON line:
   4f. the dummy closed loop (``entry.build_loop`` + ``run_loop``, 'soa') over
      the golden trace's 40 periods in both Riccati modes, held to
      tests/golden/stance_walk_40p.npz with tests/test_golden.py's checks,
-     ms per 10 ms period; one wbc_qp and one solve_qp launch per tick (five
-     per period);
+     ms per 10 ms period; one wbc_qp, one solve_qp, one dummy_step (B14a,
+     the plant's RK2 step) and one state_input_to_v (B14b, the tick's state
+     conversion) launch per tick (five per period);
   4g. the full-order closed loop (``entry.build_sim_loop`` +
      ``run_sim_loop``: the plant's substeps by B11, sensing, the Kalman
      filter and momentum observer in the loop, the MPC, the WBC; bench.py's
@@ -74,9 +75,11 @@ Phases, each printing one JSON line:
      held to tests/golden/sim_stance_walk_40p.npz with tests/test_golden.py's
      checks, its first 3 periods to the port's CPU float64 run; ms per 10 ms
      period, rt_factor; one sim_step, momentum_observer, wbc_qp and
-     solve_qp launch per tick, six kalman_update launches per period (the
-     period's own and one per tick) and no gj_inverse; launches per walking
-     period by part (``profile_sim_loop_phases``) and its device busy time
+     solve_qp launch per tick, six kalman_update, synth_imu (B13a) and
+     rbd_to_centroidal (B13b) launches per period (the period's own sensing
+     and one per tick) and no gj_inverse; launches per walking period by part
+     (``profile_sim_loop_phases``: sensing split into the IMU, the
+     conversion and the rest) and its device busy time
      (``profile_sim_loop``);
   4h. B11 (sim_step) on every tick's inputs of 4g's loop (B=1, one launch
      each) and on a sweep-shaped batch (``entry.sim_step_batch``, B=1024: a
@@ -97,6 +100,15 @@ Phases, each printing one JSON line:
      max(tol, 2x the float32 plain version's error), bfloat16 landing above
      the limit; kernel and plain times, the bounds (``observer_cost``,
      ``kalman_cost``);
+  4j. B13a (synth_imu), B13b (rbd_to_centroidal), B14a (dummy_step) and
+     B14b (state_input_to_v) on every call's inputs of 4g's and 4f's loops
+     (B=1: 240 sensings, 200 ticks) and on a seeded walking batch
+     (``entry.centroidal_batch``, B=4096): each output against the float64
+     plain version within max(tol, 2x the float32 plain version's error),
+     bfloat16 landing above the limit on the outputs that are not copies;
+     kernel and plain times, each kernel's own device time per call
+     (profiled over CF_PROFILED_CALLS calls), the bounds (``imu_cost``,
+     ``centroidal_cost``, ``dummy_cost``, ``state_v_cost``);
   5. the kernels line: launches, error, times and bound of each kernel, B6
      with one row per use (IK, absorbed into B8a on the MPC path; Kalman,
      absorbed into B12; observer, absorbed into B10).
@@ -110,6 +122,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -141,7 +154,8 @@ REPS = 15
 TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_qp": 1e-4,
        "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4,
        "leg_ik": 1e-4, "wbc_qp": 1e-4, "sim_step": 1e-4, "momentum_observer": 1e-4,
-       "kalman_update": 1e-4}
+       "kalman_update": 1e-4, "synth_imu": 1e-6, "rbd_to_centroidal": 1e-4, "dummy_step": 1e-4,
+       "state_input_to_v": 1e-4}
 # B8a (leg_ik) is held, on each pass's joints on their own scale, to the
 # float64 plain version within max(tol, TOL_FACTOR x the float32 plain
 # version's error).  The damped 5x5 systems have rank 3 (translation) plus
@@ -198,6 +212,25 @@ SIM_NAMES = ("q", "v", "acc", "contact_forces")
 OBS_NAMES = ("p_scg_z", "est_forces", "tau_dist")
 KF_NAMES = ("x_hat", "P", "pos", "vel")
 EST_BATCH = 4096
+# B13a (synth_imu), B13b (rbd_to_centroidal), B14a (dummy_step) and B14b
+# (state_input_to_v) are held, output by output on its own scale, to the
+# float64 plain version within max(tol, TOL_FACTOR x the float32 plain
+# version's error), over every call of the loop that runs them (B=1) and
+# over a seeded B=4096 batch (``entry.centroidal_batch``).  Outputs that
+# are copies of inputs (the centroidal state's configuration, v's joint
+# velocities) are exact in every precision of the kernel, so only the
+# others must put bfloat16 above the limit.  The IMU is ~100 elementwise
+# operations (float32 errs ~1e-7 of each output's scale), and the loop's
+# base stays near level, so its quaternion sits near (0, 0, 0, 1), where
+# bfloat16 errs only ~3e-6 of its scale: its tolerance is 1e-6.
+CF_NAMES = {"synth_imu": ("quat", "omega_local", "accel_local", "omega_world"),
+            "rbd_to_centroidal": ("h", "q"),
+            "dummy_step": ("h", "base_pose", "joints"),
+            "state_input_to_v": ("v_b", "v_j", "rbd")}
+CF_COPIES = ("q", "v_j")
+CF_BATCH = 4096
+# kernel calls under the profiler for B13/B14's own device time per call
+CF_PROFILED_CALLS = 50
 SIM_FLIP_FACTOR, SIM_FLIP_FLOOR = 2, 2
 SIM_BATCH = 1024
 MERIT_NAMES = ("cost", "metric")
@@ -572,6 +605,70 @@ def kalman_cost(batch, ns=18, nm=28, nc=4, nj=10, contact_link=(5, 10, 5, 10)):
     return (n_in + n_out) * 4, batch * (chain + contacts + small + forms + solve + update)
 
 
+def _kin_ops(nj=10, links=11, nc=4):
+    """Operations of one state's kinematics as soa_model.cuh issues them:
+    FK (per joint two 3x3 products, three 3x3-vector products, the
+    Rodrigues matrix; the base rotation; the link CoMs), the CoM, the world
+    inertias (R I R'), a velocity pass, the momentum about the CoM (per
+    link its CoM's velocity, m c_dot, the offset, I w, the cross product
+    and the sums), the CMM base block and its closed-form solve (Itot and
+    W per link, G, G E, skew(s) E, the 3x3 inverse, the two solves), the
+    contact points and the flow rows."""
+    fk = 20 + nj * 162 + links * 18
+    com = links * 6 + 3
+    inertias = links * 75
+    vpass = nj * 21 + 15
+    momentum = links * 57
+    base_block = links * 33 + 2 + 18 + 5 + 45 + 45 + 9 + 40 + 12 + 30 + 6
+    contacts = nc * 18
+    flow_rows = 9 + nc * 15 + 7
+    return {"fk": fk, "com": com, "inertias": inertias, "vpass": vpass, "momentum": momentum,
+            "base_block": base_block, "contacts": contacts, "flow_rows": flow_rows}
+
+
+def imu_cost(batch):
+    """Bytes (the entries the readings need in: the Euler angles, their
+    rates and the linear acceleration, 9 floats per scenario; the
+    quaternion, both angular velocities and the specific force out: 13) and
+    operations: 12 sines and cosines, R (~20), the quaternion (~20), E
+    theta_dot (~10), R' w and R' (a + g) (15 each, +1)."""
+    return batch * (9 + 13) * 4, batch * (12 + 20 + 20 + 10 + 15 + 1 + 15)
+
+
+def centroidal_cost(batch):
+    """Bytes (the rbd state in: 32 floats per scenario, the model's 497
+    constants once; x out: 22) and operations: rbd -> q, v (22), FK, the
+    CoM, the world inertias, the velocity pass, the momentum about the CoM
+    (``_kin_ops``), h / m (6)."""
+    k = _kin_ops()
+    ops = 22 + k["fk"] + k["com"] + k["inertias"] + k["vpass"] + k["momentum"] + 6
+    return (batch * (32 + 22) + 497) * 4, batch * ops
+
+
+def state_v_cost(batch):
+    """Bytes (x and u's joint velocities in: 32 floats per scenario, the
+    constants once; v out: 16, and the rbd state: 32) and operations: FK,
+    the CoM, the world inertias, the joint-only velocity pass, its momentum,
+    the base block and its solve (``_kin_ops``), and for the rbd state
+    E(theta) theta_dot (15)."""
+    k = _kin_ops()
+    ops = (k["fk"] + k["com"] + k["inertias"] + k["vpass"] + k["momentum"] + k["base_block"]
+           + 15)
+    return (batch * (32 + 16 + 32) + 497) * 4, batch * ops
+
+
+def dummy_cost(batch, nx=22):
+    """Bytes (x and u in: 44 floats per scenario, the constants and dt once;
+    x out: 22) and operations: two flow evaluations (FK, the CoM, the world
+    inertias, the joint-only pass, its momentum, the base block, the contact
+    points, the flow rows; ``_kin_ops``), the midpoint (2 nx) and the RK2
+    update (3 nx)."""
+    k = _kin_ops()
+    flow = (k["fk"] + k["com"] + k["inertias"] + k["vpass"] + k["momentum"] + k["base_block"]
+            + k["contacts"] + k["flow_rows"])
+    return (batch * (44 + 22) + 497 + 1) * 4, batch * (2 * flow + 5 * nx)
+
+
 def qp_cost(batch, iters, n=38, me=28, mi=40):
     """Bytes (QP data, start point and floors in; x, duals, residual out)
     and flops of ``iters`` PDIP iterations (see csrc/solve_qp.cu).  The
@@ -718,15 +815,17 @@ def main():
 
     import numpy as np
 
-    from hunter_bipedal_control_tpu_torch.backends import fullorder
+    from hunter_bipedal_control_tpu_torch.backends import dummy as dummy_mod, fullorder
     from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
                                                         build_loop, build_sim_loop,
-                                                        build_wbc_batch, estimator_batch,
+                                                        build_wbc_batch, centroidal_batch,
+                                                        estimator_batch,
                                                         mpc_chain, run_loop, run_sim_loop,
                                                         sim_step_batch, standing_sensors,
                                                         walking_wbc_batch, wbc_chain)
     from hunter_bipedal_control_tpu_torch.estim import contact, kalman
     from hunter_bipedal_control_tpu_torch.kernels import _build
+    from hunter_bipedal_control_tpu_torch.models import centroidal as cen_mod
     from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
     from hunter_bipedal_control_tpu_torch.ops import linalg, qp
     from hunter_bipedal_control_tpu_torch.profile_step import (_profiled, profile_loop_phases,
@@ -735,6 +834,7 @@ def main():
                                                                profile_tick_phases)
     from hunter_bipedal_control_tpu_torch.refs import ik as ik_mod
     from hunter_bipedal_control_tpu_torch.runtime import controller as ctrl_mod
+    from hunter_bipedal_control_tpu_torch.runtime import loop as loop_mod
     from hunter_bipedal_control_tpu_torch.runtime import sim_loop as sim_loop_mod
     from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
     from hunter_bipedal_control_tpu_torch.wbc import wbc as wbc_mod
@@ -945,7 +1045,10 @@ def main():
                 "soa_linearize": soa_kernel.soa_linearize, "soa_merit": soa_kernel.soa_merit,
                 "leg_ik": ik_mod.leg_ik, "wbc_qp": wbc_mod.wbc_qp, "sim_step": fullorder.sim_step,
                 "momentum_observer": contact.momentum_observer_update,
-                "kalman_update": kalman.kalman_update}
+                "kalman_update": kalman.kalman_update, "synth_imu": fullorder.synth_imu,
+                "rbd_to_centroidal": cen_mod.rbd_state_to_centroidal,
+                "dummy_step": dummy_mod.dummy_step,
+                "state_input_to_v": cen_mod.state_input_to_v}
     b1 = ("soa_linearize", "soa_merit")
 
     # the inputs the linearization and the line search's merit get on a
@@ -989,14 +1092,17 @@ def main():
         linalg.gj_inverse.launches_by_n.clear()
 
     def read_counts(path, kernels, absent=(), steps=0, ticks=0, plant_ticks=0, observer=0,
-                    filter_updates=0):
+                    filter_updates=0, sensing=0, dummy_ticks=0):
         """The launches of the path's run; raise if one of its kernels had
         none, a kernel of ``absent`` had any, leg_ik was
         not launched exactly once per MPC step (``steps`` of them), wbc_qp
         not exactly once per control tick (``ticks`` of them), and solve_qp
         beside it, sim_step not once per tick of the full-order plant
-        (``plant_ticks``), or momentum_observer and kalman_update not once per
-        observer and filter update (``observer``, ``filter_updates``)."""
+        (``plant_ticks``), momentum_observer and kalman_update not once per
+        observer and filter update (``observer``, ``filter_updates``),
+        synth_imu and rbd_to_centroidal not once per sensing of the
+        full-order loop (``sensing``), or dummy_step and state_input_to_v
+        not once per tick of the dummy loop (``dummy_ticks``)."""
         counts = {n: c.launches for n, c in counters.items()}
         path_launches[path] = counts
         gj_by_n[path] = dict(linalg.gj_inverse.launches_by_n)
@@ -1017,6 +1123,13 @@ def main():
                                  f"{counts['momentum_observer']} / {counts['kalman_update']} "
                                  f"launches on the {path} path, {observer} observer and "
                                  f"{filter_updates} filter updates")
+        for names, n, what in ((("synth_imu", "rbd_to_centroidal"), sensing, "sensings"),
+                               (("dummy_step", "state_input_to_v"), dummy_ticks,
+                                "dummy-loop ticks")):
+            if any(counts[k] != n for k in names):
+                raise AssertionError(f"{' / '.join(names)}: "
+                                     f"{' / '.join(str(counts[k]) for k in names)} launches on "
+                                     f"the {path} path, {n} {what}")
         if counts["wbc_qp"] != ticks or (ticks and counts["solve_qp"] != ticks):
             raise AssertionError(f"wbc_qp / solve_qp: {counts['wbc_qp']} / "
                                  f"{counts['solve_qp']} launches on the {path} path, "
@@ -1611,19 +1724,43 @@ def main():
     # ---- 4f. the dummy closed loop against the golden trace, both modes ----
     ref = np.load(GOLDEN)
     n_periods = ref["cmds"].shape[0]
+    # every call's inputs of the dummy loop's plant and state conversion (the
+    # sequential run), through the names loop.py calls, for 4j's checks at B=1
+    cf_inputs = {"dummy_step": [], "state_input_to_v": [], "synth_imu": [],
+                 "rbd_to_centroidal": []}
+    real_cf = {"dummy_step": loop_mod.dummy_step,
+               "state_input_to_v": loop_mod.state_input_to_v,
+               "synth_imu": sim_loop_mod.synth_imu,
+               "rbd_to_centroidal": sim_loop_mod.rbd_state_to_centroidal}
+
+    def cf_capture(name):
+        def run(*a, **k):
+            cf_inputs[name].append(a)
+            return real_cf[name](*a, **k)
+        return run
+
     for par in (False, True):
         path = "loop_parallel" if par else "loop_sequential"
         lsetup = build_loop(dev, torch.float32, riccati_parallel=par)
+        l_ticks = n_periods * lsetup.config.ticks_per_mpc
         zero_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        _, telem = run_loop(lsetup, ref["cmds"])
-        torch.cuda.synchronize()
+        if not par:
+            loop_mod.dummy_step = cf_capture("dummy_step")
+            loop_mod.state_input_to_v = cf_capture("state_input_to_v")
+        try:
+            _, telem = run_loop(lsetup, ref["cmds"])
+            torch.cuda.synchronize()
+        finally:
+            loop_mod.dummy_step = real_cf["dummy_step"]
+            loop_mod.state_input_to_v = real_cf["state_input_to_v"]
         loop_s = time.perf_counter() - t
+        # the plant's RK2 step (B14a) and the state conversion (B14b) once per tick
         counts = read_counts(path, ("leg_ik", "project_knot", riccati_kernel[par],
-                                    "solve_qp", "wbc_qp") + b1,
+                                    "solve_qp", "wbc_qp", "dummy_step", "state_input_to_v") + b1,
                              (riccati_kernel[not par], "gj_inverse"), steps=n_periods,
-                             ticks=n_periods * lsetup.config.ticks_per_mpc)
+                             ticks=l_ticks, dummy_ticks=l_ticks)
         gold = golden_check(telem, ref)
         emit({"phase": path, "batch": 1, "periods": n_periods, "launches": counts,
               "ms_per_period": loop_s / n_periods * 1e3, "seconds": loop_s, "golden": gold,
@@ -1659,6 +1796,8 @@ def main():
     t = time.perf_counter()
     fullorder.substeps = substeps_cap
     sim_loop_mod.momentum_observer_update, sim_loop_mod.kalman_update = observer_cap, kalman_cap
+    sim_loop_mod.synth_imu = cf_capture("synth_imu")
+    sim_loop_mod.rbd_state_to_centroidal = cf_capture("rbd_to_centroidal")
     try:
         sfin, stelem = run_sim_loop(ssetup, sref["cmds"])
         torch.cuda.synchronize()
@@ -1666,16 +1805,19 @@ def main():
         fullorder.substeps = real_substeps
         sim_loop_mod.momentum_observer_update = real_observer
         sim_loop_mod.kalman_update = real_kalman
+        sim_loop_mod.synth_imu = real_cf["synth_imu"]
+        sim_loop_mod.rbd_state_to_centroidal = real_cf["rbd_to_centroidal"]
     sim_s = time.perf_counter() - t
     # five observer updates per period (one per tick), six filter updates
-    # (the period's own and one per tick); B6 nowhere, the plant's 16x16 is
-    # inside B11, the estimators' systems inside B10 and B12
+    # and sensings (the period's own and one per tick: the IMU by B13a, the
+    # centroidal state by B13b); B6 nowhere, the plant's 16x16 is inside
+    # B11, the estimators' systems inside B10 and B12
     counts = read_counts("sim_loop", ("leg_ik", "project_knot", "riccati_solve", "solve_qp",
                                       "wbc_qp", "sim_step", "momentum_observer",
-                                      "kalman_update") + b1,
+                                      "kalman_update", "synth_imu", "rbd_to_centroidal") + b1,
                          ("riccati_solve_parallel", "gj_inverse"), steps=s_periods,
                          ticks=s_ticks, plant_ticks=s_ticks, observer=s_ticks,
-                         filter_updates=s_periods + s_ticks)
+                         filter_updates=s_periods + s_ticks, sensing=s_periods + s_ticks)
     if not all(torch.isfinite(v.double()).all() for v in stelem.values()):
         raise AssertionError("sim_loop: non-finite telemetry")
     sgold = sim_golden_check(stelem, sref)
@@ -1909,9 +2051,132 @@ def main():
                TICK_DT)], False)
     del obs_inputs, kf_inputs, eb
 
+    # ---- 4j. B13a, B13b, B14a, B14b on every call's inputs of the loops (B=1), and at B=4096 ----
+    def ns_plant(q_, v_, a_):
+        return SimpleNamespace(q=q_, v=v_, base_acc=a_)
+
+    def cf_outs(name, res):
+        """The outputs of kernel ``name`` as CF_NAMES lists them."""
+        if name == "synth_imu":
+            return list(res)
+        if name == "rbd_to_centroidal":
+            return [res[:, 0:6], res[:, 6:]]
+        if name == "dummy_step":
+            return [res.x[:, 0:6], res.x[:, 6:12], res.x[:, 12:]]
+        return [res[0][:, 0:6], res[0][:, 6:], res[1]]
+
+    def cf_call(name, a, plain):
+        """Kernel ``name`` (or its plain version) on one argument tuple, as
+        the loops call it."""
+        if name == "synth_imu":
+            fn = fullorder.synth_imu_plain if plain else fullorder.synth_imu
+            return fn(*a, with_omega_world=True)
+        if name == "rbd_to_centroidal":
+            fn = cen_mod.rbd_state_to_centroidal_plain if plain else cen_mod.rbd_state_to_centroidal
+            return fn(*a)
+        if name == "dummy_step":
+            return (dummy_mod.dummy_step_plain if plain else dummy_mod.dummy_step)(*a)
+        if plain:
+            v_ = cen_mod.state_input_to_v_plain(*a)
+            return v_, cen_mod.q_v_to_rbd_state(a[0], cen_mod.state_to_q(a[1]), v_)
+        return cen_mod.state_input_to_v(*a, with_rbd=True)
+
+    def cf_cat(name, cases, dt_):
+        """The cases' arguments concatenated along the batch (the scenarios
+        are independent; the model and dt are the first case's), in the
+        float dtype dt_ on the card."""
+        m_ = cast(cases[0][0], dev, dt_)
+        if name == "synth_imu":
+            return (m_, ns_plant(*(torch.cat([getattr(c[1], f) for c in cases]).to(dt_)
+                                   for f in ("q", "v", "base_acc"))))
+        if name == "dummy_step":
+            st = dummy_mod.DummyPlantState(*(torch.cat([c[1][i] for c in cases]).to(dt_)
+                                             for i in range(2)))
+            return (m_, st, torch.cat([c[2] for c in cases]).to(dt_), cases[0][3])
+        return (m_, *(torch.cat([c[i] for c in cases]).to(dt_) for i in range(1, len(cases[0]))))
+
+    cf_spec = {"synth_imu": (imu_cost, "sensing.cu", "backends/fullorder.py:199"),
+               "rbd_to_centroidal": (centroidal_cost, "sensing.cu", "models/centroidal.py:198"),
+               "dummy_step": (dummy_cost, "centroidal_flow.cu", "backends/dummy.py:28"),
+               "state_input_to_v": (state_v_cost, "centroidal_flow.cu",
+                                    "models/centroidal.py:113")}
+
+    def cf_case(name, label, cases, row):
+        """Kernel ``name`` on each argument tuple of ``cases`` (one launch
+        each) against its plain versions in float32, float64 and bfloat16 on
+        the card (all cases at once), the errors taken over all of them;
+        times on the last case.  ``row``: these fill the kernels line's
+        row, else a kernel_extra line."""
+        names, tol = CF_NAMES[name], TOL[name]
+        cost_fn, src, jax_line = cf_spec[name]
+        got = [cf_outs(name, cf_call(name, a, False)) for a in cases]
+        torch.cuda.synchronize()
+        got = [torch.cat(o) for o in zip(*got)]
+        p32, p64, pbf = (cf_outs(name, cf_call(name, cf_cat(name, cases, dt_), True))
+                         for dt_ in (torch.float32, torch.float64, torch.bfloat16))
+        err = errors(names, got, p32, p64)
+        limits = {n: max(tol, TOL_FACTOR * e[2][1]) for n, e in err.items()}
+        e_bf16 = {n: rel_err(b.float(), c)[1] for n, b, c in zip(names, pbf, p64)}
+        last = cases[-1]
+        Bn = got[0].shape[0] // len(cases)
+
+        def kernel_calls():
+            for _ in range(CF_PROFILED_CALLS):
+                cf_call(name, last, False)
+            torch.cuda.synchronize()
+
+        # the kernel's own device time per call, apart from its wrapper's host
+        # work (null when the profiler records no such kernel)
+        own = [k["ms"] for k in _profiled(kernel_calls, CF_PROFILED_CALLS, 4)["top_kernels"]
+               if f"{name}_kernel" in k["name"]]
+        times = (cuda_ms(lambda: cf_call(name, last, False)),
+                 cuda_ms(lambda: cf_call(name, last, True), reps=3))
+        info = {"label": label, "batch": Bn, "cases": len(cases),
+                "kernel_device_ms": sum(own) if own else None,
+                "plain_bf16_rel_err_vs_f64": e_bf16}
+
+        def plain_call():
+            cf_call(name, last, True)
+            torch.cuda.synchronize()
+
+        if row:
+            # the launches the kernel takes away from each call
+            info["plain_device_launches_per_call"] = _profiled(plain_call, 1, 1)[
+                "device_launches"]
+            record(name, "cuda", f"hunter_bipedal_control_tpu_torch/csrc/{src}",
+                   f"hunter_bipedal_control_tpu/{jax_line}", err, tol, times[0], times[1], None,
+                   cost_fn(Bn), info)
+        else:
+            b_ms, b_by = bound(*cost_fn(Bn))
+            emit({"phase": "kernel_extra", "name": name, "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times[0], "plain_ms": times[1],
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **info})
+            check(f"{name} {label}", err, tol)
+        low = {n: e for n, e in e_bf16.items() if n not in CF_COPIES and e <= limits[n]}
+        if low:
+            raise AssertionError(f"{name} {label}: the bfloat16 plain version is within the "
+                                 f"limit on {low} (limits {limits})")
+
+    want = {"dummy_step": n_periods * lsetup.config.ticks_per_mpc,
+            "state_input_to_v": n_periods * lsetup.config.ticks_per_mpc,
+            "synth_imu": s_periods + s_ticks, "rbd_to_centroidal": s_periods + s_ticks}
+    got_n = {k: len(v) for k, v in cf_inputs.items()}
+    if got_n != want:
+        raise AssertionError(f"loops: {got_n} calls captured, expected {want}")
+    cb = centroidal_batch(CF_BATCH, dev, seed=0)
+    cb_cases = {"synth_imu": (cb.model, cb.plant), "rbd_to_centroidal": (cb.model, cb.rbd),
+                "dummy_step": (cb.model, dummy_mod.init_dummy_plant(cb.x), cb.u, TICK_DT),
+                "state_input_to_v": (cb.model, cb.x, cb.u)}
+    for name in ("synth_imu", "rbd_to_centroidal", "dummy_step", "state_input_to_v"):
+        loop = "the sim loop" if name in ("synth_imu", "rbd_to_centroidal") else "the dummy loop"
+        cf_case(name, f"every call of {loop}, B=1", cf_inputs[name], True)
+        cf_case(name, f"seeded walking batch, B={CF_BATCH}", [cb_cases[name]], False)
+    del cf_inputs, cb, cb_cases
+
     # ---- 5. kernels ----
+    cf_rows = ("synth_imu", "rbd_to_centroidal", "dummy_step", "state_input_to_v")
     for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp",
-              "leg_ik", "wbc_qp", "sim_step", "momentum_observer", "kalman_update") + b1:
+              "leg_ik", "wbc_qp", "sim_step", "momentum_observer", "kalman_update") + b1 + cf_rows:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -1921,7 +2186,7 @@ def main():
                                         "project_knot", "riccati_solve", "riccati_solve_parallel",
                                         "solve_qp") + b1 + ("leg_ik", "wbc_qp", "sim_step",
                                                             "momentum_observer",
-                                                            "kalman_update")]})
+                                                            "kalman_update") + cf_rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

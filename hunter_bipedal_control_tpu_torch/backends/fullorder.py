@@ -11,7 +11,9 @@ scenarios.
 ``sim_step`` advances one control tick.  The command ring is plain torch on
 either device; the ``substeps`` physics substeps are kernel B11
 (``csrc/sim_step.cu``, one launch per tick) for a CUDA tensor and
-``substeps_plain`` for a CPU tensor.
+``substeps_plain`` for a CPU tensor.  ``synth_imu``, the IMU readings, is
+kernel B13a (``csrc/sensing.cu``) for a CUDA tensor and ``synth_imu_plain``
+for a CPU tensor.
 """
 from __future__ import annotations
 
@@ -279,10 +281,11 @@ def sim_step(model: RobotModel, params: SimParams, state: SimState,
 sim_step.launches = 0
 
 
-def synth_imu(model: RobotModel, state: SimState):
+def synth_imu_plain(model: RobotModel, state: SimState, with_omega_world=False):
     """IMU readings from the simulated base link (LeggedHWSim::readSim):
     quaternion (x, y, z, w), local angular velocity, local specific force
-    from the last substep's base acceleration, each (B, ...)."""
+    from the last substep's base acceleration, each (B, ...); with
+    ``with_omega_world`` also the world angular velocity (B, 3)."""
     zyx = state.q[:, 3:6]
     Rt = rotation_zyx(zyx).transpose(-1, -2)
     quat = zyx_to_quat(zyx)
@@ -291,4 +294,37 @@ def synth_imu(model: RobotModel, state: SimState):
     # accelerometer: specific force = R' (a_lin - g)
     g = torch.tensor([0.0, 0.0, 9.81], dtype=state.q.dtype, device=state.q.device)
     accel_local = (Rt @ (state.base_acc[:, 0:3] + g)[..., None])[..., 0]
+    if with_omega_world:
+        return quat, omega_local, accel_local, omega_w
     return quat, omega_local, accel_local
+
+
+def synth_imu(model: RobotModel, state: SimState, with_omega_world=False):
+    """Kernel B13a: the IMU readings (quaternion, local angular velocity,
+    local specific force; with ``with_omega_world`` also the world angular
+    velocity E(zyx) theta_dot, which the kernel computes on the way).
+
+    CPU: ``synth_imu_plain``.  CUDA: one launch of ``hk_synth_imu``, one
+    thread per scenario, or an error: q, v (B, 16) float32 (made contiguous
+    here), and base_acc (B, 6) float32 in rows of contiguous entries (the
+    plant's is a view of its (B, 16) acceleration, read by row stride), on
+    the card.  The kernel reads no model constant."""
+    if state.q.device.type == "cpu":
+        return synth_imu_plain(model, state, with_omega_world)
+    q, _ = _build.rows(state.q, "q", NV)
+    v, _ = _build.rows(state.v, "v", NV)
+    acc = state.base_acc
+    Bn, dev, f32 = q.shape[0], q.device, torch.float32
+    _build.require(q, "q", f32, (Bn, NV), dev)
+    _build.require(v, "v", f32, (Bn, NV), dev)
+    _build.require(acc, "base_acc", f32, (Bn, 6), dev, strided_rows=True)
+    quat = torch.empty((Bn, 4), dtype=f32, device=dev)
+    om_l, acc_l, om_w = (torch.empty((Bn, 3), dtype=f32, device=dev) for _ in range(3))
+    _build.check(_build.library().hk_synth_imu(
+        q.data_ptr(), v.data_ptr(), acc.data_ptr(), acc.stride(0),
+        *(t.data_ptr() for t in (quat, om_l, acc_l, om_w)), Bn, _build.stream(q)), "synth_imu")
+    synth_imu.launches += 1
+    return (quat, om_l, acc_l, om_w) if with_omega_world else (quat, om_l, acc_l)
+
+
+synth_imu.launches = 0

@@ -20,7 +20,6 @@ namespace {
 
 constexpr int NQ = 6 + NJ;              // 16
 constexpr int NF = 3 * NC;              // 12
-constexpr float GRAVITY = 9.81f;
 
 // one state (measured or desired) and what the block derives from it
 struct State {

@@ -47,7 +47,6 @@ constexpr int NX = 12 + NJ;         // 22
 constexpr int NU = 3 * NC + NJ;     // 22
 constexpr int NEQ = 4 * NC;         // 16
 constexpr int NS = 4 + 2 * NC + 2 * NJ + NC;  // 36
-constexpr float GRAVITY = 9.81f;
 
 // OCP parameters buffer layout
 constexpr int P_XY_GAIN = 0, P_Z_REF = 1, P_POS_GAIN = 2, P_MU_C = 3, P_CONE_REG = 4,
@@ -58,11 +57,12 @@ constexpr int P_XY_GAIN = 0, P_Z_REF = 1, P_POS_GAIN = 2, P_MU_C = 3, P_CONE_REG
 
 // ---------------------------------------------------------------------------
 // one knot's primal quantities (soa.py::combined_rows / flow); the state's
-// kinematics (Kin, fk_dev, base_velocity_dev) are soa_model.cuh's
+// kinematics (Kin, fk_dev, base_velocity_dev) and the flow (FlowKin,
+// contact_points_dev, flow_rows_dev, flow_dev) are soa_model.cuh's
 // ---------------------------------------------------------------------------
 
-struct Work : Kin {
-  float pc[NC][3], vc[NC][3];
+struct Work : FlowKin {
+  float vc[NC][3];
   float flow[NX];
   float g[NEQ];         // equality rows before masking
   float mask[NEQ];
@@ -70,42 +70,6 @@ struct Work : Kin {
   float xmid[NX];       // RK2 midpoint state and its flow
   float k2[NX];
 };
-
-__device__ void contact_points_dev(const float* K, Work* w) {
-  for (int c = 0; c < NC; ++c) {
-    const int k = c_cparent[c];
-    float t[3];
-    mv3(w->R[k], K + K_CPOS + 3 * c, t);
-    for (int i = 0; i < 3; ++i) w->pc[c][i] = w->p[k][i] + t[i];
-  }
-}
-
-// centroidal flow rows [hdot_lin; hdot_ang; vb; vj] from pc, pcom, vb
-__device__ void flow_rows_dev(const float* K, const float* u, const Work* w, float* out) {
-  const float inv_m = K[K_INVM];
-  float fs[3], ha[3] = {0.0f, 0.0f, 0.0f};
-  for (int i = 0; i < 3; ++i) fs[i] = ((u[i] + u[3 + i]) + u[6 + i]) + u[9 + i];
-  for (int c = 0; c < NC; ++c) {
-    float r[3], cr[3];
-    for (int i = 0; i < 3; ++i) r[i] = w->pc[c][i] - w->pcom[i];
-    cross3(r, u + 3 * c, cr);
-    for (int i = 0; i < 3; ++i) ha[i] = ha[i] + cr[i];
-  }
-  out[0] = inv_m * fs[0];
-  out[1] = inv_m * fs[1];
-  out[2] = inv_m * fs[2] + (-GRAVITY);
-  for (int i = 0; i < 3; ++i) out[3 + i] = inv_m * ha[i];
-  for (int i = 0; i < 6; ++i) out[6 + i] = w->vb[i];
-  for (int j = 0; j < NJ; ++j) out[12 + j] = u[12 + j];
-}
-
-// soa.py::flow at (x, u) into out; uses w's kinematic fields as scratch
-__device__ void flow_dev(const float* K, const float* x, const float* u, Work* w, float* out) {
-  fk_dev(K, x + 6, w);
-  base_velocity_dev(K, x, u + 3 * NC, w);
-  contact_points_dev(K, w);
-  flow_rows_dev(K, u, w, out);
-}
 
 // soa.py::combined_rows at one knot: every primal quantity into w
 __device__ void combined_rows_dev(const float* K, const float* P, const float* x,

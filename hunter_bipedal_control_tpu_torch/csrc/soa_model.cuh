@@ -2,11 +2,12 @@
 // (nj = 10 joints, L = 11 links, nc = 4 contact frames), the layout of the
 // constants buffer that ocp/soa_kernel.py::consts_buffer writes from
 // models/soa.py::build_consts, the 3-vector / 3x3 helpers, and one state's
-// kinematics (FK, world inertias, the base velocity from the centroidal
-// momentum, the velocity pass).  Shared by B1 (soa_linearize.cu), B8a
-// (leg_ik.cu) and, through rbd_dynamics.cuh, B9-B12;
-// soa_kernel.py::check_topology refuses a model whose topology differs
-// from this one.
+// kinematics (FK, world inertias, the CoM and the momentum about it, the
+// base velocity from the centroidal momentum, the velocity pass) and its
+// centroidal flow.  Shared by B1 (soa_linearize.cu), B8a (leg_ik.cu), B13
+// (sensing.cu), B14 (centroidal_flow.cu) and, through rbd_dynamics.cuh,
+// B9-B12; soa_kernel.py::check_topology refuses a model whose topology
+// differs from this one.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,6 +17,7 @@ namespace {
 constexpr int NJ = 10;
 constexpr int L = 11;
 constexpr int NC = 4;
+constexpr float GRAVITY = 9.81f;
 
 #define SOA_PARENT {0, 1, 2, 3, 4, 0, 6, 7, 8, 9}
 #define SOA_CHILD {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
@@ -172,29 +174,19 @@ __device__ void world_inertias_dev(const float* K, Kin* w) {
   }
 }
 
-// CoM, world inertias, base momentum block and the base velocity solving
-// Ab vb = m h - Aj vj (soa.py::base_velocity_from_momentum); leaves the
-// joint-only velocity pass in w->om / w->vo
-__device__ void base_velocity_dev(const float* K, const float* h, const float* vj, Kin* w) {
-  const float m = K[K_M], inv_m = K[K_INVM];
+// the whole-body CoM w->pcom from the link CoMs
+__device__ void com_position_dev(const float* K, Kin* w) {
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int k = 0; k < L; ++k)
     for (int i = 0; i < 3; ++i) acc[i] = acc[i] + K[K_MASS + k] * w->com[k][i];
-  for (int i = 0; i < 3; ++i) w->pcom[i] = inv_m * acc[i];
-  world_inertias_dev(K, w);
-  // joint momentum by a base-fixed velocity pass
-  for (int i = 0; i < 3; ++i) w->om[0][i] = w->vo[0][i] = 0.0f;
-  for (int j = 0; j < NJ; ++j) {
-    const int par = c_parent[j], ch = c_child[j];
-    float dp[3], c[3];
-    for (int i = 0; i < 3; ++i) dp[i] = w->anchor[j][i] - w->p[par][i];
-    cross3(w->om[par], dp, c);
-    for (int i = 0; i < 3; ++i) {
-      w->vo[ch][i] = w->vo[par][i] + c[i];
-      w->om[ch][i] = w->om[par][i] + vj[j] * w->aw[j][i];
-    }
-  }
-  float hl[3] = {0.0f, 0.0f, 0.0f}, ha[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 3; ++i) w->pcom[i] = K[K_INVM] * acc[i];
+}
+
+// the momentum of the velocity pass in w->om / w->vo about the CoM w->pcom
+// (after world_inertias_dev): hl = sum_k m_k c_dot_k,
+// ha = sum_k I_k w_k + (c_k - p_com) x m_k c_dot_k
+__device__ void momentum_about_com_dev(const float* K, const Kin* w, float* hl, float* ha) {
+  for (int i = 0; i < 3; ++i) hl[i] = ha[i] = 0.0f;
   for (int k = 0; k < L; ++k) {
     const float mk = K[K_MASS + k];
     float r1[3], c[3], cdot[3], r[3], t[3], cr[3];
@@ -209,6 +201,29 @@ __device__ void base_velocity_dev(const float* K, const float* h, const float* v
     cross3(r, cdot, cr);
     for (int i = 0; i < 3; ++i) ha[i] = (ha[i] + t[i]) + mk * cr[i];
   }
+}
+
+// CoM, world inertias, base momentum block and the base velocity solving
+// Ab vb = m h - Aj vj (soa.py::base_velocity_from_momentum); leaves the
+// joint-only velocity pass in w->om / w->vo
+__device__ void base_velocity_dev(const float* K, const float* h, const float* vj, Kin* w) {
+  const float m = K[K_M], inv_m = K[K_INVM];
+  com_position_dev(K, w);
+  world_inertias_dev(K, w);
+  // joint momentum by a base-fixed velocity pass
+  for (int i = 0; i < 3; ++i) w->om[0][i] = w->vo[0][i] = 0.0f;
+  for (int j = 0; j < NJ; ++j) {
+    const int par = c_parent[j], ch = c_child[j];
+    float dp[3], c[3];
+    for (int i = 0; i < 3; ++i) dp[i] = w->anchor[j][i] - w->p[par][i];
+    cross3(w->om[par], dp, c);
+    for (int i = 0; i < 3; ++i) {
+      w->vo[ch][i] = w->vo[par][i] + c[i];
+      w->om[ch][i] = w->om[par][i] + vj[j] * w->aw[j][i];
+    }
+  }
+  float hl[3], ha[3];
+  momentum_about_com_dev(K, w, hl, ha);
   // base block: GE = (Itot + tr(W) I - W) E, A12 = -m skew(pcom - pb) E
   float Itot[9], W[9], E[9], G[9];
   for (int e = 0; e < 9; ++e) Itot[e] = W[e] = 0.0f;
@@ -269,6 +284,52 @@ __device__ void velocity_pass_dev(const float* vb, const float* vj, Kin* w) {
       w->om[ch][i] = w->om[par][i] + vj[j] * w->aw[j][i];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// the centroidal flow (soa.py::flow; B1's merit and midpoint, B14's RK2)
+// ---------------------------------------------------------------------------
+
+// one state's kinematics and its contact points
+struct FlowKin : Kin {
+  float pc[NC][3];
+};
+
+__device__ void contact_points_dev(const float* K, FlowKin* w) {
+  for (int c = 0; c < NC; ++c) {
+    const int k = c_cparent[c];
+    float t[3];
+    mv3(w->R[k], K + K_CPOS + 3 * c, t);
+    for (int i = 0; i < 3; ++i) w->pc[c][i] = w->p[k][i] + t[i];
+  }
+}
+
+// centroidal flow rows [hdot_lin; hdot_ang; vb; vj] from pc, pcom, vb
+__device__ void flow_rows_dev(const float* K, const float* u, const FlowKin* w, float* out) {
+  const float inv_m = K[K_INVM];
+  float fs[3], ha[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 3; ++i) fs[i] = ((u[i] + u[3 + i]) + u[6 + i]) + u[9 + i];
+  for (int c = 0; c < NC; ++c) {
+    float r[3], cr[3];
+    for (int i = 0; i < 3; ++i) r[i] = w->pc[c][i] - w->pcom[i];
+    cross3(r, u + 3 * c, cr);
+    for (int i = 0; i < 3; ++i) ha[i] = ha[i] + cr[i];
+  }
+  out[0] = inv_m * fs[0];
+  out[1] = inv_m * fs[1];
+  out[2] = inv_m * fs[2] + (-GRAVITY);
+  for (int i = 0; i < 3; ++i) out[3 + i] = inv_m * ha[i];
+  for (int i = 0; i < 6; ++i) out[6 + i] = w->vb[i];
+  for (int j = 0; j < NJ; ++j) out[12 + j] = u[12 + j];
+}
+
+// soa.py::flow at (x, u) into out; uses w's kinematic fields as scratch
+__device__ void flow_dev(const float* K, const float* x, const float* u, FlowKin* w,
+                         float* out) {
+  fk_dev(K, x + 6, w);
+  base_velocity_dev(K, x, u + 3 * NC, w);
+  contact_points_dev(K, w);
+  flow_rows_dev(K, u, w, out);
 }
 
 }  // namespace

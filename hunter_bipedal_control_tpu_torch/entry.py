@@ -15,7 +15,8 @@ readings of the repository's tick benchmark (``bench.py``).
 standing states, as the repository's batched-WBC benchmark does: ticks
 carrying the WBC state, the first one cold.  ``walking_wbc_batch`` draws a
 batch of walking robots (mixed contacts, both stance modes) from a seed,
-``estimator_batch`` the inputs of both estimators' updates.
+``estimator_batch`` the inputs of both estimators' updates,
+``centroidal_batch`` those of the loops' sensing, plant and conversion.
 
 ``mpc_chain`` is the chained B=1 solve of the benchmark (``bench.py``'s
 ``chained`` and ``chained_rpar``): each solve starts from the flagship's
@@ -515,6 +516,55 @@ def estimator_batch(batch: int = 4096, device=None, dtype=torch.float32,
         obs_mod.ContactObserverState(*(t(a) for a in observer)), t(rbd),
         t(5.0 * randn(batch, 10)), kf_mod.default_kalman_params(dev, dtype),
         kf_mod.KalmanState(*(t(a) for a in kalman)), {k: t(a) for k, a in sensors.items()})
+
+
+class CentroidalBatch(NamedTuple):
+    model: RobotModel
+    plant: fullorder.SimState    # q, v, base_acc of walking robots (empty command ring)
+    rbd: torch.Tensor            # (B, 32) the same states
+    x: torch.Tensor              # (B, 22) their centroidal states
+    u: torch.Tensor              # (B, 22) inputs: contact forces, joint velocities
+
+
+def centroidal_batch(batch: int = 4096, device=None, dtype=torch.float32,
+                     seed: int = 0) -> CentroidalBatch:
+    """``batch`` inputs of the loops' sensing, plant and state conversion
+    (``synth_imu``, ``rbd_state_to_centroidal``, ``dummy_step``,
+    ``state_input_to_v``), walking robots drawn from ``seed`` as
+    ``estimator_batch`` draws them: the nominal standing state moved by
+    normal offsets (base 1 cm, Euler angles 0.2 rad, joints 0.05 rad),
+    velocities of scale 1, and the base acceleration of a walking tick
+    (linear 2 m/s^2, angular 10 rad/s^2); their centroidal states
+    (``rbd_state_to_centroidal_plain`` in float64); inputs with the
+    weight-compensating forces of one of ``WALK_FLAGS``'s contact sets
+    (stance and swing feet, or all in flight) plus 10 N of noise on the
+    stance feet, and joint velocities of scale 1."""
+    from .models.centroidal import rbd_state_to_centroidal_plain
+
+    dev = resolve_device(device)
+    f64 = torch.float64
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, dtype=f64)
+
+    m64 = load_model(device="cpu", dtype=f64)
+    q = nominal_q(0.63, "cpu", f64) + torch.cat([0.01 * randn(batch, 3), 0.2 * randn(batch, 3),
+                                                 0.05 * randn(batch, 10)], dim=-1)
+    v = randn(batch, 16)
+    acc = torch.cat([2.0 * randn(batch, 3), 10.0 * randn(batch, 3)], dim=-1)
+    rbd = q_v_to_rbd_state(m64, q, v)
+    x = rbd_state_to_centroidal_plain(m64, rbd)
+    flags = torch.tensor(WALK_FLAGS, dtype=f64)[
+        torch.randint(len(WALK_FLAGS), (batch,), generator=g)]
+    u = (ocp.weight_compensating_input(m64, flags, 22)
+         + torch.cat([10.0 * randn(batch, 12) * flags.repeat_interleave(3, dim=-1),
+                      randn(batch, 10)], dim=-1))
+    t = lambda a: a.to(dev, dtype).contiguous()
+    # base_acc as the plant holds it: a (B, 6) view of a (B, 16) acceleration
+    acc16 = torch.cat([acc, torch.zeros(batch, 10, dtype=f64)], dim=-1)
+    plant = fullorder.init_sim_state(t(q), t(v))._replace(base_acc=t(acc16)[:, 0:6])
+    return CentroidalBatch(load_model(device=dev, dtype=dtype), plant, t(rbd), t(x), t(u))
 
 
 def rt_commands(periods: int):

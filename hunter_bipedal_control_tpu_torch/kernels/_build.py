@@ -60,7 +60,18 @@ SIGNATURES = {
     "hk_momentum_observer": [_P] * 8 + [_I, _F, _P],
     # consts, params, 10 inputs, 2 outputs, batch, dt, stream
     "hk_kalman_update": [_P] * 14 + [_I, _F, _P],
+    # q, v, base_acc, its row stride, 4 outputs, batch, stream
+    "hk_synth_imu": [_P] * 3 + [_I] + [_P] * 4 + [_I, _P],
+    # consts, rbd, x, batch, stream
+    "hk_rbd_to_centroidal": [_P] * 3 + [_I, _P],
+    # consts, x, u, x_out, batch, dt, stream
+    "hk_dummy_step": [_P] * 4 + [_I, _F, _P],
+    # consts, x, u, v, rbd or NULL, batch, stream
+    "hk_state_input_to_v": [_P] * 5 + [_I, _P],
 }
+
+# a grid of one thread per scenario takes a batch up to the C int's range
+MAX_SCENARIOS = 2 ** 31 - 1
 
 _lib = None
 build_log = ""
@@ -152,8 +163,21 @@ def stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, dtype, shape, device=None) -> None:
-    """Check what a kernel takes: a contiguous CUDA tensor of this dtype/shape."""
+def rows(t: torch.Tensor, name: str, width: int):
+    """A tensor (..., width) as the (B, width) contiguous rows a kernel with
+    one thread per scenario takes, and its leading shape; refuses an empty
+    batch (the dtype and device are ``require``'s to check)."""
+    if t.dim() == 0 or t.shape[-1] != width:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected (..., {width})")
+    flat = t.reshape(-1, width).contiguous()
+    if not 0 < flat.shape[0] <= MAX_SCENARIOS:
+        raise ValueError(f"{name}: {flat.shape[0]} scenarios, the kernel takes 1..{MAX_SCENARIOS}")
+    return flat, t.shape[:-1]
+
+
+def require(t: torch.Tensor, name: str, dtype, shape, device=None, strided_rows=False) -> None:
+    """Check what a kernel takes: a contiguous CUDA tensor of this dtype/shape
+    (with ``strided_rows``, rows of contiguous entries at any row stride)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: kernel input must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -162,5 +186,8 @@ def require(t: torch.Tensor, name: str, dtype, shape, device=None) -> None:
         raise TypeError(f"{name}: kernel takes {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if strided_rows:
+        if t.stride(-1) != 1 or t.stride(0) < t.shape[-1]:
+            raise ValueError(f"{name}: kernel takes rows of contiguous entries")
+    elif not t.is_contiguous():
         raise ValueError(f"{name}: kernel takes a contiguous tensor")

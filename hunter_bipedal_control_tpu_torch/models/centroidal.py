@@ -6,7 +6,12 @@ the MPC step's and the control tick's paths).  Layouts as in the JAX package:
     x (12+nj) = [h_com/m (6); base pose p_xyz (3), theta_zyx (3); joints (nj)]
     u (3*nc+nj) = [contact forces world frame (nc*3); joint velocities (nj)]
 
-All functions take any leading batch dims.
+All functions take any leading batch dims.  Two of them are kernel
+wrappers: ``rbd_state_to_centroidal`` (kernel B13b, ``csrc/sensing.cu``)
+and ``state_input_to_v`` (kernel B14b, ``csrc/centroidal_flow.cu``) take
+their plain versions (``*_plain``) for CPU tensors and launch the kernel
+for CUDA tensors, or raise.  ``flow_map`` stays plain: the dense
+linearization and ``base_kinematics_from_centroidal`` differentiate it.
 """
 from __future__ import annotations
 
@@ -15,11 +20,17 @@ from typing import NamedTuple
 import torch
 from torch.func import jvp
 
+from ..kernels import _build
+from ..ocp import soa_kernel
 from ..ops.linalg import inv3
 from .kinematics import KinData, contact_positions, fk, link_com_jacobians
 from .robot import GRAVITY, RobotModel
 from .spatial import (euler_rate_map_zyx, euler_rates_from_global_angular_velocity,
                       global_angular_velocity_from_euler_rates)
+
+# the kernels' widths: the compiled model's state and configuration (nj = 10)
+NX = 22
+NQ = 16
 
 
 def com_position(model: RobotModel, kin: KinData) -> torch.Tensor:
@@ -85,12 +96,44 @@ def base_velocity_from_momentum(model: RobotModel, kin: KinData, h_norm: torch.T
     return base_block_solve(model, Ab, rhs)
 
 
-def state_input_to_v(model: RobotModel, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+def state_input_to_v_plain(model: RobotModel, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Full generalized velocity v = [v_base (6); vj] from (x, u)."""
     kin = fk(model, state_to_q(x))
     vj = joint_velocities(u, model.nj)
     vb = base_velocity_from_momentum(model, kin, x[..., 0:6], vj)
     return torch.cat([vb, vj], dim=-1)
+
+
+def state_input_to_v(model: RobotModel, x: torch.Tensor, u: torch.Tensor, with_rbd=False):
+    """Kernel B14b: the generalized velocity v (..., 16) from (x, u), and
+    with ``with_rbd`` also the rbd state ``q_v_to_rbd_state`` makes of
+    (x[6:], v) (..., 32).
+
+    CPU: ``state_input_to_v_plain``.  CUDA: one launch of
+    ``hk_state_input_to_v``, one thread per scenario, or an error: x and u
+    (..., 22) float32 on the card (made contiguous here); the model's
+    constants from B1's buffer (``soa_kernel.consts_buffer``, which refuses
+    a model of another topology)."""
+    if x.device.type == "cpu":
+        v = state_input_to_v_plain(model, x, u)
+        return (v, q_v_to_rbd_state(model, state_to_q(x), v)) if with_rbd else v
+    xr, lead = _build.rows(x, "x", NX)
+    ur, _ = _build.rows(u, "u", NX)
+    Bn, dev, f32 = xr.shape[0], xr.device, torch.float32
+    _build.require(xr, "x", f32, (Bn, NX), dev)
+    _build.require(ur, "u", f32, (Bn, NX), dev)
+    K = soa_kernel.consts_buffer(model, dev)
+    v = torch.empty((Bn, NQ), dtype=f32, device=dev)
+    rbd = torch.empty((Bn, 2 * NQ), dtype=f32, device=dev) if with_rbd else None
+    _build.check(_build.library().hk_state_input_to_v(
+        K.data_ptr(), xr.data_ptr(), ur.data_ptr(), v.data_ptr(),
+        None if rbd is None else rbd.data_ptr(), Bn, _build.stream(xr)), "state_input_to_v")
+    state_input_to_v.launches += 1
+    v = v.reshape(*lead, NQ)
+    return (v, rbd.reshape(*lead, 2 * NQ)) if with_rbd else v
+
+
+state_input_to_v.launches = 0
 
 
 def flow_map(model: RobotModel, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -150,12 +193,37 @@ def rbd_to_q_v(rbd: torch.Tensor):
     return q, v
 
 
-def rbd_state_to_centroidal(model: RobotModel, rbd: torch.Tensor) -> torch.Tensor:
+def rbd_state_to_centroidal_plain(model: RobotModel, rbd: torch.Tensor) -> torch.Tensor:
     """Centroidal state x from an rbd state."""
     q, v = rbd_to_q_v(rbd)
     A = centroidal_momentum_matrix(model, fk(model, q))
     h_norm = (A @ v[..., None])[..., 0] / model.total_mass
     return torch.cat([h_norm, q], dim=-1)
+
+
+def rbd_state_to_centroidal(model: RobotModel, rbd: torch.Tensor) -> torch.Tensor:
+    """Kernel B13b: the centroidal state x (..., 22) from an rbd state
+    (..., 32), h = A v summed as the links' momenta about the CoM.
+
+    CPU: ``rbd_state_to_centroidal_plain``.  CUDA: one launch of
+    ``hk_rbd_to_centroidal``, one thread per scenario, or an error: rbd
+    float32 on the card (made contiguous here); the model's constants from
+    B1's buffer (``soa_kernel.consts_buffer``)."""
+    if rbd.device.type == "cpu":
+        return rbd_state_to_centroidal_plain(model, rbd)
+    r, lead = _build.rows(rbd, "rbd", 2 * NQ)
+    Bn, dev, f32 = r.shape[0], r.device, torch.float32
+    _build.require(r, "rbd", f32, (Bn, 2 * NQ), dev)
+    K = soa_kernel.consts_buffer(model, dev)
+    x = torch.empty((Bn, NX), dtype=f32, device=dev)
+    _build.check(_build.library().hk_rbd_to_centroidal(K.data_ptr(), r.data_ptr(), x.data_ptr(),
+                                                        Bn, _build.stream(r)),
+                 "rbd_to_centroidal")
+    rbd_state_to_centroidal.launches += 1
+    return x.reshape(*lead, NX)
+
+
+rbd_state_to_centroidal.launches = 0
 
 
 def q_v_to_rbd_state(model: RobotModel, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

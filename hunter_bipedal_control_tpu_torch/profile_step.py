@@ -28,13 +28,15 @@ JSON line: the wall time (per step, tick or period), the device's busy time
 launches (per step, tick or period), and the device time of the heaviest
 kernels.  ``phases`` splits one warm step's launch calls by phase,
 ``tick_phases`` one tick's and ``loop_phases`` one walking period's by the
-tick's sub-phases (``TICK_PHASES``).  ``sim_loop`` runs the full-order
+tick's sub-phases (``TICK_PHASES``; the dummy loop's also by its policy
+evaluation, state conversion and plant).  ``sim_loop`` runs the full-order
 closed loop (``entry.build_sim_loop``: the real-time demonstration's 10
 standing periods and 5 walking ones, past the gait switch) and records
 ``periods`` more walking periods; ``sim_loop_phases`` splits one such
-period's launch calls by ``SIM_PHASES`` (the plant, sensing, the Kalman
-filter, the observer, the contact classification, the MPC step, the
-control tick with its QP assembly and PDIP).
+period's launch calls by ``SIM_PHASES`` (the plant, sensing split into the
+IMU, the centroidal conversion and the rest, the Kalman filter, the
+observer, the contact classification, the MPC step, the control tick with
+its QP assembly and PDIP).
 """
 from __future__ import annotations
 
@@ -186,7 +188,7 @@ TICK_PHASES = (("kalman_update", "kf"), ("momentum_observer_update", "obs"),
                ("control_tick", "ctrl"), ("control_tick", "loop"), ("_at", "ctrl"),
                ("wbc_solve", "ctrl"), ("wbc_qp", "wbc"), ("_measured_pipeline", "wbc"),
                ("_desired_pipeline", "wbc"), ("solve_qp", "wbc"), ("mpc_step", "mpc"),
-               ("dummy_step", "loop"))
+               ("dummy_step", "loop"), ("state_input_to_v", "loop"), ("evaluate_policy", "mpc"))
 
 
 def _launches_by_phase(run, table):
@@ -229,9 +231,13 @@ def _launches_by_phase(run, table):
 
 def _tick_split(total, by_name, per):
     """Launch calls per unit by the tick's sub-phases, and ``wbc_qp``'s own
-    split (its plain version's measured and desired pipelines, the rest)."""
+    split (its plain version's measured and desired pipelines, the rest).
+    The dummy loop's own per-tick parts: its policy evaluation
+    (``loop_policy``), its state conversion (``conversion``: x, u -> v and
+    the rbd state) and its plant."""
     parts = {"kalman": by_name["kalman_update"], "observer": by_name["momentum_observer_update"],
-             "policy": by_name["_at"],
+             "policy": by_name["_at"], "loop_policy": by_name["evaluate_policy"],
+             "conversion": by_name["state_input_to_v"],
              "wbc_qp": (by_name["wbc_qp"] + by_name["_measured_pipeline"]
                         + by_name["_desired_pipeline"]),
              "solve_qp": by_name["solve_qp"], "wbc_solve_rest": by_name["wbc_solve"],
@@ -322,7 +328,8 @@ def profile_loop_phases(riccati_parallel: bool = False, periods: int = 2,
 
 
 # the full-order loop's parts, as sim_loop.py calls them
-SIM_PHASES = (("sim_step", "sim"), ("_sense_and_estimate", "sim"), ("kalman_update", "sim"),
+SIM_PHASES = (("sim_step", "sim"), ("_sense_and_estimate", "sim"), ("synth_imu", "sim"),
+              ("rbd_state_to_centroidal", "sim"), ("kalman_update", "sim"),
               ("momentum_observer_update", "sim"), ("_classify_contacts", "sim"),
               ("swing_windows", "sim"), ("control_tick", "sim"), ("wbc_qp", "wbc"),
               ("solve_qp", "wbc"), ("mpc_step", "mpc"))
@@ -350,9 +357,11 @@ def profile_sim_loop_phases(riccati_parallel: bool = False, periods: int = 2,
     """Launch calls per walking period of the full-order loop (from
     ``setup``, a ``SimLoopSetup`` whose state walks; by default one warmed
     up by ``_walking_sim_loop``) by part: the
-    plant (``sim_step``: the ring and kernel B11), sensing
-    (``_sense_and_estimate`` but the filter: the IMU, the rbd and centroidal
-    states), the Kalman filter (six updates per period), the observer, the
+    plant (``sim_step``: the ring and kernel B11), sensing: the IMU
+    (``synth_imu``), the rbd -> centroidal conversion
+    (``rbd_state_to_centroidal``) and the rest of ``_sense_and_estimate``
+    but the filter (``sensing_rest``: the commanded contacts, the rbd
+    state), the Kalman filter (six updates per period), the observer, the
     contact classification (with the period's swing windows), the MPC step,
     the control tick (the QP assembly and the PDIP apart), the rest (the gait
     upkeep, the command filter, the loop's own code)."""
@@ -368,7 +377,9 @@ def profile_sim_loop_phases(riccati_parallel: bool = False, periods: int = 2,
         torch.cuda.synchronize()
 
     total, by = _launches_by_phase(run, SIM_PHASES)
-    parts = {"plant": by["sim_step"], "sensing": by["_sense_and_estimate"],
+    parts = {"plant": by["sim_step"], "imu": by["synth_imu"],
+             "centroidal": by["rbd_state_to_centroidal"],
+             "sensing_rest": by["_sense_and_estimate"],
              "kalman": by["kalman_update"], "observer": by["momentum_observer_update"],
              "classification": by["_classify_contacts"] + by["swing_windows"],
              "mpc_step": by["mpc_step"], "wbc_qp": by["wbc_qp"], "solve_qp": by["solve_qp"],

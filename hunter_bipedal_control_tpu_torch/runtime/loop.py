@@ -5,7 +5,8 @@ thread (LeggedController.cpp:396-421) and the hardware loop
 (LeggedHWLoop.cpp:53-79) become a Python loop over MPC periods with
 ``ticks_per_mpc`` control ticks each, against the dummy plant.  The policy
 solved at the start of a period is the one its ticks evaluate (a solve that
-completes within its period).  Batched over B scenarios.
+completes within its period).  Batched over B scenarios.  On the card each
+tick's state conversion is kernel B14b and the plant's step kernel B14a.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import torch
 
 from ..backends.dummy import DummyPlantState, dummy_step, init_dummy_plant
 from ..gait import adaptive
-from ..models.centroidal import q_v_to_rbd_state, state_input_to_v, state_to_q
+from ..models.centroidal import state_input_to_v
 from ..models.robot import RobotModel
 from ..ocp import problem as ocp
 from ..refs import swing_planner as swp
@@ -119,8 +120,7 @@ def run_dummy_loop(model: RobotModel, settings: sqp_mod.SqpSettings,
             # centroidal state and the policy input (cheater estimator,
             # FromTopicEstimate parity)
             u_opt = mpc_mod.evaluate_policy(sol, tt[:, None])[1][:, 0]
-            v_now = state_input_to_v(model, x_now, u_opt)
-            rbd = q_v_to_rbd_state(model, state_to_q(x_now), v_now)
+            _, rbd = state_input_to_v(model, x_now, u_opt, with_rbd=True)
             if cfg.use_wbc:
                 out, wbc_state = control_tick(model, wbc_params, gains, wbc_state, sol,
                                               gait.schedule, tt, x_now, rbd, default_joints,

@@ -26,8 +26,7 @@ from ..gait.mode_schedule import mode_at_time, mode_contacts, phase_index_at_tim
 from ..models.centroidal import rbd_state_to_centroidal
 from ..models.kinematics import contact_positions, fk
 from ..models.robot import RobotModel
-from ..models.spatial import (global_angular_velocity_from_euler_rates, quat_to_zyx,
-                              rotation_zyx)
+from ..models.spatial import quat_to_zyx, rotation_zyx
 from ..ocp import problem as ocp
 from ..refs import swing_planner as swp
 from ..refs import targets as tg
@@ -89,9 +88,11 @@ def _sense_and_estimate(model, kf_params, plant: SimState, kalman: KalmanState, 
                         schedule, t, dt, noise_params=None):
     """LeggedController::updateStateEstimation: read the plant's sensors
     (corrupted when ``noise_params`` is given), run the Kalman filter and
-    assemble the rbd state and the centroidal estimate.  Returns (kalman,
-    rbd (B, 32), x_est (B, 22), commanded contacts (B, 4), noise state)."""
-    quat, omega_local, accel_local = synth_imu(model, plant)
+    assemble the rbd state and the centroidal estimate (on the card: kernels
+    B13a for the IMU, B12 for the filter, B13b for the conversion).
+    Returns (kalman, rbd (B, 32), x_est (B, 22), commanded contacts (B, 4),
+    noise state)."""
+    quat, omega_local, accel_local, omega_world = synth_imu(model, plant, with_omega_world=True)
     qj, vj = plant.q[:, 6:], plant.v[:, 6:]
     if noise_params is not None:
         nstate, quat, omega_local, accel_local, qj, vj = sn.corrupt(
@@ -100,8 +101,8 @@ def _sense_and_estimate(model, kf_params, plant: SimState, kalman: KalmanState, 
         zyx = quat_to_zyx(quat)
         omega_world = (rotation_zyx(zyx) @ omega_local[..., None])[..., 0]
     else:
+        # noiseless: the IMU's own E(zyx) theta_dot
         zyx = plant.q[:, 3:6]
-        omega_world = global_angular_velocity_from_euler_rates(zyx, plant.v[:, 3:6])
     dtype = plant.q.dtype
     mode = mode_at_time(schedule, t.to(schedule.event_times.dtype)[:, None])[:, 0]
     cmd_contact = mode_contacts(dtype, plant.q.device)[mode]

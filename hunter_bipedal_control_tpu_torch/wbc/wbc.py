@@ -17,8 +17,8 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import _build
-from ..models.centroidal import (base_kinematics_from_centroidal, rbd_to_q_v, state_input_to_v,
-                                 state_to_q)
+from ..models.centroidal import (base_kinematics_from_centroidal, rbd_to_q_v,
+                                 state_input_to_v_plain, state_to_q)
 from ..models.dynamics import mass_matrix, nle
 from ..models.kinematics import (base_jacobian, base_jacobian_dot, contact_jacobians,
                                  contact_jacobians_dot, contact_positions, fk)
@@ -113,7 +113,7 @@ def _measured_pipeline(model: RobotModel, rbd_measured):
 def _desired_pipeline(model: RobotModel, x_des, u_des):
     """Desired foot positions and velocities, and the desired base kinematics."""
     q_des = state_to_q(x_des)
-    v_des = state_input_to_v(model, x_des, u_des)
+    v_des = state_input_to_v_plain(model, x_des, u_des)
     kin = fk(model, q_des)
     p_feet = contact_positions(model, kin)
     J = contact_jacobians(model, kin)[..., 0:3, :]

@@ -41,16 +41,26 @@ max(1e-4, 2 x the float32 plain version's own error) of the float64 plain
 version, on its own scale, on seeded walking inputs
 (``entry.estimator_batch``) at B=1 and B=4096, one launch each and no B6
 launch; a NaN measurement gives NaN where the plain version has it.
+synth_imu (B13a), rbd_state_to_centroidal (B13b), dummy_step (B14a) and
+state_input_to_v (B14b): each output (the IMU's quaternion, local angular
+velocity, specific force and world angular velocity; the centroidal state;
+the stepped state; v and the tick's rbd state) within max(1e-4, 2 x the
+float32 plain version's own error) of the float64 plain version, on its own
+scale, on seeded walking robots (``entry.centroidal_batch``) at B=1 and
+B=4096, one launch each; a NaN state gives NaN where the plain version has
+it; float64 input, a wrong width and a model of another topology refused.
 """
 import numpy as np
 import pytest
 import torch
 
-from hunter_bipedal_control_tpu_torch.backends import fullorder
+from hunter_bipedal_control_tpu_torch.backends import dummy, fullorder
 from hunter_bipedal_control_tpu_torch.entry import (SimBatch, build_flagship, build_sim_loop,
-                                                    build_wbc_batch, estimator_batch,
-                                                    sim_step_batch, walking_wbc_batch)
+                                                    build_wbc_batch, centroidal_batch,
+                                                    estimator_batch, sim_step_batch,
+                                                    walking_wbc_batch)
 from hunter_bipedal_control_tpu_torch.estim import contact, kalman
+from hunter_bipedal_control_tpu_torch.models import centroidal
 from hunter_bipedal_control_tpu_torch.models.robot import load_model
 from hunter_bipedal_control_tpu_torch.models.spatial import rotation_zyx
 from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
@@ -854,3 +864,128 @@ def test_estimator_kernels_refuse_bad_input(cuda):
         kalman.kalman_update(bad, kp, kst, **kw)
     assert (contact.momentum_observer_update.launches,
             kalman.kalman_update.launches) == before
+
+
+CF_TOL = 1e-4
+CF_KERNELS = ("synth_imu", "rbd_to_centroidal", "dummy_step", "state_input_to_v")
+
+
+def _cf_wrapper(name):
+    return {"synth_imu": fullorder.synth_imu,
+            "rbd_to_centroidal": centroidal.rbd_state_to_centroidal,
+            "dummy_step": dummy.dummy_step, "state_input_to_v": centroidal.state_input_to_v}[name]
+
+
+def _cf_run(name, cb, plain=False):
+    """The outputs of kernel ``name`` (or its plain version) on the batch."""
+    if name == "synth_imu":
+        fn = fullorder.synth_imu_plain if plain else fullorder.synth_imu
+        return fn(cb.model, cb.plant, with_omega_world=True)
+    if name == "rbd_to_centroidal":
+        fn = (centroidal.rbd_state_to_centroidal_plain if plain
+              else centroidal.rbd_state_to_centroidal)
+        return (fn(cb.model, cb.rbd),)
+    if name == "dummy_step":
+        fn = dummy.dummy_step_plain if plain else dummy.dummy_step
+        return (fn(cb.model, dummy.init_dummy_plant(cb.x, 0.1), cb.u, EST_DT).x,)
+    if plain:
+        v = centroidal.state_input_to_v_plain(cb.model, cb.x, cb.u)
+        return v, centroidal.q_v_to_rbd_state(cb.model, centroidal.state_to_q(cb.x), v)
+    return centroidal.state_input_to_v(cb.model, cb.x, cb.u, with_rbd=True)
+
+
+def _cf_cast(cb, dtype):
+    return cb._replace(model=_cast(cb.model, cb.x.device, dtype),
+                       plant=_cast(cb.plant, cb.x.device, dtype),
+                       **{f: getattr(cb, f).to(dtype) for f in ("rbd", "x", "u")})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4096])
+@pytest.mark.parametrize("name", CF_KERNELS)
+def test_centroidal_kernels(cuda, name, batch):
+    cb = centroidal_batch(batch, cuda, seed=batch + 2)
+    counter = _cf_wrapper(name)
+    before = counter.launches
+    got = _cf_run(name, cb)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref32 = _cf_run(name, cb, plain=True)
+    ref64 = _cf_run(name, _cf_cast(cb, torch.float64), plain=True)
+    for k, (a, b, c) in enumerate(zip(got, ref32, ref64)):
+        assert a.shape == c.shape and a.dtype == torch.float32, (name, k)
+        assert torch.isfinite(a).all(), (name, k)
+        assert _own_scale_err(a, c) <= max(CF_TOL, 2.0 * _own_scale_err(b, c)), (name, k)
+
+
+@pytest.mark.cuda
+def test_synth_imu_reads_base_acc_by_row_stride(cuda):
+    """The plant's base_acc is a (B, 6) view of a (B, 16) tensor: the kernel
+    reads it by row stride and gives what it gives on a contiguous copy."""
+    cb = centroidal_batch(64, cuda, seed=11)
+    acc = cb.plant.base_acc
+    assert acc.stride() == (16, 1)
+    got = fullorder.synth_imu(cb.model, cb.plant, with_omega_world=True)
+    dense = fullorder.synth_imu(cb.model, cb.plant._replace(base_acc=acc.contiguous()),
+                                with_omega_world=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, dense):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CF_KERNELS)
+def test_centroidal_kernels_nan(cuda, name):
+    """A NaN in one scenario's state gives NaN in that scenario's outputs
+    where the plain version has it, and nowhere else."""
+    cb = centroidal_batch(8, cuda, seed=9)
+    if name == "synth_imu":
+        v = cb.plant.v.clone()
+        v[3, 4] = float("nan")
+        cb = cb._replace(plant=cb.plant._replace(v=v))
+    elif name == "rbd_to_centroidal":
+        rbd = cb.rbd.clone()
+        rbd[3, 7] = float("nan")
+        cb = cb._replace(rbd=rbd)
+    else:
+        x = cb.x.clone()
+        x[3, 14] = float("nan")
+        cb = cb._replace(x=x)
+    got, ref = _cf_run(name, cb), _cf_run(name, cb, plain=True)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert not torch.isnan(a[[0, 1, 2, 4, 5, 6, 7]]).any()
+    assert torch.isnan(got[-1][3]).any()
+
+
+@pytest.mark.cuda
+def test_centroidal_kernels_refuse_bad_input(cuda):
+    cb = centroidal_batch(4, cuda, seed=10)
+    before = [_cf_wrapper(n).launches for n in CF_KERNELS]
+    with pytest.raises(TypeError):
+        fullorder.synth_imu(cb.model, cb.plant._replace(q=cb.plant.q.double()))
+    with pytest.raises(ValueError):
+        fullorder.synth_imu(cb.model, cb.plant._replace(base_acc=cb.plant.base_acc[:, :3]))
+    with pytest.raises(TypeError):
+        centroidal.rbd_state_to_centroidal(cb.model, cb.rbd.double())
+    with pytest.raises(ValueError):
+        centroidal.rbd_state_to_centroidal(cb.model, cb.rbd[:, :31])
+    with pytest.raises(TypeError):
+        dummy.dummy_step(cb.model, dummy.init_dummy_plant(cb.x.double()), cb.u, EST_DT)
+    with pytest.raises(ValueError):
+        dummy.dummy_step(cb.model, dummy.init_dummy_plant(cb.x), cb.u[:3], EST_DT)
+    with pytest.raises(TypeError):
+        centroidal.state_input_to_v(cb.model, cb.x, cb.u.double())
+    with pytest.raises(ValueError):
+        centroidal.state_input_to_v(cb.model, cb.x[:, :21], cb.u)
+    bad = load_model(device="cpu")
+    bad = _cast(bad._replace(joint_parent=torch.tensor([0, 1, 2, 3, 4, 0, 6, 7, 8, 8])), cuda,
+                torch.float32)
+    with pytest.raises(ValueError, match="topology"):
+        centroidal.rbd_state_to_centroidal(bad, cb.rbd)
+    with pytest.raises(ValueError, match="topology"):
+        dummy.dummy_step(bad, dummy.init_dummy_plant(cb.x), cb.u, EST_DT)
+    with pytest.raises(ValueError, match="topology"):
+        centroidal.state_input_to_v(bad, cb.x, cb.u)
+    assert [_cf_wrapper(n).launches for n in CF_KERNELS] == before
