@@ -16,15 +16,17 @@ Phases, each printing one JSON line:
   4. the MPC path: the flagship problem (B=128 scenarios, 66 knots over
      1.0 s, trot, 0.25 m/s) through ``Mpc`` with ``lin_backend='soa'`` (the
      default: kernel B1), one cold and one warm step, with every kernel's
-     launch count read around it (one leg_ik and no gj_inverse launch per
-     step), held against the port's own CPU runs (plain versions: float32,
-     and float64 with the exact Huu solve); the same warm step with
+     launch count read around it (one swing_plan, one leg_ik, one knot_refs
+     and no gj_inverse launch per step, here and on every MPC path), held
+     against the port's own CPU runs (plain versions: float32, and float64
+     with the exact Huu solve, float32's distance to it taken over the run
+     and three one-ulp moves of x_init); the same warm step with
      ``lin_backend='dense'`` on the card held to the 'soa' one, launches per
      step (and per phase, the reference prep split into its sub-phases) of
      both backends, the launches per tick and per walking loop period by the
      tick's sub-phases (``profile_step.profile_tick_phases``,
      ``profile_loop_phases``); then the product shape (B=1, 53 knots over
-     0.8 s);
+     0.8 s), its launches read around its seven steps;
   4a. B1 (soa_linearize, soa_merit) on the inputs the warm steps of the
      bench shape (B=128, N=66) and the product shape (B=1, N=53) gave the
      linearization and the line search's merit: every output against the
@@ -37,6 +39,18 @@ Phases, each printing one JSON line:
      against the float64 plain version within max(tol, 2x the float32 plain
      version's error), bfloat16 landing above the limit, the decisions of
      the plain versions counted per pass; kernel and plain times;
+  4a3. B8b (swing_plan, knot_refs) on the inputs the same warm steps gave
+     the reference prep's two kernels, and again with every shared input
+     made contiguous (the outputs bit for bit the same): every output
+     against the float64 plain version within max(tol, 2x the float32
+     plain version's error), outside the scenarios where a decision of the
+     float32 plain version went the other way from the float64 one's;
+     the kernels' decisions (phases, segments, the windows' tests) equal
+     the float32 plain version's; bfloat16 landing above the limit on the
+     outputs that are not exact in every precision; kernel and plain
+     times, the bounds (``swing_plan_cost``, ``knot_refs_cost``); the
+     launch calls of one whole ``prepare_references`` (at most
+     PREP_MAX_LAUNCH_CALLS);
   4b. the tick path: TICKS (50) chained 500 Hz ticks (``entry.tick_chain``: Kalman
      update, momentum observer, WBC, gains) on the product shape's cold
      policy, launch counts read around it, every tick's command and WBC
@@ -155,7 +169,7 @@ TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_q
        "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4,
        "leg_ik": 1e-4, "wbc_qp": 1e-4, "sim_step": 1e-4, "momentum_observer": 1e-4,
        "kalman_update": 1e-4, "synth_imu": 1e-6, "rbd_to_centroidal": 1e-4, "dummy_step": 1e-4,
-       "state_input_to_v": 1e-4}
+       "state_input_to_v": 1e-4, "swing_plan": 1e-4, "knot_refs": 1e-4}
 # B8a (leg_ik) is held, on each pass's joints on their own scale, to the
 # float64 plain version within max(tol, TOL_FACTOR x the float32 plain
 # version's error).  The damped 5x5 systems have rank 3 (translation) plus
@@ -178,6 +192,36 @@ IK_FLIP_FACTOR, IK_FLIP_FLOOR = 2, 2
 # product shape's one scenario needs the larger offset before its
 # keep-if-improved tests reject a step in each pass.
 IK_OFFSET = {128: (0.02, 0.1, 0.03), 1: (0.05, 0.3, 0.08)}
+# B8b (swing_plan, knot_refs) is held, output by output, to the float64 plain
+# version within max(tol, TOL_FACTOR x the float32 plain version's error),
+# each entry's error taken relative to max(1, |entry|): the padded phases
+# beyond the schedule carry window starts of 1e9 s and, in their swing
+# splines, velocities many orders above the real ones, which would hide
+# every real time and position on one output-wide scale.  Every decision (phases, segments, the
+# windows' tests) compares float32 times, which the kernels compute with one
+# rounding per operation in the order and with the reciprocals torch uses on
+# the card: the kernels' decisions must equal the float32 plain version's.
+# The errors are taken outside the scenarios where a decision that moves the
+# values (a phase, the tail and fresh-window tests: PREP_FLIP_DECISIONS) of
+# the float32 plain version went the other way from the float64 one's: a
+# flipped phase moves a whole spline.  A
+# segment (the target's, the samples', a spline's) is chosen by a time that
+# may equal a node time, in one precision and not the other (knot k of 66
+# and sample i of 7 meet at k = 11 i), but the interpolations are continuous
+# there, so those decisions are counted, not excluded.
+# Outputs exact in every precision on the main path's data (the contact
+# sequence and flags; the cmd_vel target's inputs, all zero; R_des at
+# x_init's zero Euler angles) are left out of the bfloat16-above-the-limit
+# rule.
+PREP_PLAN_NAMES = ("latest", "node_times", "node_pos", "node_vel", "window_start",
+                   "window_stop", "contact_seq", "times", "states", "inputs", "poses", "des",
+                   "R_des", "warm")
+PREP_KNOT_NAMES = ("times", "x_nom", "contact_flags", "foot_pos_ref", "foot_vel_ref",
+                   "mod_states")
+PREP_EXACT = ("contact_seq", "contact_flags", "inputs", "R_des")
+PREP_FLIP_DECISIONS = ("cmd_phase", "next_phase", "tail", "fresh", "sample_phase", "knot_phase")
+# the launch calls of one prepare_references on the card: B8b1, B8a, B8b2
+PREP_MAX_LAUNCH_CALLS = 10
 # B1 (soa_linearize, soa_merit) is held, output by output on its own scale,
 # to two float64 yardsticks that share no code: the plain SoA version and the
 # dense plain version, each within max(tol, TOL_FACTOR x the float32 plain
@@ -243,13 +287,22 @@ TOL_FACTOR = 2.0
 # ~2.5 in inputs and ~8% in cost in float64 alone.  So:
 #  - against the CPU float32 run (plain, NS): within ALGO_TOL;
 #  - against the CPU float64 run with the exact solve (riccati_solver='gj'):
-#    within MAIN_FACTOR times the CPU float32 'gj' run's own distance to it
-#    (float32 alone moves the B=128 step by ~1e-2 in states, ~2% in cost),
-#    or the floor MAIN_FLOOR.
+#    within MAIN_FACTOR times the CPU float32 'gj' run's own distance to it,
+#    or the floor MAIN_FLOOR.  float32's distance is the largest over the
+#    CPU float32 run and the same run with x_init moved by one ulp in the
+#    seeded patterns MAIN_ULP_SEEDS (each entry up, down or kept): a
+#    backward-stable float32 step is the exact step of an input about an
+#    ulp away, and on the warm step's scenarios farthest from the nominal
+#    state the IK's rank-3 systems and the projection turn an ulp into
+#    percents of cost, so one realization's distance is no bound on
+#    float32's there (the main_path line reports each realization's;
+#    ``profile_step spread`` shows the card's step moving as far when one
+#    kernel is swapped for its plain version).
 # The accepted step sizes must equal the CPU float32 run's.
 ALGO_TOL = {"states": 0.1, "inputs": 5.0, "cost_rel": 0.15}
 MAIN_FACTOR = 3.0
 MAIN_FLOOR = {"states": 1e-3, "inputs": 0.1, "cost_rel": 1e-4}
+MAIN_ULP_SEEDS = (0, 1, 2)
 # The tick path: each tick's tau_ff, pos_des and WBC solution, and the
 # final Kalman, observer and WBC states, max |card - CPU float64| / max(1,
 # max |CPU float64|), within MAIN_FACTOR times the CPU float32 run's own
@@ -707,6 +760,101 @@ def ik_cost(batch, n_samples, trans_it, rot_it, nj=10):
     return (n_in + n_out) * 4, legs * (22 + 2 * per_pass)
 
 
+def _rows_read(t):
+    """Entries of a batched input the kernel reads: one scenario's for an
+    input shared by ``expand`` (batch stride 0), else all."""
+    return t[0].numel() if t.shape[0] > 1 and t.stride(0) == 0 else t.numel()
+
+
+def swing_plan_cost(args, p1=57, nodes=4):
+    """Bytes and operations of B8b1 on ``swing_plan``'s arguments: in, each
+    input once (an input shared by the batch once: x_init, init time, the
+    schedule's event times and int64 modes, the target, the command, the
+    default joints, the planner state, the swing configuration, the FK's
+    constants of 10 joints and 4 contacts); out, the planner state, the
+    three node arrays, the windows, the samples' times, states, inputs,
+    poses and toe targets, R_des and the warm joints.  Operations per
+    (leg, phase): the window scans, the next phase's search, the target's
+    interpolation, the rotation, the candidate, the fresh-window scans over
+    the phases before it, and the spline nodes; per scenario the FK of
+    x_init and the command's rotation; per sample the interpolation and
+    two toe splines."""
+    model, cfg, ps, sch, tgt, init, x, cmd, dj, _, S = args
+    Bn, nj, T = x.shape[0], dj.shape[-1], tgt.times.shape[-1]
+    n_in = (x.numel() + _rows_read(init) + _rows_read(sch.event_times)
+            + 2 * _rows_read(sch.modes) + _rows_read(tgt.times) + _rows_read(tgt.states)
+            + _rows_read(tgt.inputs) + _rows_read(cmd) + _rows_read(dj) + ps[0].numel()
+            + 17 + nj * 33 + 4 * 3)
+    n_out = Bn * (12 + 3 * 4 * p1 * 3 * nodes + 3 * 4 * p1 + S * (1 + 22 + 22 + 6 + 6)
+                  + 9 + nj)
+    per_phase = 2 * p1 + 6 + 4 + 6 + 18 + 6 + 16 + 15 + 14 + 4 + 3 * 12
+    scans = 4 * 2 * (p1 * (p1 - 1) // 2)
+    fk = nj * (45 + 15 + 3 + 15 + 2 + 36 + 45 + 3) + 4 * 18
+    per_sample = 2 + 5 + 3 * 44 + 6 + 2 * 3 * (40 + 3 * 12)
+    ops = Bn * (4 * p1 * per_phase + scans + fk + 120 + S * per_sample + 22)
+    return (n_in + n_out) * 4, ops
+
+
+def knot_refs_cost(args, knot_phase, nj=10):
+    """Bytes and operations of B8b2 on ``knot_refs``' arguments: in, the
+    init time, the schedule, the swing nodes of the (scenario, leg, phase)
+    that this run's knots fall in (``knot_phase``, the kernel's decisions),
+    the sample times, states and joint references; out, the knot times,
+    x_nom, the flags, the foot positions and velocities and the modified
+    target's states.  Operations per knot: the time, the phase's search,
+    12 spline evaluations with their segment searches, x_nom's
+    interpolation."""
+    sch, plan, init, _, N, jr = args
+    Bn, S, nx = plan.states.shape
+    K1 = N + 1
+    phases = sum(knot_phase[b].unique().numel() for b in range(Bn))
+    n_in = (_rows_read(init) + _rows_read(sch.event_times) + 2 * _rows_read(sch.modes)
+            + phases * 4 * 3 * 4 * 3 + Bn * S * (1 + nx + nj))
+    n_out = Bn * (K1 * (1 + nx + 4 + 12 + 12) + S * nx)
+    return (n_in + n_out) * 4, Bn * K1 * (2 + 6 + 12 * (40 + 3 * 2) + 5 + nx * 3)
+
+
+def prep_err(got, ref, keep):
+    """(max |got - ref|, max |got - ref| / max(1, |ref|)) over the scenarios
+    ``keep`` (B,)."""
+    a, b = got[keep].double(), ref[keep].double()
+    if a.numel() == 0:
+        return 0.0, 0.0
+    d = (a - b).abs()
+    return d.max().item(), (d / b.abs().clamp(min=1.0)).max().item()
+
+
+def prep_compare(names, got, p32, p64, bf16, dec_k, dec32, dec64):
+    """One B8b kernel's outputs against its plain versions: the errors as
+    ``errors`` gives them, outside the scenarios where the float32 plain
+    version's decisions went the other way from the float64 one's; the
+    decisions the kernel took otherwise than the float32 plain version (to
+    be 0); the flipped scenarios; bfloat16's errors on the same scenarios."""
+    import torch
+
+    Bn = got[0].shape[0]
+
+    def off(d, ref):
+        m = torch.zeros(Bn, dtype=torch.bool, device=got[0].device)
+        for n in ref:
+            if n in PREP_FLIP_DECISIONS:
+                m |= (d[n].long() != ref[n].long()).reshape(Bn, -1).any(-1)
+        return m
+
+    flip32 = off(dec32, dec64)
+    keep = ~flip32
+    err = {n: (prep_err(a, b, keep), prep_err(a, c, keep), prep_err(b, c, keep))
+           for n, a, b, c in zip(names, got, p32, p64)}
+    e_bf16 = {n: prep_err(b, c, keep)[1] for n, b, c in zip(names, bf16, p64)}
+    kernel_off = {n: int((dec_k[n].long() != dec32[n].long()).sum()) for n in dec32}
+    return err, e_bf16, {"kernel_vs_plain_f32": kernel_off,
+                         "plain_f32_vs_f64": {n: int((dec32[n].long() != dec64[n].long()).sum())
+                                              for n in dec32},
+                         "scenarios_f32_vs_f64": int(flip32.sum()),
+                         "scenarios_kernel_vs_f64": int(off(dec_k, dec64).sum()),
+                         "scenarios": Bn}
+
+
 def wbc_qp_cost(batch, n=38, me=28, mi=40, rows=36, nq=16, links=11, nc=4):
     """Bytes (x_des, u_des, rbd, flags in, 79 floats and the stance flag per
     scenario; the model's 497 constants and the 17 gains once; the six QP
@@ -828,7 +976,8 @@ def main():
     from hunter_bipedal_control_tpu_torch.models import centroidal as cen_mod
     from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
     from hunter_bipedal_control_tpu_torch.ops import linalg, qp
-    from hunter_bipedal_control_tpu_torch.profile_step import (_profiled, profile_loop_phases,
+    from hunter_bipedal_control_tpu_torch.profile_step import (_charged_launches, _profiled,
+                                                               profile_loop_phases,
                                                                profile_phases, profile_sim_loop,
                                                                profile_sim_loop_phases,
                                                                profile_tick_phases)
@@ -1048,7 +1197,8 @@ def main():
                 "kalman_update": kalman.kalman_update, "synth_imu": fullorder.synth_imu,
                 "rbd_to_centroidal": cen_mod.rbd_state_to_centroidal,
                 "dummy_step": dummy_mod.dummy_step,
-                "state_input_to_v": cen_mod.state_input_to_v}
+                "state_input_to_v": cen_mod.state_input_to_v, "swing_plan": mpc_mod.swing_plan,
+                "knot_refs": mpc_mod.knot_refs}
     b1 = ("soa_linearize", "soa_merit")
 
     # the inputs the linearization and the line search's merit get on a
@@ -1057,6 +1207,14 @@ def main():
 
     def capture(run):
         lin, merit, ik = sqp.knot_linearization_all, sqp.eval_merit, ik_mod.joint_reference_ik
+        prep = {n: getattr(mpc_mod, n) for n in ("prepare_references", "swing_plan",
+                                                  "knot_refs")}
+
+        def prep_cap(name):
+            def run_(*a, **k):
+                captured.setdefault(name, (a, k))
+                return prep[name](*a, **k)
+            return run_
 
         def lin_cap(*a):
             captured.setdefault("lin", a)
@@ -1073,11 +1231,15 @@ def main():
         captured.clear()
         sqp.knot_linearization_all, sqp.eval_merit = lin_cap, merit_cap
         ik_mod.joint_reference_ik = ik_cap
+        for n in prep:
+            setattr(mpc_mod, n, prep_cap(n))
         try:
             return run()
         finally:
             sqp.knot_linearization_all, sqp.eval_merit = lin, merit
             ik_mod.joint_reference_ik = ik
+            for n, fn in prep.items():
+                setattr(mpc_mod, n, fn)
         
     # the kernels line's B6 rows: each counts the launches of its matrix size
     # on its path (none: B8a solves the IK's systems on the MPC path, B12 and
@@ -1094,8 +1256,8 @@ def main():
     def read_counts(path, kernels, absent=(), steps=0, ticks=0, plant_ticks=0, observer=0,
                     filter_updates=0, sensing=0, dummy_ticks=0):
         """The launches of the path's run; raise if one of its kernels had
-        none, a kernel of ``absent`` had any, leg_ik was
-        not launched exactly once per MPC step (``steps`` of them), wbc_qp
+        none, a kernel of ``absent`` had any, swing_plan, leg_ik or knot_refs
+        was not launched exactly once per MPC step (``steps`` of them), wbc_qp
         not exactly once per control tick (``ticks`` of them), and solve_qp
         beside it, sim_step not once per tick of the full-order plant
         (``plant_ticks``), momentum_observer and kalman_update not once per
@@ -1112,9 +1274,10 @@ def main():
         for n in absent:
             if counts[n] != 0:
                 raise AssertionError(f"kernel {n} was launched on the {path} path")
-        if counts["leg_ik"] != steps:
-            raise AssertionError(f"leg_ik: {counts['leg_ik']} launches on the {path} path, "
-                                 f"{steps} MPC steps")
+        for n in ("swing_plan", "leg_ik", "knot_refs"):
+            if counts[n] != steps:
+                raise AssertionError(f"{n}: {counts[n]} launches on the {path} path, "
+                                     f"{steps} MPC steps")
         if counts["sim_step"] != plant_ticks:
             raise AssertionError(f"sim_step: {counts['sim_step']} launches on the {path} path, "
                                  f"{plant_ticks} plant ticks")
@@ -1164,11 +1327,16 @@ def main():
     step_ms = statistics.median(step_times) * 1e3
 
     # the port's own CPU runs of the same problem (plain versions)
-    def cpu_steps(dtype, solver):
+    def cpu_steps(dtype, solver, ulp_seed=None):
         f = build_flagship(N, H, batch=B, device="cpu", dtype=dtype)
         m = mpc_mod.Mpc(f.model, settings._replace(riccati_solver=solver), f.params,
                         f.planner_cfg)
-        a = (f.schedule, f.target, 0.0, f.x0, torch.zeros(6, dtype=dtype), f.default_joints)
+        x0 = f.x0
+        if ulp_seed is not None:
+            g = torch.Generator().manual_seed(ulp_seed)
+            step = torch.randint(-1, 2, x0.shape, generator=g).to(dtype)
+            x0 = torch.where(step != 0, torch.nextafter(x0, x0 + step * 1e3), x0)
+        a = (f.schedule, f.target, 0.0, x0, torch.zeros(6, dtype=dtype), f.default_joints)
         s1, st, _ = m(f.state, *a)
         s2, _, _ = m(st, *a)
         return s1, s2
@@ -1178,6 +1346,7 @@ def main():
     cpu_s = time.perf_counter() - t
     exact32 = cpu_steps(torch.float32, "gj")
     exact64 = cpu_steps(torch.float64, "gj")
+    moved32 = [cpu_steps(torch.float32, "gj", seed) for seed in MAIN_ULP_SEEDS]
 
     def dist(a, b):
         return {"states": (a.states.cpu().double() - b.states.double()).abs().max().item(),
@@ -1185,16 +1354,23 @@ def main():
                 "cost_rel": ((a.cost.cpu().double() - b.cost.double()).abs()
                              / b.cost.double().abs().clamp(min=1.0)).max().item()}
 
+    def f32_noise(k):
+        """float32's distance to the float64 run on step k: the largest over
+        the CPU float32 run and its one-ulp moves of x_init."""
+        runs = [dist(r[k], exact64[k]) for r in [exact32] + moved32]
+        return {q: max(r[q] for r in runs) for q in runs[0]}, runs
+
     compare = {}
     for k, (name, g_) in enumerate((("cold", cold), ("warm", warm))):
         vs_cpu = dist(g_, cpu32[k])
         vs_exact = dist(g_, exact64[k])
-        noise = dist(exact32[k], exact64[k])
+        noise, runs = f32_noise(k)
         tol = {q: max(MAIN_FLOOR[q], MAIN_FACTOR * v) for q, v in noise.items()}
         same_alpha = bool(torch.equal(g_.step_size.cpu(), cpu32[k].step_size))
         compare[name] = {"vs_cpu_f32": vs_cpu, "vs_cpu_f32_tol": ALGO_TOL,
                          "vs_exact_f64": vs_exact, "vs_exact_f64_tol": tol,
-                         "exact_f32_vs_exact_f64": noise, "step_size_equal": same_alpha,
+                         "exact_f32_vs_exact_f64": noise,
+                         "exact_f32_vs_exact_f64_per_run": runs, "step_size_equal": same_alpha,
                          "step_size": sorted(set(g_.step_size.cpu().tolist()))}
         ok = (all(vs_cpu[q] <= ALGO_TOL[q] for q in ALGO_TOL)
               and all(vs_exact[q] <= tol[q] for q in tol) and same_alpha)
@@ -1221,7 +1397,7 @@ def main():
         dense_mpc(st1, *args)
         torch.cuda.synchronize()
         dense_times.append(time.perf_counter() - t)
-    noise = dist(exact32[1], exact64[1])
+    noise, _ = f32_noise(1)
     tol = {q: max(MAIN_FLOOR[q], MAIN_FACTOR * v) for q, v in noise.items()}
     d_sd = dist(warm_dense, type(warm)(*(t.cpu() for t in warm)))
     same_alpha = bool(torch.equal(warm_dense.step_size, warm.step_size))
@@ -1253,6 +1429,7 @@ def main():
     pflag = build_flagship(53, 0.8, batch=1, device=dev)
     pmpc = mpc_mod.Mpc(pflag.model, pflag.settings, pflag.params, pflag.planner_cfg)
     pargs = (pflag.schedule, pflag.target, 0.0, pflag.x0, z6, pflag.default_joints)
+    zero_counts()
     p1, pst, _ = pmpc(pflag.state, *pargs)
     p2, _, _ = capture(lambda: pmpc(pst, *pargs))
     torch.cuda.synchronize()
@@ -1266,9 +1443,12 @@ def main():
         pmpc(pst, *pargs)
         torch.cuda.synchronize()
         ptimes.append(time.perf_counter() - t)
+    product_counts = read_counts("product_shape", ("leg_ik", "project_knot", "riccati_solve")
+                                 + b1, ("riccati_solve_parallel", "gj_inverse"),
+                                 steps=2 + len(ptimes))
     emit({"phase": "product_shape", "batch": 1, "knots": 53, "horizon": 0.8,
           "step_ms": statistics.median(ptimes) * 1e3, "cost": p2.cost.item(),
-          "step_size": p2.step_size.item()})
+          "step_size": p2.step_size.item(), "launches": product_counts})
 
     # ---- 4a. B1 on the warm steps' own linearization and merit inputs ----
     chain_ops = soa_chain_ops()
@@ -1425,6 +1605,122 @@ def main():
     for cap, row in ((bench_cap, True), (product_cap, False)):
         ik_case(cap["ik"], row)
         ik_case(cap["ik"], False, offset_seed=7)
+
+    # ---- 4a3. B8b on the warm steps' own reference-prep inputs ----
+    from torch.profiler import ProfilerActivity, profile
+
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+
+    def plan_args(a, dtype):
+        """``swing_plan``'s arguments in ``dtype`` (None: every tensor
+        contiguous, the shared ones copied out of their expand)."""
+        model_, cfg_, ps_, sch_, tgt_, init_, x_, cmd_, dj_, H_, S_ = a
+        if dtype is None:
+            def c(tup):
+                return type(tup)(*(t.contiguous() for t in tup))
+            return (model_, cfg_, c(ps_), c(sch_), c(tgt_), init_.contiguous(), x_.contiguous(),
+                    cmd_.contiguous(), dj_.contiguous(), H_, S_)
+        return (cast(model_, dev, dtype), cast(cfg_, dev, dtype), cast(ps_, dev, dtype),
+                cast(sch_, dev, dtype), cast(tgt_, dev, dtype), init_.to(dtype), x_.to(dtype),
+                cmd_.to(dtype), dj_.to(dtype), H_, S_)
+
+    def knot_args(a, dtype):
+        sch_, plan_, init_, H_, N_, jr_ = a
+        if dtype is None:
+            return (type(sch_)(*(t.contiguous() for t in sch_)), plan_, init_.contiguous(), H_,
+                    N_, jr_)
+        plan_ = plan_._replace(refs=cast(plan_.refs, dev, dtype),
+                               planner=cast(plan_.planner, dev, dtype),
+                               **{f: getattr(plan_, f).to(dtype) for f in plan_._fields[2:]})
+        return cast(sch_, dev, dtype), plan_, init_.to(dtype), H_, N_, jr_.to(dtype)
+
+    def plan_outputs(plan):
+        return (plan.planner.latest_stance_position, *plan.refs[:3], *plan.refs[4:],
+                *plan[2:])
+
+    def knot_outputs(out):
+        return (*out[0], out[1].states)
+
+    def prep_case(cap, row):
+        """B8b1 and B8b2 on the captured main-path inputs of ``swing_plan``
+        and ``knot_refs`` against their float64 plain versions; the launch
+        calls of one whole ``prepare_references`` on the same step's inputs;
+        ``row``: this shape fills the kernels line's rows, else kernel_extra
+        lines."""
+        out = {}
+        for name, a, names, plain_fn, kernel_fn, outputs, to in (
+                ("swing_plan", cap["swing_plan"][0], PREP_PLAN_NAMES, mpc_mod.swing_plan_plain,
+                 mpc_mod.swing_plan, plan_outputs, plan_args),
+                ("knot_refs", cap["knot_refs"][0], PREP_KNOT_NAMES, mpc_mod.knot_refs_plain,
+                 mpc_mod.knot_refs, knot_outputs, knot_args)):
+            *got, dec_k = kernel_fn(*a, with_decisions=True)
+            bare = kernel_fn(*a)
+            contig = kernel_fn(*to(a, None))
+            torch.cuda.synchronize()
+            got = outputs(got[0] if name == "swing_plan" else got)
+            bare, contig = outputs(bare), outputs(contig)
+            same = {n: bool(torch.equal(g, b) and torch.equal(g, c))
+                    for n, g, b, c in zip(names, got, bare, contig)}
+            if not all(same.values()):
+                raise AssertionError(f"{name}: outputs differ with the decisions written or "
+                                     f"with contiguous inputs: {same}")
+            d32, d64 = {}, {}
+            p32 = outputs(plain_fn(*to(a, f32), decisions=d32))
+            p64 = outputs(plain_fn(*to(a, f64), decisions=d64))
+            pbf = outputs(plain_fn(*to(a, bf16)))
+            err, e_bf16, flips = prep_compare(names, got, p32, p64, pbf, dec_k, d32, d64)
+            tol = TOL[name]
+            limits = {n: max(tol, TOL_FACTOR * p64e[1]) for n, (_, _, p64e) in err.items()}
+            Bn = got[0].shape[0]
+            cost = (swing_plan_cost(a) if name == "swing_plan"
+                    else knot_refs_cost(a, dec_k["knot_phase"]))
+            times = (cuda_ms(lambda: kernel_fn(*a)), cuda_ms(lambda: plain_fn(*a), reps=3))
+            shared = [n for n, t in zip(("init_time", "event_times", "target.times",
+                                         "body_vel_cmd", "default_joints"),
+                                        (a[5], a[3][0], a[4][0], a[7], a[8])
+                                        if name == "swing_plan" else (a[2], a[0][0]))
+                      if t.shape[0] > 1 and t.stride(0) == 0]
+            info = {"scenarios": Bn, "decisions": flips, "plain_bf16_rel_err_vs_f64": e_bf16,
+                    "shared_inputs_read_at_stride_0": shared, "bit_equal_contiguous": True}
+            label = f"{name} B={Bn}"
+            if row:
+                record(name, "cuda", "hunter_bipedal_control_tpu_torch/csrc/reference_prep.cu",
+                       ("hunter_bipedal_control_tpu/refs/swing_planner.py:202"
+                        if name == "swing_plan"
+                        else "hunter_bipedal_control_tpu/solver/mpc.py:112"),
+                       err, tol, times[0], times[1], None, cost, info)
+            else:
+                b_ms, b_by = bound(*cost)
+                emit({"phase": "kernel_extra", "name": name, "tol": tol,
+                      "outputs": per_output(err, tol), "kernel_ms": times[0],
+                      "plain_ms": times[1], "library_ms": None, "bound_ms": b_ms,
+                      "bound_by": b_by, **info})
+                check(label, err, tol)
+            if any(flips["kernel_vs_plain_f32"].values()):
+                raise AssertionError(f"{label}: decisions off the float32 plain version's: "
+                                     f"{flips}")
+            low = {n: e for n, e in e_bf16.items() if n not in PREP_EXACT and e <= limits[n]}
+            if low:
+                raise AssertionError(f"{label}: the bfloat16 plain version is within the limit "
+                                     f"on {low} (limits {limits})")
+            out[name] = times[0]
+        # one whole prepare_references: its launch calls
+        pa, pk = cap["prepare_references"]
+        mpc_mod.prepare_references(*pa, **pk)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            mpc_mod.prepare_references(*pa, **pk)
+            torch.cuda.synchronize()
+        calls = _charged_launches(prof)[0]
+        emit({"phase": "prep_launches", "scenarios": pa[7].shape[0],
+              "prepare_references_launch_calls": calls, "limit": PREP_MAX_LAUNCH_CALLS,
+              "kernel_ms": out})
+        if calls > PREP_MAX_LAUNCH_CALLS:
+            raise AssertionError(f"prepare_references: {calls} launch calls, more than "
+                                 f"{PREP_MAX_LAUNCH_CALLS}")
+
+    for cap, row in ((bench_cap, True), (product_cap, False)):
+        prep_case(cap, row)
     del bench_cap, product_cap, captured
 
     # ---- 4b. the tick path: TICKS chained ticks on the product shape's cold policy ----
@@ -2176,7 +2472,8 @@ def main():
     # ---- 5. kernels ----
     cf_rows = ("synth_imu", "rbd_to_centroidal", "dummy_step", "state_input_to_v")
     for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp",
-              "leg_ik", "wbc_qp", "sim_step", "momentum_observer", "kalman_update") + b1 + cf_rows:
+              "leg_ik", "wbc_qp", "sim_step", "momentum_observer", "kalman_update",
+              "swing_plan", "knot_refs") + b1 + cf_rows:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -2184,7 +2481,8 @@ def main():
         rows[row]["launches_by_path"] = {path: rows[row]["launches"]}
     emit({"kernels": [rows[n] for n in ("gj_inverse", "gj_inverse_kalman", "gj_inverse_observer",
                                         "project_knot", "riccati_solve", "riccati_solve_parallel",
-                                        "solve_qp") + b1 + ("leg_ik", "wbc_qp", "sim_step",
+                                        "solve_qp") + b1 + ("swing_plan", "leg_ik",
+                                                            "knot_refs", "wbc_qp", "sim_step",
                                                             "momentum_observer",
                                                             "kalman_update") + cf_rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

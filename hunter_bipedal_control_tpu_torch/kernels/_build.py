@@ -68,6 +68,12 @@ SIGNATURES = {
     "hk_dummy_step": [_P] * 4 + [_I, _F, _P],
     # consts, x, u, v, rbd or NULL, batch, stream
     "hk_state_input_to_v": [_P] * 5 + [_I, _P],
+    # consts, 10 inputs, 6 swing-config scalars and arrays, 14 outputs, decisions or
+    # NULL, the 10 inputs' batch strides, batch, target nodes, samples, horizon, stream
+    "hk_swing_plan": [_P] * 32 + [_I] * 13 + [_F, _P],
+    # 9 inputs, 6 outputs, decisions or NULL, 3 batch strides, batch, knots, samples,
+    # horizon / intervals, stream
+    "hk_knot_refs": [_P] * 16 + [_I] * 6 + [_F, _P],
 }
 
 # a grid of one thread per scenario takes a batch up to the C int's range
@@ -175,9 +181,12 @@ def rows(t: torch.Tensor, name: str, width: int):
     return flat, t.shape[:-1]
 
 
-def require(t: torch.Tensor, name: str, dtype, shape, device=None, strided_rows=False) -> None:
+def require(t: torch.Tensor, name: str, dtype, shape, device=None, strided_rows=False,
+            batch_stride=False) -> None:
     """Check what a kernel takes: a contiguous CUDA tensor of this dtype/shape
-    (with ``strided_rows``, rows of contiguous entries at any row stride)."""
+    (with ``strided_rows``, rows of contiguous entries at any row stride;
+    with ``batch_stride``, each entry of dim 0 contiguous at any stride of
+    dim 0, 0 included: an input shared by the batch through ``expand``)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: kernel input must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -189,5 +198,8 @@ def require(t: torch.Tensor, name: str, dtype, shape, device=None, strided_rows=
     if strided_rows:
         if t.stride(-1) != 1 or t.stride(0) < t.shape[-1]:
             raise ValueError(f"{name}: kernel takes rows of contiguous entries")
+    elif batch_stride:
+        if t.dim() == 0 or t.shape[0] == 0 or not t[0].is_contiguous():
+            raise ValueError(f"{name}: kernel takes contiguous entries at any batch stride")
     elif not t.is_contiguous():
         raise ValueError(f"{name}: kernel takes a contiguous tensor")

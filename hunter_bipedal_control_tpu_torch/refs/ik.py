@@ -7,7 +7,7 @@ plain Gauss-Jordan (the JAX package solves the two legs' rotation steps one
 after the other).
 
 ``joint_reference_ik`` is the reference prep's two IK passes
-(``solver/mpc.py::_joint_reference``) and kernel B8a's entry point: a CPU
+(``solver/mpc.py::prepare_references``) and kernel B8a's entry point: a CPU
 tensor takes ``joint_reference_ik_plain`` (two ``compute_ik`` calls), a
 CUDA tensor one launch of ``leg_ik`` (``csrc/leg_ik.cu``) or an error.
 """

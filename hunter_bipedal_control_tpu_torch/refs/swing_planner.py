@@ -18,6 +18,7 @@ from ..gait.mode_schedule import (
     MAX_PHASES,
     ModeSchedule,
     contact_flags_at_time,
+    phase_index_at_time,
     swing_windows,
 )
 from ..models.spatial import rotation_zyx
@@ -183,9 +184,13 @@ def update_planner(
     body_vel_cmd,
     current_feet_position,
     body_vel_meas=None,
+    decisions=None,
 ):
     """SwingTrajectoryPlanner::update (:164-286).  init_time/final_time (...),
-    body_vel_cmd (..., 6), current_feet_position (..., 4, 3).
+    body_vel_cmd (..., 6), current_feet_position (..., 4, 3).  ``decisions``,
+    a dict, receives the discrete choices (the commanded contacts' phase,
+    and per (leg, phase) the next window's phase, the tail test, the
+    target's segment at the next middle time, the fresh-window test).
 
     Returns (SwingRefs, new PlannerState)."""
     dtype = current_feet_position.dtype
@@ -248,6 +253,14 @@ def update_planner(
 
     sw_t, sw_p, sw_v = _swing_nodes(cfg, s, e, last_stance, next_stance)
     st_t, st_p, st_v = _stance_nodes(s, e, next_stance)
+    if decisions is not None:
+        n_t = target.times.shape[-1]
+        seg = torch.searchsorted(target.times.contiguous(), q_t.contiguous(), right=True) - 1
+        decisions.update(
+            cmd_phase=phase_index_at_time(schedule, (init_time + 0.001)[..., None])[..., 0],
+            next_phase=next_phase_idx, tail=is_tail,
+            mid_seg=seg.clamp(0, n_t - 2).reshape(stops.shape), fresh=fresh)
+
     sw = is_swing[..., None, None]
     refs = SwingRefs(
         node_times=torch.where(sw, sw_t, st_t),
@@ -283,3 +296,19 @@ def foot_reference(refs: SwingRefs, leg, t):
     if isinstance(leg, int):
         return pos[..., 0, :], vel[..., 0, :], acc[..., 0, :]
     return pos, vel, acc
+
+
+def spline_segments(refs: SwingRefs, legs, t):
+    """The segment ``foot_reference`` evaluates at times t (..., K), per leg
+    of ``legs`` and axis: (..., K, len(legs), 3), as ``eval_piecewise``
+    searches the phase's node times."""
+    p = torch.searchsorted(refs.event_times.contiguous(), t.contiguous(), right=True)
+    p = p.clamp(0, P1 - 1)
+    nt = refs.node_times[..., list(legs), :, :, :]                   # (..., L, P1, 3, N)
+    K, L = t.shape[-1], len(legs)
+    nt = nt[..., None, :, :, :, :].expand(*nt.shape[:-4], K, *nt.shape[-4:])
+    idx = p[..., :, None, None, None, None].expand(*p.shape, L, 1, 3, N_NODES)
+    times = torch.gather(nt, -3, idx)[..., 0, :, :]                  # (..., K, L, 3, N)
+    q = t[..., :, None, None, None].expand(*times.shape[:-1], 1)
+    seg = torch.searchsorted(times.contiguous(), q.contiguous(), right=True)[..., 0] - 1
+    return seg.clamp(0, N_NODES - 2)

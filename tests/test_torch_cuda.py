@@ -49,6 +49,19 @@ float32 plain version's own error) of the float64 plain version, on its own
 scale, on seeded walking robots (``entry.centroidal_batch``) at B=1 and
 B=4096, one launch each; a NaN state gives NaN where the plain version has
 it; float64 input, a wrong width and a model of another topology refused.
+swing_plan (B8b1) and knot_refs (B8b2), the reference prep around the IK:
+every output within max(1e-4, 2 x the float32 plain version's own error)
+of the float64 plain version, each entry's error relative to max(1, |entry|)
+(the padded phases carry 1e9 s window starts), outside the scenarios where
+a phase or window test of the float32 plain version went the other way
+from the float64 one's; every decision (phases, segments, the windows'
+tests) equal to the float32 plain version's; on the flagship's main-path
+inputs and on seeded schedules of four gaits around t = 0 and t = 20 s at
+B=1 and B=128; the float32 plain version runs on the card (torch divides
+by a Python number there as the kernel does, by its reciprocal), the
+float64 one on the CPU; inputs shared by expand
+(stride 0) give the same bits as contiguous copies; one launch each per
+MPC step; float64 and rows that are not contiguous refused.
 """
 import numpy as np
 import pytest
@@ -60,6 +73,7 @@ from hunter_bipedal_control_tpu_torch.entry import (SimBatch, build_flagship, bu
                                                     estimator_batch, sim_step_batch,
                                                     walking_wbc_batch)
 from hunter_bipedal_control_tpu_torch.estim import contact, kalman
+from hunter_bipedal_control_tpu_torch.gait import mode_schedule as ms
 from hunter_bipedal_control_tpu_torch.models import centroidal
 from hunter_bipedal_control_tpu_torch.models.robot import load_model
 from hunter_bipedal_control_tpu_torch.models.spatial import rotation_zyx
@@ -989,3 +1003,187 @@ def test_centroidal_kernels_refuse_bad_input(cuda):
     with pytest.raises(ValueError, match="topology"):
         centroidal.state_input_to_v(bad, cb.x, cb.u)
     assert [_cf_wrapper(n).launches for n in CF_KERNELS] == before
+
+
+PREP_TOL = 1e-4
+# the decisions that move values (a phase, the windows' tests); a segment
+# taken at a time equal to a node time is continuous either way
+PREP_FLIP_DECISIONS = ("cmd_phase", "next_phase", "tail", "fresh", "sample_phase", "knot_phase")
+PREP_GAITS = ("STANCE_GAIT", "TROT_GAIT", "FLYING_TROT_GAIT", "STANDING_TROT_GAIT")
+
+
+def _prep_inputs(cuda, batch, n_knots, horizon, main_path, seed=0):
+    """``swing_plan``'s arguments on the card, float32: the flagship's own
+    (its shared schedule, target, command, default joints and init time
+    broadcast by expand, as ``mpc_step`` hands them) for ``main_path``;
+    else per scenario a schedule of one of four gaits tiled around t = 0 or
+    t = 20 s, an init time mid-phase, on one of its events or near 20 s, a
+    cmd_vel target made there, x_init, command and latest stance positions
+    around the standing robot, the yaw lead and velocity feedback on."""
+    flag = build_flagship(n_knots, horizon, batch=batch, device=cuda)
+    S = int(horizon / mpc_mod.JOINT_REF_STEP) + 1
+    if main_path:
+        sched = ms.ModeSchedule(*(a.expand(batch, *a.shape) for a in flag.schedule))
+        target = mpc_mod.tg.TargetTrajectories(*(a.expand(batch, *a.shape) for a in flag.target))
+        return (flag.model, flag.planner_cfg, flag.state.planner, sched, target,
+                torch.zeros((), device=cuda).expand(batch), flag.x0,
+                torch.zeros(6, device=cuda).expand(batch, 6),
+                flag.default_joints.expand(batch, -1), horizon, S)
+    rng = np.random.default_rng(seed)
+    events, modes, t0 = [], [], []
+    for b in range(batch):
+        base = 20.0 if b % 3 == 2 else 0.0
+        sch = ms.tile_template(getattr(ms, PREP_GAITS[b % 4])("cpu"), base - horizon,
+                               base + 4 * horizon)
+        ev = sch.event_times
+        t = {0: base + rng.uniform(0.01, 0.3), 1: float(ev[ev > base][rng.integers(0, 3)]),
+             2: base + rng.uniform(0.0, 0.4)}[b % 3]
+        events.append(ev)
+        modes.append(sch.modes)
+        t0.append(t)
+    t0 = torch.tensor(t0, dtype=torch.float32)
+    x = flag.x0.cpu() + torch.tensor(0.02 * rng.standard_normal((batch, 22)), dtype=torch.float32)
+    cmd_vel = torch.tensor([0.25, 0.1, 0.0, 0.3]) + torch.tensor(
+        0.05 * rng.standard_normal((batch, 4)), dtype=torch.float32)
+    target = mpc_mod.tg.cmd_vel_to_target(cmd_vel, x, t0, horizon,
+                                          mpc_mod.tg.default_cmd_vel_config(device="cpu"))
+    cfg = flag.planner_cfg._replace(foothold_yaw_lead=torch.tensor(0.1, device=cuda),
+                                    foothold_vel_fb=torch.tensor(0.3, device=cuda))
+    latest = mpc_mod.swp.PlannerState(torch.tensor(0.1 * rng.standard_normal((batch, 4, 3)),
+                                                   dtype=torch.float32, device=cuda))
+    t = lambda a: a.to(cuda).contiguous()  # noqa: E731
+    return (flag.model, cfg, latest, ms.ModeSchedule(t(torch.stack(events)), t(torch.stack(modes))),
+            mpc_mod.tg.TargetTrajectories(*map(t, target)), t(t0), t(x),
+            t(torch.tensor(0.2 * rng.standard_normal((batch, 6)), dtype=torch.float32)),
+            flag.default_joints.expand(batch, -1), horizon, S)
+
+
+def _to(a, dtype, device="cpu"):
+    """A tensor or NamedTuple (nested ones too) on ``device``, floating
+    tensors in ``dtype``."""
+    if torch.is_tensor(a):
+        return a.to(device, dtype) if a.is_floating_point() else a.to(device)
+    if isinstance(a, tuple) and hasattr(a, "_fields"):
+        return type(a)(*(_to(t, dtype, device) for t in a))
+    return a
+
+
+def _plan_outputs(plan):
+    return (plan.planner.latest_stance_position, *plan.refs[:3], *plan.refs[4:], *plan[2:])
+
+
+def _prep_check(got, p32, p64, dec_k, d32, d64):
+    """Decisions equal the float32 plain version's; every output within
+    max(PREP_TOL, 2 x float32 plain's error) of float64 plain, entry errors
+    over max(1, |entry|), outside the scenarios float32 flips."""
+    got, p32, p64 = ([t.cpu().double() for t in ts] for ts in (got, p32, p64))
+    dec_k, d32, d64 = ({n: t.cpu().long() for n, t in d.items()} for d in (dec_k, d32, d64))
+    for n in d32:
+        assert torch.equal(dec_k[n], d32[n]), n
+    Bn = got[0].shape[0]
+    flip = torch.zeros(Bn, dtype=torch.bool)
+    for n in PREP_FLIP_DECISIONS:
+        if n in d32:
+            flip |= (d32[n] != d64[n]).reshape(Bn, -1).any(-1)
+    keep = ~flip
+    assert keep.sum() >= Bn // 2
+
+    def err(a, b):
+        a, b = a[keep], b[keep]
+        return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+    for k, (a, b, c) in enumerate(zip(got, p32, p64)):
+        assert a.shape == c.shape and not torch.isnan(a[keep]).any(), k
+        assert err(a, c) <= max(PREP_TOL, 2.0 * err(b, c)), (k, err(a, c), err(b, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("main_path", [False, True], ids=["seeded", "main_path"])
+@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+def test_prep_kernels(cuda, batch, n_knots, horizon, main_path):
+    args = _prep_inputs(cuda, batch, n_knots, horizon, main_path)
+    model, S = args[0], args[-1]
+    plan, dec_k = mpc_mod.swing_plan(*args, with_decisions=True)
+    _, jr = ik_mod.leg_ik(model, plan.poses, plan.warm, plan.des, plan.R_des)
+    bundle, mod, kdec = mpc_mod.knot_refs(args[3], plan, args[5], horizon, n_knots, jr,
+                                          with_decisions=True)
+    torch.cuda.synchronize()
+    d32, d64 = {}, {}
+    p32 = mpc_mod.swing_plan_plain(*args, decisions=d32)
+    p64 = mpc_mod.swing_plan_plain(*(_to(a, torch.float64) for a in args), decisions=d64)
+    _prep_check(_plan_outputs(plan), _plan_outputs(p32), _plan_outputs(p64), dec_k, d32, d64)
+    # B8b2 alone, on the card's B8b1 and B8a outputs
+    e32, e64 = {}, {}
+    kargs = (args[3], plan, args[5], horizon, n_knots, jr)
+    k32 = mpc_mod.knot_refs_plain(*kargs, decisions=e32)
+    k64 = mpc_mod.knot_refs_plain(*(_to(a, torch.float64) for a in kargs), decisions=e64)
+    _prep_check((*bundle, mod.states), (*k32[0], k32[1].states), (*k64[0], k64[1].states),
+                kdec, e32, e64)
+    assert plan.times.shape == (batch, S) and bundle.x_nom.shape == (batch, n_knots + 1, 22)
+    assert mod.times is plan.times and mod.inputs is plan.inputs
+
+
+@pytest.mark.cuda
+def test_prep_reads_shared_inputs_by_stride(cuda):
+    """Inputs broadcast by expand (batch stride 0) give the same bits as
+    contiguous copies, in both kernels."""
+    args = _prep_inputs(cuda, 128, 66, 1.0, True)
+    assert args[3].event_times.stride(0) == 0 and args[4].states.stride(0) == 0
+
+    def contiguous(a):
+        if torch.is_tensor(a):
+            return a.contiguous()
+        return type(a)(*map(contiguous, a)) if hasattr(a, "_fields") else a
+
+    flat = [contiguous(a) if k >= 2 else a for k, a in enumerate(args)]
+    one, other = mpc_mod.swing_plan(*args), mpc_mod.swing_plan(*flat)
+    assert all(torch.equal(a, b) for a, b in zip(_plan_outputs(one), _plan_outputs(other)))
+    _, jr = ik_mod.leg_ik(args[0], one.poses, one.warm, one.des, one.R_des)
+    k1 = mpc_mod.knot_refs(args[3], one, args[5], 1.0, 66, jr)
+    k2 = mpc_mod.knot_refs(flat[3], one, flat[5], 1.0, 66, jr)
+    assert all(torch.equal(a, b) for a, b in zip((*k1[0], k1[1].states), (*k2[0], k2[1].states)))
+
+
+@pytest.mark.cuda
+def test_prep_launches_once_per_step(cuda):
+    """On the card an MPC step launches B8b1, B8a and B8b2 once each, and
+    prepare_references returns the kernels' outputs."""
+    flag = build_flagship(53, 0.8, batch=1, device=cuda)
+    mpc = mpc_mod.Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
+    args = (flag.schedule, flag.target, 0.0, flag.x0, torch.zeros(6, device=cuda),
+            flag.default_joints)
+    counters = (mpc_mod.swing_plan, ik_mod.leg_ik, mpc_mod.knot_refs)
+    before = [c.launches for c in counters]
+    _, state, _ = mpc(flag.state, *args)
+    mpc(state, *args)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    sargs = _prep_inputs(cuda, 1, 53, 0.8, True)
+    bundle, refs, mod, planner = mpc_mod.prepare_references(
+        flag.model, flag.settings, *sargs[1:9])
+    plan = mpc_mod.swing_plan(*sargs)
+    assert torch.equal(refs.node_pos, plan.refs.node_pos) and bundle.x_nom.is_contiguous()
+    assert torch.isfinite(bundle.x_nom).all() and torch.isfinite(mod.states).all()
+
+
+@pytest.mark.cuda
+def test_prep_refuses_bad_input(cuda):
+    args = list(_prep_inputs(cuda, 2, 53, 0.8, False))
+    with pytest.raises(TypeError):
+        mpc_mod.swing_plan(*args[:6], args[6].double(), *args[7:])
+    bad = list(args)
+    bad[4] = bad[4]._replace(states=bad[4].states.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        mpc_mod.swing_plan(*bad)
+    with pytest.raises(ValueError):
+        mpc_mod.swing_plan(*args[:-1], 1)
+    plan = mpc_mod.swing_plan(*args)
+    _, jr = ik_mod.leg_ik(args[0], plan.poses, plan.warm, plan.des, plan.R_des)
+    with pytest.raises(ValueError, match="contiguous"):
+        mpc_mod.knot_refs(args[3], plan, args[5], 0.8, 53, jr.transpose(0, 1).contiguous()
+                          .transpose(0, 1))
+    flag = build_flagship(53, 0.8, batch=2, device=cuda)
+    with pytest.raises(TypeError):
+        mpc_mod.prepare_references(flag.model, flag.settings,
+                                   *(_cast(a, cuda, torch.float64) if hasattr(a, "_fields")
+                                     else a.double() for a in args[1:9]))
