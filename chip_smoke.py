@@ -19,8 +19,9 @@ Phases, each printing one JSON line:
      launch count read around it (one swing_plan, one leg_ik, one knot_refs
      and no gj_inverse launch per step, here and on every MPC path), held
      against the port's own CPU runs (plain versions: float32, and float64
-     with the exact Huu solve, float32's distance to it taken over the run
-     and three one-ulp moves of x_init); the same warm step with
+     with the exact Huu solve, scenario by scenario, the scenarios where
+     one-ulp moves of x_init spread float32 past the limit held to their
+     own spread); the same warm step with
      ``lin_backend='dense'`` on the card held to the 'soa' one, launches per
      step (and per phase, the reference prep split into its sub-phases) of
      both backends, the launches per tick and per walking loop period by the
@@ -44,7 +45,8 @@ Phases, each printing one JSON line:
      made contiguous (the outputs bit for bit the same): every output
      against the float64 plain version within max(tol, 2x the float32
      plain version's error), outside the scenarios where a decision of the
-     float32 plain version went the other way from the float64 one's;
+     float32 plain version went the other way from the float64 one's, the
+     per-phase outputs' phases with empty windows held apart;
      the kernels' decisions (phases, segments, the windows' tests) equal
      the float32 plain version's; bfloat16 landing above the limit on the
      outputs that are not exact in every precision; kernel and plain
@@ -220,6 +222,18 @@ PREP_KNOT_NAMES = ("times", "x_nom", "contact_flags", "foot_pos_ref", "foot_vel_
                    "mod_states")
 PREP_EXACT = ("contact_seq", "contact_flags", "inputs", "R_des")
 PREP_FLIP_DECISIONS = ("cmd_phase", "next_phase", "tail", "fresh", "sample_phase", "knot_phase")
+# B8b1's per-phase outputs, (B, 4, P1, ...).  A phase whose window is empty
+# (stop <= start in the float64 plain version: the phases that begin at or
+# after the end of the span the windows are clipped to, the padded ones
+# among them, and a zero-length first window) is never sampled, and its
+# swing spline divides by the 1e-6 s clamp on the window's length, so its
+# velocities carry a position's rounding times 1e6 (5.3e-2 in float32 at
+# B=1).  Those phases are held apart, under the output's name + "_empty",
+# so that the live phases' limits come from their own float32 error; the
+# empty ones' windows sit on the clip's bounds, exact in some precisions,
+# so they are left out of the bfloat16-above-the-limit rule.
+PREP_PHASE_NAMES = ("node_times", "node_pos", "node_vel", "window_start", "window_stop",
+                    "contact_seq")
 # the launch calls of one prepare_references on the card: B8b1, B8a, B8b2
 PREP_MAX_LAUNCH_CALLS = 10
 # B1 (soa_linearize, soa_merit) is held, output by output on its own scale,
@@ -286,23 +300,26 @@ TOL_FACTOR = 2.0
 # nominal state: there the two algorithms differ by up to ~0.05 in states,
 # ~2.5 in inputs and ~8% in cost in float64 alone.  So:
 #  - against the CPU float32 run (plain, NS): within ALGO_TOL;
-#  - against the CPU float64 run with the exact solve (riccati_solver='gj'):
-#    within MAIN_FACTOR times the CPU float32 'gj' run's own distance to it,
-#    or the floor MAIN_FLOOR.  float32's distance is the largest over the
-#    CPU float32 run and the same run with x_init moved by one ulp in the
-#    seeded patterns MAIN_ULP_SEEDS (each entry up, down or kept): a
-#    backward-stable float32 step is the exact step of an input about an
+#  - against the CPU float64 run with the exact solve (riccati_solver='gj'),
+#    scenario by scenario: within MAIN_FACTOR times the CPU float32 'gj'
+#    run's own distance to it over the batch, or the floor MAIN_FLOOR.
+#    A backward-stable float32 step is the exact step of an input about an
 #    ulp away, and on the warm step's scenarios farthest from the nominal
 #    state the IK's rank-3 systems and the projection turn an ulp into
-#    percents of cost, so one realization's distance is no bound on
-#    float32's there (the main_path line reports each realization's;
-#    ``profile_step spread`` shows the card's step moving as far when one
-#    kernel is swapped for its plain version).
+#    percents of cost: there one float32 run's distance is no bound on
+#    another's.  So the CPU float32 'gj' run is repeated with x_init moved
+#    by one ulp in the seeded patterns MAIN_ULP_SEEDS (each entry up, down
+#    or kept); a scenario where one of those runs lands past the batch's
+#    limit is ill-conditioned, reported, and held instead to MAIN_FACTOR
+#    times the largest of its own float32 runs' distances (or the floor).
+#    At most MAIN_MAX_ILL scenarios of a step may be so (the port's CPU
+#    finds 2 of 128 on the warm step, scenarios 83 and 84, none on the cold).
 # The accepted step sizes must equal the CPU float32 run's.
 ALGO_TOL = {"states": 0.1, "inputs": 5.0, "cost_rel": 0.15}
 MAIN_FACTOR = 3.0
 MAIN_FLOOR = {"states": 1e-3, "inputs": 0.1, "cost_rel": 1e-4}
-MAIN_ULP_SEEDS = (0, 1, 2)
+MAIN_ULP_SEEDS = tuple(range(8))
+MAIN_MAX_ILL = 4
 # The tick path: each tick's tau_ff, pos_des and WBC solution, and the
 # final Kalman, observer and WBC states, max |card - CPU float64| / max(1,
 # max |CPU float64|), within MAIN_FACTOR times the CPU float32 run's own
@@ -822,6 +839,28 @@ def prep_err(got, ref, keep):
         return 0.0, 0.0
     d = (a - b).abs()
     return d.max().item(), (d / b.abs().clamp(min=1.0)).max().item()
+
+
+def split_empty_windows(names, live, *runs):
+    """Each run's outputs with every per-phase output (PREP_PHASE_NAMES)
+    split in two: its live phases (the empty ones zeroed) under its name,
+    its empty ones (the live ones zeroed) under name + "_empty".  ``live``:
+    (B, 4, P1) bool.  Returns (names, runs)."""
+    import torch
+
+    out_names = [m for n in names for m in ((n, n + "_empty") if n in PREP_PHASE_NAMES else (n,))]
+    out_runs = []
+    for run in runs:
+        r = []
+        for n, t in zip(names, run):
+            if n not in PREP_PHASE_NAMES:
+                r.append(t)
+                continue
+            m = live.to(t.device).reshape(*live.shape, *([1] * (t.dim() - 3)))
+            zero = torch.zeros((), dtype=t.dtype, device=t.device)
+            r += [torch.where(m, t, zero), torch.where(m, zero, t)]
+        out_runs.append(r)
+    return out_names, out_runs
 
 
 def prep_compare(names, got, p32, p64, bf16, dec_k, dec32, dec64):
@@ -1348,32 +1387,53 @@ def main():
     exact64 = cpu_steps(torch.float64, "gj")
     moved32 = [cpu_steps(torch.float32, "gj", seed) for seed in MAIN_ULP_SEEDS]
 
-    def dist(a, b):
-        return {"states": (a.states.cpu().double() - b.states.double()).abs().max().item(),
-                "inputs": (a.inputs.cpu().double() - b.inputs.double()).abs().max().item(),
+    def per_scenario(a, b):
+        """Each scenario's distance of run a to run b: max |states|, max
+        |inputs| and |cost| relative to max(1, |cost|), each (B,)."""
+        return {"states": (a.states.cpu().double() - b.states.double()).abs().flatten(1).amax(1),
+                "inputs": (a.inputs.cpu().double() - b.inputs.double()).abs().flatten(1).amax(1),
                 "cost_rel": ((a.cost.cpu().double() - b.cost.double()).abs()
-                             / b.cost.double().abs().clamp(min=1.0)).max().item()}
+                             / b.cost.double().abs().clamp(min=1.0))}
 
-    def f32_noise(k):
-        """float32's distance to the float64 run on step k: the largest over
-        the CPU float32 run and its one-ulp moves of x_init."""
-        runs = [dist(r[k], exact64[k]) for r in [exact32] + moved32]
-        return {q: max(r[q] for r in runs) for q in runs[0]}, runs
+    def dist(a, b):
+        return {q: v.max().item() for q, v in per_scenario(a, b).items()}
+
+    def f32_limits(k):
+        """The float64 check's limits on step k: the batch's, from the CPU
+        float32 run's distance; the ill-conditioned scenarios (B,), where a
+        one-ulp move of x_init lands past the batch's limit; each scenario's
+        own limit, from the largest distance of its float32 runs."""
+        noise = dist(exact32[k], exact64[k])
+        tol = {q: max(MAIN_FLOOR[q], MAIN_FACTOR * v) for q, v in noise.items()}
+        runs = [per_scenario(r[k], exact64[k]) for r in [exact32] + moved32]
+        ill = torch.zeros(B, dtype=torch.bool)
+        for r in runs[1:]:
+            for q in tol:
+                ill |= r[q] > tol[q]
+        own = {q: (MAIN_FACTOR * torch.stack([r[q] for r in runs]).amax(0)).clamp(
+            min=MAIN_FLOOR[q]) for q in tol}
+        moved = [{q: v.max().item() for q, v in r.items()} for r in runs[1:]]
+        return noise, tol, ill, own, moved
 
     compare = {}
     for k, (name, g_) in enumerate((("cold", cold), ("warm", warm))):
         vs_cpu = dist(g_, cpu32[k])
-        vs_exact = dist(g_, exact64[k])
-        noise, runs = f32_noise(k)
-        tol = {q: max(MAIN_FLOOR[q], MAIN_FACTOR * v) for q, v in noise.items()}
+        card = per_scenario(g_, exact64[k])
+        noise, tol, ill, own, moved = f32_limits(k)
+        vs_exact = {q: v[~ill].max().item() for q, v in card.items()}
+        ill_rows = {int(b): {q: {"card": card[q][b].item(), "limit": own[q][b].item()}
+                             for q in tol} for b in ill.nonzero().flatten().tolist()}
         same_alpha = bool(torch.equal(g_.step_size.cpu(), cpu32[k].step_size))
         compare[name] = {"vs_cpu_f32": vs_cpu, "vs_cpu_f32_tol": ALGO_TOL,
                          "vs_exact_f64": vs_exact, "vs_exact_f64_tol": tol,
                          "exact_f32_vs_exact_f64": noise,
-                         "exact_f32_vs_exact_f64_per_run": runs, "step_size_equal": same_alpha,
+                         "moved_f32_vs_exact_f64": moved, "ill_conditioned": ill_rows,
+                         "ill_conditioned_limit": MAIN_MAX_ILL, "step_size_equal": same_alpha,
                          "step_size": sorted(set(g_.step_size.cpu().tolist()))}
         ok = (all(vs_cpu[q] <= ALGO_TOL[q] for q in ALGO_TOL)
-              and all(vs_exact[q] <= tol[q] for q in tol) and same_alpha)
+              and all(vs_exact[q] <= tol[q] for q in tol) and len(ill_rows) <= MAIN_MAX_ILL
+              and all(r["card"] <= r["limit"] for row in ill_rows.values()
+                      for r in row.values()) and same_alpha)
         if not ok:
             raise AssertionError(f"{name} step: card vs CPU: {compare[name]}")
     emit({"phase": "main_path", "batch": B, "knots": N, "horizon": H, "lin_backend": "soa",
@@ -1397,8 +1457,7 @@ def main():
         dense_mpc(st1, *args)
         torch.cuda.synchronize()
         dense_times.append(time.perf_counter() - t)
-    noise, _ = f32_noise(1)
-    tol = {q: max(MAIN_FLOOR[q], MAIN_FACTOR * v) for q, v in noise.items()}
+    tol = f32_limits(1)[1]
     d_sd = dist(warm_dense, type(warm)(*(t.cpu() for t in warm)))
     same_alpha = bool(torch.equal(warm_dense.step_size, warm.step_size))
 
@@ -1668,6 +1727,9 @@ def main():
             p32 = outputs(plain_fn(*to(a, f32), decisions=d32))
             p64 = outputs(plain_fn(*to(a, f64), decisions=d64))
             pbf = outputs(plain_fn(*to(a, bf16)))
+            if name == "swing_plan":
+                live = p64[names.index("window_stop")] > p64[names.index("window_start")]
+                names, (got, p32, p64, pbf) = split_empty_windows(names, live, got, p32, p64, pbf)
             err, e_bf16, flips = prep_compare(names, got, p32, p64, pbf, dec_k, d32, d64)
             tol = TOL[name]
             limits = {n: max(tol, TOL_FACTOR * p64e[1]) for n, (_, _, p64e) in err.items()}
@@ -1699,7 +1761,8 @@ def main():
             if any(flips["kernel_vs_plain_f32"].values()):
                 raise AssertionError(f"{label}: decisions off the float32 plain version's: "
                                      f"{flips}")
-            low = {n: e for n, e in e_bf16.items() if n not in PREP_EXACT and e <= limits[n]}
+            low = {n: e for n, e in e_bf16.items()
+                   if n not in PREP_EXACT and not n.endswith("_empty") and e <= limits[n]}
             if low:
                 raise AssertionError(f"{label}: the bfloat16 plain version is within the limit "
                                      f"on {low} (limits {limits})")

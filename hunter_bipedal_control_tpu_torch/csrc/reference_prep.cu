@@ -45,7 +45,7 @@
 // those times can differ from the CPU plain version's by an ulp.  An ulp
 // matters downstream: the IK's rank-3 systems amplify it up to ~1e6, and
 // the MPC step's far-from-nominal scenarios are ill-conditioned
-// (profile_step.py's ``spread``).  The values (positions, velocities,
+// (chip_smoke.py's main-path check).  The values (positions, velocities,
 // rotations) use the same operations as
 // torch; the FK (soa_model.cuh, contracted), cosf/sinf and the order of the
 // 3x3 products' sums may differ from torch's.
@@ -80,6 +80,7 @@ constexpr int NODE_STRIDE = NAX * NNODE;  // floats per (leg, phase)
 constexpr int NXS = 12 + NJ;              // state width
 constexpr int NUS = 12 + NJ;              // input width
 constexpr int MAX_T = 16;                 // target nodes staged in shared memory
+                                          // (reference_prep.py's MAX_TARGET_NODES)
 constexpr int PLAN_THREADS = 256;
 constexpr int KNOT_THREADS = 128;
 constexpr int N_PLAN_DEC_FIXED = 1 + 4 * NLEG * P1;  // + 8 per sample
@@ -99,7 +100,8 @@ constexpr float RAIBERT_K = static_cast<float>(0.03);
 // torch's CUDA reciprocals of the Python divisors 9.81 and 3
 constexpr float INV_G = 1.0f / static_cast<float>(9.81);
 constexpr float INV_3 = 1.0f / 3.0f;
-// _swing_nodes' tuned shape
+// _swing_nodes' tuned shape, refs/swing_planner.py's XY_SHAPE and Z_SHAPE
+// (tests/test_torch_prep.py holds the two equal)
 constexpr float XY_A1 = static_cast<float>(0.417), XY_A1C = static_cast<float>(1 - 0.417);
 constexpr float XY_L1 = static_cast<float>(0.650), XY_L1C = static_cast<float>(1 - 0.650);
 constexpr float XY_K1 = static_cast<float>(1.770);

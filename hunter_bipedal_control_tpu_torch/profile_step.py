@@ -9,7 +9,6 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step loop_phases [sequential|parallel] [periods]
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop [sequential|parallel] [n]
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop_phases [sequential|parallel] [n]
-    python -m hunter_bipedal_control_tpu_torch.profile_step spread [batch] [knots] [horizon]
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
 ``--lin_backend=dense`` (the plain dense linearization and merit), so that
@@ -37,12 +36,7 @@ standing periods and 5 walking ones, past the gait switch) and records
 period's launch calls by ``SIM_PHASES`` (the plant, sensing split into the
 IMU, the centroidal conversion and the rest, the Kalman filter, the
 observer, the contact classification, the MPC step, the control tick with
-its QP assembly and PDIP).  ``spread`` measures how far the flagship's cold
-and warm steps lie from the CPU float64 run with exact solves (states,
-inputs, cost relative to max(1, |cost|), the worst scenario) on the card
-as the path runs, with the reference prep's plain versions in place of
-kernel B8b, and with each SQP kernel (B1, B2, B3) swapped for its plain
-version: equally valid float32 realizations of the same step.
+its QP assembly and PDIP).
 """
 from __future__ import annotations
 
@@ -187,62 +181,6 @@ def profile_phases(batch: int = 128, knots: int = 66, horizon: float = 1.0,
             "lin_backend": lin_backend, "device": torch.cuda.get_device_name(0),
             "launch_calls_per_step": total, "launch_calls_by_phase": out,
             "prepare_references_split": prep}
-
-
-def profile_spread(batch: int = 128, knots: int = 66, horizon: float = 1.0):
-    """The flagship's cold and warm steps on the card in float32 realizations
-    that differ only in rounding, each against the CPU float64 run with
-    exact solves: the kernels as the path runs them; the reference prep's
-    plain versions; B1, B2 or B3 swapped for its plain version."""
-    import torch
-
-    from .entry import build_flagship
-    from .solver import mpc as mpc_mod, reference_prep as rp, riccati, sqp
-
-    def contiguous(t):
-        return t.contiguous() if torch.is_tensor(t) else type(t)(*map(contiguous, t))
-
-    swaps = {
-        "prep plain": ((mpc_mod, "swing_plan", lambda *a: contiguous(rp.swing_plan_plain(*a))),
-                       (mpc_mod, "knot_refs", lambda *a: rp.knot_refs_plain(*a))),
-        "B1 plain": ((sqp, "knot_linearization_all", sqp.knot_linearization_all_plain),
-                     (sqp, "eval_merit", sqp.eval_merit_plain)),
-        "B2 plain": ((sqp, "project_knot", sqp.project_knot_plain),),
-        "B3 plain": ((riccati, "riccati_solve",
-                      lambda *a: riccati.riccati_solve_plain(*a, 20, 2, "gj")),)}
-
-    def steps(device, dtype, solver=None, swap=()):
-        f = build_flagship(knots, horizon, batch=batch, device=device, dtype=dtype)
-        st = f.settings if solver is None else f.settings._replace(riccati_solver=solver)
-        m = mpc_mod.Mpc(f.model, st, f.params, f.planner_cfg)
-        args = (f.schedule, f.target, 0.0, f.x0, torch.zeros(6, dtype=dtype, device=device),
-                f.default_joints)
-        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swap]
-        try:
-            for mod, name, fn in swap:
-                setattr(mod, name, fn)
-            s1, state, _ = m(f.state, *args)
-            s2, _, _ = m(state, *args)
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
-        return s1, s2
-
-    ref = steps("cpu", torch.float64, "gj")
-
-    def dist(sol, r):
-        cost = (sol.cost.cpu().double() - r.cost).abs() / r.cost.abs().clamp(min=1.0)
-        return {"states": float((sol.states.cpu().double() - r.states).abs().max()),
-                "inputs": float((sol.inputs.cpu().double() - r.inputs).abs().max()),
-                "cost_rel": float(cost.max()), "worst_scenario": int(cost.argmax())}
-
-    out = {}
-    for label, swap in (("kernels", ()), *swaps.items()):
-        sols = steps("cuda", torch.float32, swap=swap)
-        torch.cuda.synchronize()
-        out[label] = {k: dist(s, r) for k, s, r in zip(("cold", "warm"), sols, ref)}
-    return {"phase": "profile_spread", "batch": batch, "knots": knots,
-            "device": torch.cuda.get_device_name(0), "vs_cpu_f64_exact": out}
 
 
 # the tick's sub-phases and the loop period's parts: (function, module);
@@ -516,10 +454,6 @@ if __name__ == "__main__":
         print(json.dumps(profile_phases(int(a[1]) if len(a) > 1 else 128,
                                         int(a[2]) if len(a) > 2 else 66,
                                         float(a[3]) if len(a) > 3 else 1.0, **kw)))
-    elif a and a[0] == "spread":
-        print(json.dumps(profile_spread(int(a[1]) if len(a) > 1 else 128,
-                                        int(a[2]) if len(a) > 2 else 66,
-                                        float(a[3]) if len(a) > 3 else 1.0)))
     elif a and a[0] == "tick_phases":
         print(json.dumps(profile_tick_phases(int(a[1]) if len(a) > 1 else 1,
                                              int(a[2]) if len(a) > 2 else 3, **kw)))

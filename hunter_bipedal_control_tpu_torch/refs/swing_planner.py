@@ -117,6 +117,13 @@ def _raibert_foothold(cfg: SwingConfig, current_time, stop_time, next_middle_tim
     return _set_z(p, cfg.next_position_z)
 
 
+# genSwingTrajs' tuned shape (csrc/reference_prep.cu repeats it): the XY
+# middle node's time and position fractions and velocity gain; the Z
+# nodes' time fractions, position fractions and velocity gains
+XY_SHAPE = (0.417, 0.650, 1.770)                        # a1, l1, k1
+Z_SHAPE = (0.251, 0.749, 1.338, 0.630, 0.570, 1.633, 0.000)  # a1, l1, k1, a2, l2, k2, k3
+
+
 def _swing_nodes(cfg: SwingConfig, start_time, stop_time, start_pos, stop_pos):
     """genSwingTrajs (SwingTrajectoryPlanner.cpp:314-358): tuned 3-node XY /
     4-node Z Hermite shapes, (..., 3 axes, 4 nodes); XY pads node 3 by
@@ -124,7 +131,7 @@ def _swing_nodes(cfg: SwingConfig, start_time, stop_time, start_pos, stop_pos):
     dt = stop_time - start_time
     zero = torch.zeros_like(dt)
 
-    xy_a1, xy_l1, xy_k1 = 0.417, 0.650, 1.770
+    xy_a1, xy_l1, xy_k1 = XY_SHAPE
     t_mid = (1 - xy_a1) * start_time + xy_a1 * stop_time
 
     def xy_axis(p0, p1):
@@ -139,9 +146,7 @@ def _swing_nodes(cfg: SwingConfig, start_time, stop_time, start_pos, stop_pos):
 
     scaling = torch.clamp(dt / cfg.swing_time_scale, max=1.0)
     max_z = torch.maximum(start_pos[..., 2], stop_pos[..., 2]) + scaling * cfg.swing_height
-    z_a1, z_l1, z_k1 = 0.251, 0.749, 1.338
-    z_a2, z_l2, z_k2 = 0.630, 0.570, 1.633
-    z_k3 = 0.000
+    z_a1, z_l1, z_k1, z_a2, z_l2, z_k2, z_k3 = Z_SHAPE
     tz = torch.stack([
         start_time,
         (1 - z_a1) * start_time + z_a1 * stop_time,

@@ -225,6 +225,8 @@ def swing_plan(model: RobotModel, cfg: swp.SwingConfig, planner_state: swp.Plann
 
 
 swing_plan.launches = 0
+
+
 def knot_refs(schedule: ModeSchedule, plan: SwingPlan, init_time, horizon: float,
               n_intervals: int, joint_refs, with_decisions: bool = False):
     """Kernel B8b2 on the card (``csrc/reference_prep.cu``, ``hk_knot_refs``):

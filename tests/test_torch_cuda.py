@@ -52,7 +52,9 @@ it; float64 input, a wrong width and a model of another topology refused.
 swing_plan (B8b1) and knot_refs (B8b2), the reference prep around the IK:
 every output within max(1e-4, 2 x the float32 plain version's own error)
 of the float64 plain version, each entry's error relative to max(1, |entry|)
-(the padded phases carry 1e9 s window starts), outside the scenarios where
+(the padded phases carry 1e9 s window starts), B8b1's per-phase outputs
+on the phases with empty windows (their swing velocities divide by the
+1e-6 s clamp) apart from the live ones, outside the scenarios where
 a phase or window test of the float32 plain version went the other way
 from the float64 one's; every decision (phases, segments, the windows'
 tests) equal to the float32 plain version's; on the flagship's main-path
@@ -1072,11 +1074,30 @@ def _plan_outputs(plan):
     return (plan.planner.latest_stance_position, *plan.refs[:3], *plan.refs[4:], *plan[2:])
 
 
-def _prep_check(got, p32, p64, dec_k, d32, d64):
+def _split_empty_windows(outs, live):
+    """B8b1's outputs with each per-phase one (B, 4, P1, ...) split into its
+    live phases and the phases whose window is empty (``live`` false): an
+    empty window's swing velocities divide by the 1e-6 s clamp on its length,
+    so their error would set the live phases' limit."""
+    res = []
+    for t in outs:
+        if t.dim() >= 3 and tuple(t.shape[:3]) == tuple(live.shape):
+            m = live.reshape(*live.shape, *([1] * (t.dim() - 3)))
+            res += [torch.where(m, t, 0.0), torch.where(m, 0.0, t)]
+        else:
+            res.append(t)
+    return res
+
+
+def _prep_check(got, p32, p64, dec_k, d32, d64, windows=False):
     """Decisions equal the float32 plain version's; every output within
     max(PREP_TOL, 2 x float32 plain's error) of float64 plain, entry errors
-    over max(1, |entry|), outside the scenarios float32 flips."""
+    over max(1, |entry|), outside the scenarios float32 flips; ``windows``:
+    B8b1's outputs, the per-phase ones' live and empty windows apart."""
     got, p32, p64 = ([t.cpu().double() for t in ts] for ts in (got, p32, p64))
+    if windows:
+        live = p64[5] > p64[4]
+        got, p32, p64 = (_split_empty_windows(ts, live) for ts in (got, p32, p64))
     dec_k, d32, d64 = ({n: t.cpu().long() for n, t in d.items()} for d in (dec_k, d32, d64))
     for n in d32:
         assert torch.equal(dec_k[n], d32[n]), n
@@ -1111,7 +1132,8 @@ def test_prep_kernels(cuda, batch, n_knots, horizon, main_path):
     d32, d64 = {}, {}
     p32 = mpc_mod.swing_plan_plain(*args, decisions=d32)
     p64 = mpc_mod.swing_plan_plain(*(_to(a, torch.float64) for a in args), decisions=d64)
-    _prep_check(_plan_outputs(plan), _plan_outputs(p32), _plan_outputs(p64), dec_k, d32, d64)
+    _prep_check(_plan_outputs(plan), _plan_outputs(p32), _plan_outputs(p64), dec_k, d32, d64,
+                windows=True)
     # B8b2 alone, on the card's B8b1 and B8a outputs
     e32, e64 = {}, {}
     kargs = (args[3], plan, args[5], horizon, n_knots, jr)

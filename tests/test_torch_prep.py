@@ -25,6 +25,9 @@ IK's joints 2e-2 (4.5e-3: the IK's rank-3 systems amplify float32
 rounding, in x_nom's joints too).  The JAX compiles dominate this file's
 time (~20-33 s each on the CPU, three of them).
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,8 +43,10 @@ from hunter_bipedal_control_tpu_torch import convert
 from hunter_bipedal_control_tpu_torch.entry import build_flagship
 from hunter_bipedal_control_tpu_torch.gait import mode_schedule as tms
 from hunter_bipedal_control_tpu_torch.refs import ik as tik
+from hunter_bipedal_control_tpu_torch.refs import swing_planner as tswp
 from hunter_bipedal_control_tpu_torch.refs import targets as ttg
 from hunter_bipedal_control_tpu_torch.solver import mpc as tmpc
+from hunter_bipedal_control_tpu_torch.solver import reference_prep as trp
 
 GAITS = {"stance": (["STANCE"], [0.0, 0.5]), "trot": (["L", "R"], [0.0, 0.3, 0.6]),
          "flying_trot": (["L", "FLY", "R", "FLY"], [0.0, 0.15, 0.2, 0.35, 0.4])}
@@ -236,3 +241,21 @@ def test_plain_decisions_match_the_outputs():
     for name, hi in (("sample_seg", 6), ("sample_phase", 56), ("mid_seg", 6),
                      ("knot_seg", 4), ("knot_spline", 2), ("sample_spline", 2)):
         assert int(dec[name].min()) >= 0 and int(dec[name].max()) <= hi, name
+
+
+def test_kernel_constants_match_the_plain_version():
+    """csrc/reference_prep.cu repeats the plain version's constants: the
+    swing splines' tuned shape (as float32, each product or complement
+    formed in double as the plain code forms it), the padded event time and
+    the capacity for target nodes that the wrapper checks."""
+    src = (Path(trp.__file__).parents[1] / "csrc" / "reference_prep.cu").read_text()
+    got = {n: float(np.float32(eval(e, {"__builtins__": {}})))
+           for n, e in re.findall(r"(\w+) = static_cast<float>\(([-+*/ .0-9e]+)\)", src)}
+    a1, l1, k1 = tswp.XY_SHAPE
+    za1, zl1, zk1, za2, zl2, zk2, zk3 = tswp.Z_SHAPE
+    want = {"XY_A1": a1, "XY_A1C": 1 - a1, "XY_L1": l1, "XY_L1C": 1 - l1, "XY_K1": k1,
+            "Z_A1": za1, "Z_A1C": 1 - za1, "Z_L1": zl1, "Z_K1": zk1, "Z_A2": za2,
+            "Z_A2C": 1 - za2, "Z_L2": zl2, "Z_L2C": 1 - zl2, "Z_K2L2": zk2 * zl2,
+            "Z_K3L2": zk3 * zl2, "BIG": tms.BIG_TIME, "HALF_BIG": tms.BIG_TIME / 2}
+    assert {n: got.get(n) for n in want} == {n: float(np.float32(v)) for n, v in want.items()}
+    assert int(re.search(r"constexpr int MAX_T = (\d+);", src).group(1)) == trp.MAX_TARGET_NODES
