@@ -125,6 +125,20 @@ Phases, each printing one JSON line:
      kernel and plain times, each kernel's own device time per call
      (profiled over CF_PROFILED_CALLS calls), the bounds (``imu_cost``,
      ``centroidal_cost``, ``dummy_cost``, ``state_v_cost``);
+  4k. the DDP path (``entry.ddp_solve``: the flagship's references, DDP_WARM
+     SQP solves, then ``ddp.solve``) at the product shape with RK2 and with
+     ODE45 and at the bench shape with RK2 (DDP_CELLS): launches (one
+     soa_linearize, project_knot, riccati_solve and ddp_rollout per
+     iteration, one more ddp_rollout per solve for the re-roll), ms per
+     ``ddp.solve`` (median of 5), tests/test_ddp.py's properties on the
+     product shape's RK2 solve, the card's solve held to the CPU float64 one
+     scenario by scenario; B15 (ddp_rollout) on the first iteration's
+     rollouts (and the product shape's re-roll) against its plain versions,
+     ODE45's accepted slots equal the float32 plain version's, kernel and
+     plain times, the bound (``ddp_rollout_cost``) and the serial chain's
+     floor; B2 and B3 on the product shape's DDP data (d = 0, hess_reg 1e-5,
+     the pivoting Gram inverse) against the plain projection and backward
+     pass;
   5. the kernels line: launches, error, times and bound of each kernel, B6
      with one row per use (IK, absorbed into B8a on the MPC path; Kalman,
      absorbed into B12; observer, absorbed into B10).
@@ -171,7 +185,7 @@ TOL = {"gj_inverse": 1e-5, "project_knot": 1e-4, "riccati_solve": 2e-3, "solve_q
        "riccati_solve_parallel": 1e-4, "soa_linearize": 1e-4, "soa_merit": 1e-4,
        "leg_ik": 1e-4, "wbc_qp": 1e-4, "sim_step": 1e-4, "momentum_observer": 1e-4,
        "kalman_update": 1e-4, "synth_imu": 1e-6, "rbd_to_centroidal": 1e-4, "dummy_step": 1e-4,
-       "state_input_to_v": 1e-4, "swing_plan": 1e-4, "knot_refs": 1e-4}
+       "state_input_to_v": 1e-4, "swing_plan": 1e-4, "knot_refs": 1e-4, "ddp_rollout": 1e-4}
 # B8a (leg_ik) is held, on each pass's joints on their own scale, to the
 # float64 plain version within max(tol, TOL_FACTOR x the float32 plain
 # version's error).  The damped 5x5 systems have rank 3 (translation) plus
@@ -353,6 +367,50 @@ GOLDEN_BAND = {"z": 5e-3, "planar": 2e-2, "joints": 3e-2}
 SIM_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
                           "sim_stance_walk_40p.npz")
 SIM_CPU_PERIODS = 3
+# The DDP path (4k): entry.ddp_solve on the flagship after DDP_WARM SQP
+# solves (tests/test_ddp.py's use), per cell (name, B, N, horizon,
+# integrator, iterations): the product shape with RK2 and two iterations
+# (tests/test_ddp.py's settings), with ODE45 as task.info sets it (one
+# iteration), the bench shape with RK2.  The card's ddp.solve is held to the
+# CPU float64 one (exact Huu solves) from the same warm start (the CPU
+# float64 SQP's, rounded to float32), scenario by scenario on every
+# DDP_CPU_STRIDE-th scenario: states, inputs and cost (relative to max(1,
+# |cost|)) within MAIN_FACTOR times the CPU float32 run's own distance in
+# that scenario, or MAIN_FLOOR; a scenario past that is held instead to
+# MAIN_FACTOR times the largest distance of its float32 runs with x_init
+# moved by one ulp (DDP_ULP_SEEDS), and reported as ill-conditioned (at the
+# bench shape the single-shooting rollouts over 1.0 s diverge in most
+# scenarios, in float64 too).  The step sizes of the scenarios not so
+# reported must equal the CPU float32 run's.
+DDP_CELLS = (("product_rk2", 1, 53, 0.8, "RK2", 2), ("product_ode45", 1, 53, 0.8, "ODE45", 1),
+             ("bench_rk2", 128, 66, 1.0, "RK2", 2))
+DDP_WARM = 3
+DDP_CPU_STRIDE = 32
+# B15 (ddp_rollout) is held, output by output on its own scale, to the
+# float64 plain version within max(tol, TOL_FACTOR x the float32 plain
+# version's error) on one iteration's closed-loop rollouts; ODE45's
+# accepted slots per knot equal the float32 plain version's.  The re-roll
+# (open loop, the product shape) amplifies rounding along the unstable
+# open-loop dynamics, so there the float32 plain error is the largest over
+# runs with x_init moved by one ulp (DDP_OPEN_SEEDS).  So is B2's on the
+# product shape's DDP data, with every input but the mask moved: the Gram's toe and heel
+# rows are nearly dependent, and one float32 run's error does not bound
+# another's (on an H100 one float32 run read 1.0e-3 in A_t, the kernel
+# 2.1e-3).
+# Each rollout (scenario, step size) is measured on its own scale, max(1,
+# max |float64 plain|), over the rollouts whose float64 states stay finite
+# and within ROLL_BOUND: at the bench shape the first iteration's step
+# sizes drive many rollouts far off (|x| up to ~1e9 in float64, overflow in
+# float32); they only serve to be rejected by the line search, and the
+# solve's check covers that.
+ROLL_NAMES = ("xs", "us", "cost", "eq")
+ROLL_BOUND = 1e3
+DDP_OPEN_SEEDS = tuple(range(2))
+# the DDP solve's ill-conditioned scenarios are held to the spread of these
+# one-ulp moves of x_init (the main path's rule, with a quarter of its seeds)
+DDP_ULP_SEEDS = MAIN_ULP_SEEDS[:2]
+# one lane's issue rate for the serial chain's floor (H100 SXM boost clock)
+SM_CLOCK_HZ = 1.98e9
 
 
 T_START = time.perf_counter()
@@ -739,6 +797,45 @@ def dummy_cost(batch, nx=22):
     return (batch * (44 + 22) + 497 + 1) * 4, batch * (2 * flow + 5 * nx)
 
 
+def _flow_ops():
+    """Operations of one centroidal flow evaluation (``_kin_ops``): FK, the
+    CoM, the world inertias, the joint-only pass, its momentum, the base
+    block, the contact points, the flow rows."""
+    k = _kin_ops()
+    return (k["fk"] + k["com"] + k["inertias"] + k["vpass"] + k["momentum"] + k["base_block"]
+            + k["contacts"] + k["flow_rows"])
+
+
+def ddp_rollout_cost(batch, n_alpha, N, integrator, accepted_slots, closed, nx=22, nu=22,
+                     ns=36, neq=16):
+    """Bytes and operations of B15's rollouts.  Bytes: per scenario x_init,
+    xs_bar, us_bar, the policy (K, kff; closed loop only) and the references
+    (x_nom, flags, foot position and velocity: 50 floats per knot) read
+    once, the step sizes, constants, parameters, Q and R once; per rollout
+    xs, us, cost, eq and the slot counts out.  Operations per rollout and
+    knot (``_kin_ops``): the feedback (2 nu nx + 3 nu), the rows (a flow, a
+    velocity pass, the contact velocities, 16 equality and 36 soft rows,
+    ~252), the stage cost (two quadratic forms, the penalties), |g|_1; then
+    the integrator's further flows: RK2 one (+ 5 nx), RK4 three (+ 14 nx),
+    ODE45 seven per accepted slot of this run (+ 76 nx: the stage sums, the
+    two candidates, the error norm; ``accepted_slots`` is their total over
+    every rollout and knot; rejected slots, 6 flows each, are not counted)."""
+    flow = _flow_ops()
+    k = _kin_ops()
+    n_in = batch * (nx + (N + 1) * nx + N * nu + (N * nu * (nx + 1) if closed else 0)
+                    + (N + 1) * (nx + 4 + 24)) + n_alpha + 497 + 45 + nx * nx + nu * nu
+    n_out = batch * n_alpha * ((N + 1) * nx + N * nu + 2 + N)
+    per_knot = ((2 * nu * nx + 3 * nu if closed else 0) + flow + k["vpass"] + 252
+                + 2 * (2 * nx * nx + 2 * nx) + 8 * ns + 2 * neq)
+    rollouts = batch * n_alpha
+    if integrator == "ODE45":
+        ops = rollouts * N * per_knot + accepted_slots * (7 * flow + 76 * nx)
+    else:
+        extra = flow + 5 * nx if integrator == "RK2" else 3 * flow + 14 * nx
+        ops = rollouts * N * (per_knot + extra)
+    return (n_in + n_out) * 4, ops
+
+
 def qp_cost(batch, iters, n=38, me=28, mi=40):
     """Bytes (QP data, start point and floors in; x, duals, residual out)
     and flops of ``iters`` PDIP iterations (see csrc/solve_qp.cu).  The
@@ -1007,7 +1104,8 @@ def main():
                                                         build_loop, build_sim_loop,
                                                         build_wbc_batch, centroidal_batch,
                                                         estimator_batch,
-                                                        mpc_chain, run_loop, run_sim_loop,
+                                                        ddp_solve, mpc_chain, run_loop,
+                                                        run_sim_loop,
                                                         sim_step_batch, standing_sensors,
                                                         walking_wbc_batch, wbc_chain)
     from hunter_bipedal_control_tpu_torch.estim import contact, kalman
@@ -1024,6 +1122,7 @@ def main():
     from hunter_bipedal_control_tpu_torch.runtime import controller as ctrl_mod
     from hunter_bipedal_control_tpu_torch.runtime import loop as loop_mod
     from hunter_bipedal_control_tpu_torch.runtime import sim_loop as sim_loop_mod
+    from hunter_bipedal_control_tpu_torch.solver import ddp as ddp_mod
     from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
     from hunter_bipedal_control_tpu_torch.wbc import wbc as wbc_mod
 
@@ -1237,7 +1336,7 @@ def main():
                 "rbd_to_centroidal": cen_mod.rbd_state_to_centroidal,
                 "dummy_step": dummy_mod.dummy_step,
                 "state_input_to_v": cen_mod.state_input_to_v, "swing_plan": mpc_mod.swing_plan,
-                "knot_refs": mpc_mod.knot_refs}
+                "knot_refs": mpc_mod.knot_refs, "ddp_rollout": ddp_mod.closed_rollout}
     b1 = ("soa_linearize", "soa_merit")
 
     # the inputs the linearization and the line search's merit get on a
@@ -1293,7 +1392,7 @@ def main():
         linalg.gj_inverse.launches_by_n.clear()
 
     def read_counts(path, kernels, absent=(), steps=0, ticks=0, plant_ticks=0, observer=0,
-                    filter_updates=0, sensing=0, dummy_ticks=0):
+                    filter_updates=0, sensing=0, dummy_ticks=0, ddp=None):
         """The launches of the path's run; raise if one of its kernels had
         none, a kernel of ``absent`` had any, swing_plan, leg_ik or knot_refs
         was not launched exactly once per MPC step (``steps`` of them), wbc_qp
@@ -1302,8 +1401,13 @@ def main():
         (``plant_ticks``), momentum_observer and kalman_update not once per
         observer and filter update (``observer``, ``filter_updates``),
         synth_imu and rbd_to_centroidal not once per sensing of the
-        full-order loop (``sensing``), or dummy_step and state_input_to_v
-        not once per tick of the dummy loop (``dummy_ticks``)."""
+        full-order loop (``sensing``), dummy_step and state_input_to_v
+        not once per tick of the dummy loop (``dummy_ticks``), or, with
+        ``ddp`` = (SQP solves, DDP iterations, DDP solves), soa_linearize,
+        project_knot and riccati_solve not once per SQP solve and DDP
+        iteration, soa_merit not once per SQP solve, and ddp_rollout not
+        once per DDP iteration plus once per DDP solve (its re-roll); without
+        ``ddp``, any ddp_rollout launch."""
         counts = {n: c.launches for n, c in counters.items()}
         path_launches[path] = counts
         gj_by_n[path] = dict(linalg.gj_inverse.launches_by_n)
@@ -1332,6 +1436,17 @@ def main():
                 raise AssertionError(f"{' / '.join(names)}: "
                                      f"{' / '.join(str(counts[k]) for k in names)} launches on "
                                      f"the {path} path, {n} {what}")
+        if ddp is None:
+            if counts["ddp_rollout"] != 0:
+                raise AssertionError(f"ddp_rollout was launched on the {path} path")
+        else:
+            sqp_solves, iters, solves = ddp
+            want = {"soa_linearize": sqp_solves + iters, "project_knot": sqp_solves + iters,
+                    "riccati_solve": sqp_solves + iters, "soa_merit": sqp_solves,
+                    "ddp_rollout": iters + solves}
+            if any(counts[n] != v for n, v in want.items()):
+                raise AssertionError(f"{path}: launches {({n: counts[n] for n in want})}, "
+                                     f"expected {want}")
         if counts["wbc_qp"] != ticks or (ticks and counts["solve_qp"] != ticks):
             raise AssertionError(f"wbc_qp / solve_qp: {counts['wbc_qp']} / "
                                  f"{counts['solve_qp']} launches on the {path} path, "
@@ -2532,11 +2647,295 @@ def main():
         cf_case(name, f"seeded walking batch, B={CF_BATCH}", [cb_cases[name]], False)
     del cf_inputs, cb, cb_cases
 
+    # ---- 4k. the DDP path: entry.ddp_solve, B15 on its rollouts, B2 and B3 on its data ----
+    def moved_x0(x0, seed):
+        """x0 with each entry moved by one ulp up, down or not (seeded)."""
+        g = torch.Generator().manual_seed(seed)
+        step = torch.randint(-1, 2, x0.shape, generator=g).to(x0.dtype)
+        return torch.where(step != 0, torch.nextafter(x0, x0 + step * 1e3), x0)
+
+    def rollout_errs(got, p32, p64, held):
+        """errors()'s triples for B15's outputs, each rollout (scenario, step
+        size) on its own scale max(1, max |float64 plain|), the worst over
+        the ``held`` rollouts (B, A)."""
+        def one(a, c):
+            a, c = a.cpu().double(), c.cpu().double()
+            a, c = (a[..., None], c[..., None]) if a.dim() == 2 else (a, c)
+            d = (a - c).abs().flatten(2).amax(-1)
+            return d[held].max().item(), (d / c.abs().flatten(2).amax(-1).clamp(min=1.0))[
+                held].max().item()
+        return {n: (one(a, b_), one(a, c), one(b_, c))
+                for n, a, b_, c in zip(ROLL_NAMES, got[:4], p32[:4], p64[:4])}
+
+    def rollout_case(cell, dflag, dset, args, closed, row):
+        """B15 on the rollouts ``args`` (refs, x_init, xs_bar, us_bar, Ks, kffs,
+        alphas on the card) against its float32 plain version on the card and
+        its float64 plain version on the CPU, over the rollouts whose float64
+        states stay finite and within ROLL_BOUND (the others are counted)."""
+        rs = ddp_mod.rollout_settings(dset)
+        Bd, Nd, Ad = args[3].shape[0], args[3].shape[1], args[6].shape[0]
+        f64 = build_flagship(Nd, dset.horizon, batch=1, device="cpu", dtype=torch.float64)
+        got = ddp_mod.closed_rollout(dflag.model, dflag.params, *args, rs)
+        # the float32 plain version runs once (~1e4-1e5 launch calls), timed
+        # by CUDA events around that call
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        p32 = ddp_mod.closed_rollout_plain(dflag.model, dflag.params, *args, rs)
+        ev[1].record()
+        ev[1].synchronize()
+        a64 = (cast(args[0], "cpu", torch.float64), args[1].cpu().double()) + tuple(
+            None if t is None else t.cpu().double() for t in args[2:])
+        p64 = ddp_mod.closed_rollout_plain(f64.model, f64.params, *a64, rs)
+        xs64 = p64[0].flatten(2)
+        held = torch.isfinite(xs64).all(-1) & (xs64.abs().amax(-1) <= ROLL_BOUND)
+        if not held.any():
+            raise AssertionError(f"ddp_rollout {cell}: no rollout within {ROLL_BOUND}")
+        err = rollout_errs(got, p32, p64, held)
+        info = {"cell": cell, "loop": "closed" if closed else "open (re-roll)",
+                "scenarios": Bd, "step_sizes": Ad, "knots": Nd, "integrator": dset.integrator,
+                "rollouts_held": int(held.sum()), "rollouts": held.numel(),
+                "rollout_bound": ROLL_BOUND}
+        if not closed:
+            # the float32 plain error over one-ulp moves of x_init (on the CPU)
+            f32c = build_flagship(Nd, dset.horizon, batch=1, device="cpu")
+            a32 = [None if t is None else t.cpu() for t in args[2:]]
+            for seed in DDP_OPEN_SEEDS:
+                pm = ddp_mod.closed_rollout_plain(f32c.model, f32c.params, cast(args[0], "cpu",
+                                                                                torch.float32),
+                                                  moved_x0(args[1].cpu(), seed), *a32, rs)
+                em = rollout_errs(pm, pm, p64, held)
+                err = {n: (e[0], e[1], max(e[2], em[n][2], key=lambda v: v[1]))
+                       for n, e in err.items()}
+            info["plain_f32_rel_err_over"] = f"x_init and {len(DDP_OPEN_SEEDS)} one-ulp moves"
+        slots_k, slots_32, slots_64 = (r[4].cpu() for r in (got, p32, p64))
+        info["accepted_slots"] = {"kernel_total": int(slots_k.sum()),
+                                  "max_per_knot": int(slots_k.max()),
+                                  "kernel_vs_plain_f32_differ": int((slots_k != slots_32).sum()),
+                                  "plain_f32_vs_f64_differ":
+                                      (slots_32 != slots_64).nonzero().tolist()[:20]}
+        cost = ddp_rollout_cost(Bd, Ad, Nd, dset.integrator, int(slots_k.sum()), closed)
+        info["serial_chain_ms"] = cost[1] / (Bd * Ad) / SM_CLOCK_HZ * 1e3
+        times = (cuda_ms(lambda: ddp_mod.closed_rollout(dflag.model, dflag.params, *args, rs)),
+                 ev[0].elapsed_time(ev[1]))
+        if row:
+            record("ddp_rollout", "cuda", "hunter_bipedal_control_tpu_torch/csrc/ddp_rollout.cu",
+                   "hunter_bipedal_control_tpu/solver/ddp.py:78", err, TOL["ddp_rollout"],
+                   *times, None, cost, info)
+        else:
+            b_ms, b_by = bound(*cost)
+            emit({"phase": "kernel_extra", "name": "ddp_rollout", "tol": TOL["ddp_rollout"],
+                  "outputs": per_output(err, TOL["ddp_rollout"]), "kernel_ms": times[0],
+                  "plain_ms": times[1], "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                  **info})
+            check(f"ddp_rollout {cell} {info['loop']}", err, TOL["ddp_rollout"])
+        if info["accepted_slots"]["kernel_vs_plain_f32_differ"]:
+            raise AssertionError(f"ddp_rollout {cell}: accepted slots differ from the float32 "
+                                 f"plain version's: {info['accepted_slots']}")
+
+    def ddp_lq_case(cell, dset, it0):
+        """B2 and B3 on the DDP's own data: the first iteration's
+        linearization with d = 0, the DDP's projection settings."""
+        sset = ddp_mod.sqp_settings(dset)
+        (_, A_, B_, _, qx_, qu_, Qxx_, Quu_, Qux_, g_, C_, D_, m_) = it0["lin"]
+        pin = [t.contiguous() for t in (A_, B_, torch.zeros_like(qx_), qx_, qu_, Qxx_, Quu_, Qux_,
+                                         g_, C_, D_, m_)]
+        names = ("A_t", "B_t", "d_t", "qx_t", "qw", "Qxx_t", "Qww", "Qwx", "E", "e", "P")
+        got = sqp.project_knot(sset, *pin)
+        ref64 = sqp.project_knot_plain(sset, *as64(pin))
+        err = errors(names, got, sqp.project_knot_plain(sset, *pin), ref64)
+        for seed in DDP_OPEN_SEEDS:
+            moved = [moved_x0(t.cpu(), 100 * seed + i).to(dev) for i, t in enumerate(pin[:-1])]
+            pm = sqp.project_knot_plain(sset, *moved, pin[-1])
+            err = {n: (e[0], e[1], max(e[2], rel_err(a, c), key=lambda v: v[1]))
+                   for (n, e), a, c in zip(err.items(), pm, ref64)}
+        knots = pin[0].shape[0] * pin[0].shape[1]
+        b_ms, b_by = bound(*project_cost(knots))
+        emit({"phase": "kernel_extra", "name": "project_knot", "use": f"ddp {cell}",
+              "tol": TOL["project_knot"], "outputs": per_output(err, TOL["project_knot"]),
+              "kernel_ms": cuda_ms(lambda: sqp.project_knot(sset, *pin)),
+              "plain_ms": cuda_ms(lambda: sqp.project_knot_plain(sset, *pin)), "library_ms": None,
+              "bound_ms": b_ms, "bound_by": b_by, "knots": knots, "pivot": sset.proj_pivot,
+              "hess_reg": sset.hess_reg,
+              "plain_f32_rel_err_over": f"the inputs and {len(DDP_OPEN_SEEDS)} one-ulp moves"})
+        check(f"project_knot ddp {cell}", err, TOL["project_knot"])
+        # the backward pass on the float64 projection rounded once to float32
+        # (d = 0, as the DDP's LQ data); the kernel's rollout is not used
+        A_t, B_t, _, qx_t, qw, Qxx_t, Qww, Qwx, E, e0, P = [t.contiguous() for t in ref64]
+        d0 = torch.zeros_like(qx_t)
+        lq64 = riccati.StageLQ(A=A_t, B=B_t, d=d0, Qxx=Qxx_t, Qww=Qww, Qwx=Qwx, qx=qx_t, qw=qw)
+        lq = riccati.StageLQ(*(t.float() for t in lq64))
+        E, P, e0 = E.float(), P.float(), e0.float()
+        Bd = lq.A.shape[0]
+        zx = torch.zeros(Bd, 22, device=dev)
+        zS = torch.zeros(Bd, 22, 22, device=dev)
+        reg = dset.hess_reg
+        got = riccati.riccati_solve(lq, E, P, e0, zx, reg)[:2]
+        ref = riccati.backward_scan(lq, zS, zx, reg)[:2]
+        ref64 = riccati.backward_scan(lq64, zS.double(), zx.double(), reg)[:2]
+        exact64 = riccati.backward_scan(lq64, zS.double(), zx.double(), reg, solver="gj")[:2]
+        err = errors(("Kw", "kw"), got, ref, ref64)
+        b_ms, b_by = bound(*riccati_cost(Bd, lq.A.shape[1]))
+        emit({"phase": "kernel_extra", "name": "riccati_solve", "use": f"ddp {cell}",
+              "tol": TOL["riccati_solve"], "outputs": per_output(err, TOL["riccati_solve"]),
+              "kernel_vs_exact_f64": {n: rel_err(a, c)[1] for n, a, c in
+                                      zip(("Kw", "kw"), got, exact64)},
+              "ns_vs_exact_f64": {n: rel_err(a, c)[1] for n, a, c in
+                                  zip(("Kw", "kw"), ref64, exact64)},
+              "kernel_ms": cuda_ms(lambda: riccati.riccati_solve(lq, E, P, e0, zx, reg)),
+              "plain_ms": cuda_ms(lambda: riccati.backward_scan(lq, zS, zx, reg), reps=3),
+              "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "hess_reg": reg})
+        check(f"riccati_solve ddp {cell}", err, TOL["riccati_solve"])
+
+    cpu_warm = {}
+    for cell, Bd, Nd, Hd, integ, iters in DDP_CELLS:
+        dflag = build_flagship(Nd, Hd, batch=Bd, device=dev)
+        dset = ddp_mod.DdpSettings(n_intervals=Nd, horizon=Hd, integrator=integ,
+                                   n_iterations=iters)
+        its = []
+        zero_counts()
+        drun = ddp_solve(dflag, dset, DDP_WARM, its.append)
+        torch.cuda.synchronize()
+        d_counts = read_counts(f"ddp_{cell}", ("soa_linearize", "project_knot", "riccati_solve",
+                                               "ddp_rollout", "soa_merit"),
+                               ("riccati_solve_parallel", "gj_inverse"), steps=1,
+                               ddp=(DDP_WARM, iters, 1))
+        sol = drun.solution
+        if sol.states.shape != (Bd, Nd + 1, 22) or sol.inputs.shape != (Bd, Nd + 1, 22):
+            raise AssertionError(f"ddp {cell}: shapes {sol.states.shape}, {sol.inputs.shape}")
+        solve_args = (dflag.model, dset, dflag.params, drun.refs, dflag.x0, drun.warm.states,
+                      drun.warm.inputs[:, :-1])
+        zero_counts()
+        ddp_mod.solve(*solve_args)
+        torch.cuda.synchronize()
+        per_solve = {n: c.launches for n, c in counters.items() if c.launches}
+        want = {"soa_linearize": iters, "project_knot": iters, "riccati_solve": iters,
+                "ddp_rollout": iters + 1}
+        if per_solve != want:
+            raise AssertionError(f"ddp {cell}: launches per solve {per_solve}, expected {want}")
+        solve_times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ddp_mod.solve(*solve_args)
+            torch.cuda.synchronize()
+            solve_times.append(time.perf_counter() - t)
+        props = None
+        if cell == "product_rk2":
+            # tests/test_ddp.py's properties (the flagship trots at 0.25 m/s)
+            dt_ = Hd / Nd
+            defects = sol.states[:, 1:] - sqp.rk2_step(dflag.model, sol.states[:, :-1],
+                                                       sol.inputs[:, :-1], dt_)
+            props = {"finite": bool(torch.isfinite(sol.states).all()),
+                     "step_size": sol.step_size.item(),
+                     "constraint_violation": sol.constraint_violation.item(),
+                     "max_defect": defects.abs().max().item(),
+                     "max_abs_z_minus_0.63": (sol.states[..., 8] - 0.63).abs().max().item(),
+                     "sum_fz_over_mg": sol.inputs[0, 0, 2:12:3].sum().item() / (12.5869 * 9.81)}
+            if not (props["finite"] and props["step_size"] >= 0.5
+                    and props["constraint_violation"] < 1e-3 and props["max_defect"] < 1e-4
+                    and props["max_abs_z_minus_0.63"] < 0.05
+                    and abs(props["sum_fz_over_mg"] - 1.0) <= 0.15):
+                raise AssertionError(f"ddp {cell}: tests/test_ddp.py's properties: {props}")
+        elif Bd == 1 and not bool(torch.isfinite(sol.states).all()):
+            raise AssertionError(f"ddp {cell}: non-finite states")
+
+        # the card's ddp.solve against the CPU's from the CPU float64 warm start
+        # (one per shape: the product cells share it)
+        sub = torch.arange(0, Bd, DDP_CPU_STRIDE)
+        if (Bd, Nd, Hd) not in cpu_warm:
+            c64 = build_flagship(Nd, Hd, batch=Bd, device="cpu", dtype=torch.float64)
+            c64 = c64._replace(settings=c64.settings._replace(riccati_solver="gj"),
+                               x0=c64.x0[sub], state=mpc_mod.init_mpc_state(
+                                   c64.model, c64.settings, len(sub), device="cpu",
+                                   dtype=torch.float64))
+            w64 = ddp_solve(c64, dset._replace(n_iterations=1), DDP_WARM, riccati_solver="gj")
+            cpu_warm[(Bd, Nd, Hd)] = (c64, w64.refs, w64.warm)
+        c64, refs64, warm64 = cpu_warm[(Bd, Nd, Hd)]
+        w64_args = (c64.model, dset, c64.params, refs64, c64.x0, warm64.states,
+                    warm64.inputs[:, :-1])
+        ref = ddp_mod.solve(*w64_args, riccati_solver="gj")
+        # the JAX package's backward pass (Newton-Schulz) against the exact one
+        ns64 = ddp_mod.solve(*w64_args) if cell == "product_rk2" else None
+        c32 = build_flagship(Nd, Hd, batch=1, device="cpu")
+        f32 = lambda t: t.float() if t.is_floating_point() else t  # noqa: E731
+        refs32 = sqp.ReferenceBundle(*(f32(a) for a in refs64))
+        x32, ws32, us32 = (t.float() for t in (c64.x0, warm64.states, warm64.inputs[:, :-1]))
+
+        def cpu32(x0_, rows_):
+            return ddp_mod.solve(c32.model, dset, c32.params,
+                                 sqp.ReferenceBundle(*(a[rows_] for a in refs32)), x0_,
+                                 ws32[rows_], us32[rows_], riccati_solver="gj")
+
+        card = ddp_mod.solve(dflag.model, dset, dflag.params,
+                             sqp.ReferenceBundle(*(a.to(dev) for a in refs32)), x32.to(dev),
+                             ws32.to(dev), us32.to(dev))
+        all_rows = torch.arange(len(sub))
+        sol32 = cpu32(x32, all_rows)
+        d32 = per_scenario(sol32, ref)
+        dcard = per_scenario(card, ref)
+        lim = {q: (MAIN_FACTOR * v).clamp(min=MAIN_FLOOR[q]) for q, v in d32.items()}
+        over = torch.zeros(len(sub), dtype=torch.bool)
+        for q in lim:
+            over |= ~(dcard[q] <= lim[q])
+        ill = {}
+        if over.any():
+            rows_ = over.nonzero().flatten()
+            sub_ref = type(ref)(*(t[rows_] for t in ref))
+            runs = [{q: v[rows_] for q, v in d32.items()}]
+            for seed in DDP_ULP_SEEDS:
+                runs.append(per_scenario(cpu32(moved_x0(x32[rows_], seed), rows_), sub_ref))
+            own = {q: (MAIN_FACTOR * torch.stack([r[q] for r in runs]).amax(0)).clamp(
+                min=MAIN_FLOOR[q]) for q in lim}
+            for j, r in enumerate(rows_.tolist()):
+                ill[int(sub[r])] = {q: {"card": dcard[q][r].item(), "limit": own[q][j].item()}
+                                    for q in lim}
+        bad_ill = {b: v for b, v in ill.items()
+                   if not all(x["card"] <= x["limit"] for x in v.values())}
+        steps_differ = [int(sub[j]) for j in range(len(sub))
+                        if int(sub[j]) not in ill
+                        and card.step_size[j].item() != sol32.step_size[j].item()]
+        compare = {"scenarios": sub.tolist(),
+                   "vs_exact_f64": {q: v[~over].max().item() if (~over).any() else None
+                                    for q, v in dcard.items()},
+                   "cpu_f32_vs_exact_f64": {q: v.max().item() for q, v in d32.items()},
+                   "ill_conditioned": ill, "step_size_differs": steps_differ,
+                   "ns_vs_exact_f64": None if ns64 is None else {
+                       q: v.max().item() for q, v in per_scenario(ns64, ref).items()},
+                   "cpu_f64_constraint_violation": ref.constraint_violation.tolist()}
+        if bad_ill or steps_differ or (Bd == 1 and len(ill) > MAIN_MAX_ILL):
+            raise AssertionError(f"ddp {cell}: card vs CPU float64: {compare}")
+
+        emit({"phase": "ddp_path", "cell": cell, "batch": Bd, "knots": Nd,
+              "horizon": Hd, "integrator": integ, "iterations": iters,
+              "sqp_warm_solves": DDP_WARM, "launches": d_counts,
+              "launches_per_solve": per_solve,
+              "solve_ms": statistics.median(solve_times) * 1e3,
+              "solve_ms_all": [x * 1e3 for x in solve_times],
+              "entry_solve_s": drun.seconds,
+              "step_size": sorted(set(sol.step_size.cpu().tolist()))[:8],
+              "constraint_violation_max": sol.constraint_violation.max().item(),
+              "scenarios_with_nan_gains": [int((~torch.isfinite(it["Ks"]).flatten(1).all(1)).sum())
+                                           for it in its],
+              "properties": props, "card_vs_cpu": compare})
+
+        # B15 on the first iteration's rollouts (and the product shape's re-roll)
+        it0 = its[0]
+        alphas = torch.tensor(dset.alphas, device=dev)
+        rollout_case(cell, dflag, dset, (drun.refs, dflag.x0, it0["xs"], it0["us"],
+                                         it0["Ks"].contiguous(), it0["kffs"].contiguous(),
+                                         alphas), True, cell == "product_rk2")
+        if cell == "product_rk2":
+            rollout_case(cell, dflag, dset, (drun.refs, dflag.x0, drun.warm.states,
+                                             drun.warm.inputs[:, :-1].contiguous(), None, None,
+                                             alphas[:1]), False, False)
+            ddp_lq_case(cell, dset, it0)
+        del its, drun, dflag, card, ref, ns64
+
     # ---- 5. kernels ----
     cf_rows = ("synth_imu", "rbd_to_centroidal", "dummy_step", "state_input_to_v")
     for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp",
               "leg_ik", "wbc_qp", "sim_step", "momentum_observer", "kalman_update",
-              "swing_plan", "knot_refs") + b1 + cf_rows:
+              "swing_plan", "knot_refs", "ddp_rollout") + b1 + cf_rows:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -2547,7 +2946,8 @@ def main():
                                         "solve_qp") + b1 + ("swing_plan", "leg_ik",
                                                             "knot_refs", "wbc_qp", "sim_step",
                                                             "momentum_observer",
-                                                            "kalman_update") + cf_rows]})
+                                                            "kalman_update") + cf_rows
+                                        + ("ddp_rollout",)]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -15,9 +15,10 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import _build
-from ..models.centroidal import NX, flow_map
+from ..models.centroidal import NX
 from ..models.robot import RobotModel
 from ..ocp import soa_kernel
+from ..solver.sqp import rk2_step
 
 
 class DummyPlantState(NamedTuple):
@@ -33,9 +34,7 @@ def init_dummy_plant(x0, t0=0.0) -> DummyPlantState:
 
 def dummy_step_plain(model: RobotModel, state: DummyPlantState, u, dt) -> DummyPlantState:
     """RK2 integration of the centroidal dynamics under the policy input u (B, nu)."""
-    k1 = flow_map(model, state.x, u)
-    k2 = flow_map(model, state.x + dt * k1, u)
-    return DummyPlantState(x=state.x + 0.5 * dt * (k1 + k2), t=state.t + dt)
+    return DummyPlantState(x=rk2_step(model, state.x, u, dt), t=state.t + dt)
 
 
 def dummy_step(model: RobotModel, state: DummyPlantState, u, dt) -> DummyPlantState:

@@ -25,7 +25,9 @@ from .refs.targets import CmdVelConfig, TargetTrajectories
 from .runtime.controller import GainConfig
 from .runtime.loop import LoopState
 from .runtime.sim_loop import SimLoopState
+from .solver.ddp import DdpSettings
 from .solver.mpc import MpcState
+from .solver.rollout import RolloutSettings
 from .solver.sqp import SqpSolution
 from .wbc.wbc import WbcParams, WbcState
 
@@ -33,10 +35,13 @@ _TYPES = {cls.__name__: cls for cls in (
     RobotModel, OcpParams, SwingConfig, CmdVelConfig, ModeSchedule, TargetTrajectories,
     MpcState, PlannerState, WbcParams, WbcState, GainConfig, KalmanParams, KalmanState,
     ContactObserverParams, ContactObserverState, SqpSolution, GaitRunState, DummyPlantState,
-    LoopState, SimParams, SimState, SensorNoiseParams, NoiseState, SimLoopState)}
+    LoopState, SimParams, SimState, SensorNoiseParams, NoiseState, SimLoopState, DdpSettings,
+    RolloutSettings)}
 # fields that stay Python values, with their types
 _SETTINGS = {"WbcParams": {f: type(d) for f, d in WbcParams._field_defaults.items()},
-             "SimParams": {"substeps": int, "delay_steps": int}}
+             "SimParams": {"substeps": int, "delay_steps": int},
+             "DdpSettings": {f: type(d) for f, d in DdpSettings._field_defaults.items()},
+             "RolloutSettings": {f: type(d) for f, d in RolloutSettings._field_defaults.items()}}
 
 
 def _generator(key, dev) -> torch.Generator:
@@ -68,7 +73,8 @@ def from_numpy(obj, device=None, dtype=torch.float32):
     and LoopState, and the full-order loop's SimParams (its ``substeps`` and
     ``delay_steps`` stay Python ints, a None knob stays None), SimState,
     SensorNoiseParams, NoiseState (a generator seeded from the JAX key's
-    words in place of the key) and SimLoopState.  The port's states are
+    words in place of the key) and SimLoopState, and the DDP's
+    DdpSettings and RolloutSettings (Python values).  The port's states are
     batched: map a JAX state that is not to (1, ...) leaves first; params
     stay unbatched."""
     dev = resolve_device(device)
@@ -87,8 +93,10 @@ def from_numpy(obj, device=None, dtype=torch.float32):
         elif name == "RobotModel" and field.endswith("_names"):
             fields[field] = tuple(str(s) for s in v)
         elif field in _SETTINGS.get(name, {}):
-            # a Python setting (jax.tree.map made it a 0-d array)
-            fields[field] = _SETTINGS[name][field](np.asarray(v).item())
+            # a Python setting (jax.tree.map made it a 0-d array, a tuple's
+            # entries 0-d arrays)
+            kind, a = _SETTINGS[name][field], np.asarray(v)
+            fields[field] = tuple(a.tolist()) if kind is tuple else kind(a.item())
         elif name == "RobotModel" and field in INDEX_FIELDS:
             fields[field] = torch.as_tensor(np.asarray(v).astype(np.int64))
         elif field == "collision":

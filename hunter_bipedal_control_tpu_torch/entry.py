@@ -18,6 +18,9 @@ batch of walking robots (mixed contacts, both stance modes) from a seed,
 ``estimator_batch`` the inputs of both estimators' updates,
 ``centroidal_batch`` those of the loops' sensing, plant and conversion.
 
+``ddp_solve`` runs the SLQ/DDP solver (``solver/ddp.py``) on the
+flagship's first problem, warm-started from SQP solves.
+
 ``mpc_chain`` is the chained B=1 solve of the benchmark (``bench.py``'s
 ``chained`` and ``chained_rpar``): each solve starts from the flagship's
 cold state and consumes the previous solution's one-step state, in either
@@ -54,6 +57,7 @@ from .backends import sensor_noise as sn
 from .runtime import loop as loop_mod
 from .runtime import sim_loop as sim_loop_mod
 from .runtime.controller import Controller, GainConfig, JointCommand, TickOutput, default_gains
+from .solver import ddp
 from .solver import mpc as mpc_mod
 from .solver import sqp
 from .wbc import wbc as wbc_mod
@@ -293,6 +297,45 @@ def mpc_chain(flag: Flagship, k_chain: int = 20, riccati_parallel: bool = False,
         costs.append(sol.cost)
         states.append(x)
     return Chain(torch.stack(costs), torch.stack(states), seconds)
+
+
+class DdpRun(NamedTuple):
+    solution: sqp.SqpSolution
+    seconds: float                 # host clock around the DDP solve alone
+    refs: sqp.ReferenceBundle
+    warm: sqp.SqpSolution          # the last SQP solve, DDP's warm start
+
+
+def ddp_solve(flag: Flagship, settings: ddp.DdpSettings, n_warm: int = 3,
+              on_iteration=None, riccati_solver: str = "ns") -> DdpRun:
+    """The SLQ/DDP solve of ``flag``'s first MPC problem (tests/test_ddp.py's
+    use): the references of the first step, ``n_warm`` SQP solves from the
+    initializer trajectories (``flag.settings``), then ``ddp.solve`` from
+    the last of them, on ``flag``'s device.  ``settings`` must share the
+    flagship's knots and horizon; ``on_iteration`` and ``riccati_solver``
+    go to ``ddp.solve``."""
+    if (settings.n_intervals, settings.horizon) != (flag.settings.n_intervals,
+                                                    flag.settings.horizon):
+        raise ValueError("ddp_solve: the DDP settings' knots and horizon differ from the flagship's")
+    if n_warm < 1:
+        raise ValueError("ddp_solve: DDP starts from at least one SQP solve")
+    x = flag.x0
+    warm, _, refs = mpc_mod.mpc_step(flag.model, flag.settings, flag.params, flag.planner_cfg,
+                                     flag.state, flag.schedule, flag.target, 0.0, x,
+                                     torch.zeros(6, dtype=x.dtype, device=x.device),
+                                     flag.default_joints)
+    for _ in range(n_warm - 1):
+        warm = sqp.solve(flag.model, flag.settings, flag.params, refs, x, warm.states,
+                         warm.inputs[:, :-1])
+    cuda = x.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    sol = ddp.solve(flag.model, settings, flag.params, refs, x, warm.states,
+                    warm.inputs[:, :-1], on_iteration, riccati_solver)
+    if cuda:
+        torch.cuda.synchronize(x.device)
+    return DdpRun(sol, time.perf_counter() - t0, refs, warm)
 
 
 class LoopSetup(NamedTuple):

@@ -74,6 +74,9 @@ SIGNATURES = {
     # 9 inputs, 6 outputs, decisions or NULL, 3 batch strides, batch, knots, samples,
     # horizon / intervals, stream
     "hk_knot_refs": [_P] * 16 + [_I] * 6 + [_F, _P],
+    # consts, params, Q, R, 10 inputs (K and kff may be NULL), 5 outputs, batch, n_alpha,
+    # n_knots, integrator, max_substeps, dt, abs_tol, rel_tol, h_min, stream
+    "hk_ddp_rollout": [_P] * 19 + [_I] * 5 + [_F] * 4 + [_P],
 }
 
 # a grid of one thread per scenario takes a batch up to the C int's range

@@ -240,9 +240,11 @@ def combined_rows(model: RobotModel, params: OcpParams, x, u, contact_flags,
     return flow, g, eq_mask, soft
 
 
-def stage_merit_fused(model: RobotModel, params: OcpParams, x, u, x_nom,
-                      contact_flags, foot_pos_ref, foot_vel_ref, dt):
-    """(stage cost, RK2 next state, masked eq residual) — the line-search merit."""
+def stage_cost_eq(model: RobotModel, params: OcpParams, x, u, x_nom, contact_flags,
+                  foot_pos_ref, foot_vel_ref):
+    """(stage cost, masked eq residual g (..., 16), flow) from one
+    kinematics pass: the JAX package's ``stage_cost_value`` and
+    ``eq_constraints``' g * mask."""
     nu = u.shape[-1]
     flow, g_masked, _, soft = combined_rows(
         model, params, x, u, contact_flags, foot_pos_ref, foot_vel_ref)
@@ -251,7 +253,14 @@ def stage_merit_fused(model: RobotModel, params: OcpParams, x, u, x_nom,
     du = u - u_nom
     p, _, _, mask = _soft_penalty_terms(model, params, soft, contact_flags)
     cost = _quad_form(dx, params.Q) + _quad_form(du, params.R) + torch.sum(mask * p, dim=-1)
+    return cost, g_masked, flow
 
+
+def stage_merit_fused(model: RobotModel, params: OcpParams, x, u, x_nom,
+                      contact_flags, foot_pos_ref, foot_vel_ref, dt):
+    """(stage cost, RK2 next state, masked eq residual) — the line-search merit."""
+    cost, g_masked, flow = stage_cost_eq(model, params, x, u, x_nom, contact_flags,
+                                         foot_pos_ref, foot_vel_ref)
     k2 = flow_map(model, x + dt * flow, u)
     xnext = x + 0.5 * dt * (flow + k2)
     return cost, xnext, g_masked

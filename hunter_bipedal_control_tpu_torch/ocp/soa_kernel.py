@@ -113,7 +113,7 @@ def params_buffer(params) -> torch.Tensor:
     return torch.cat([t.reshape(-1).to(torch.float32) for t in fields])
 
 
-def _inputs(model, params, xs, us, x_nom, flags, fpr, fvr, lead):
+def kernel_inputs(model, params, xs, us, x_nom, flags, fpr, fvr, lead):
     """Check every input and return the common pointer list."""
     dev = xs.device
     f32 = torch.float32
@@ -146,7 +146,7 @@ def soa_linearize(model, params, xs, us, x_nom, flags, fpr, fvr, dt):
     Bn, N = us.shape[0], us.shape[1]
     if not 0 < Bn * N <= MAX_BLOCKS:
         raise ValueError(f"soa_linearize: B N = {Bn * N} blocks, the grid takes 1..{MAX_BLOCKS}")
-    ins = _inputs(model, params, xs, us, x_nom, flags, fpr, fvr, (Bn,))
+    ins = kernel_inputs(model, params, xs, us, x_nom, flags, fpr, fvr, (Bn,))
 
     def out(*tail):
         return torch.empty((Bn, N, *tail), dtype=torch.float32, device=xs.device)
@@ -173,7 +173,7 @@ def soa_merit(model, params, xs, us, x_nom, flags, fpr, fvr, dt):
     Bn, Kc, N = us.shape[0], us.shape[1], us.shape[2]
     if not 0 < Bn * Kc <= MAX_BLOCKS or N < 1:
         raise ValueError(f"soa_merit: B K = {Bn * Kc} blocks (grid 1..{MAX_BLOCKS}), N = {N}")
-    ins = _inputs(model, params, xs, us, x_nom, flags, fpr, fvr, (Bn, Kc))
+    ins = kernel_inputs(model, params, xs, us, x_nom, flags, fpr, fvr, (Bn, Kc))
     cost = torch.empty((Bn, Kc), dtype=torch.float32, device=xs.device)
     metric = torch.empty_like(cost)
     lib = _build.library()

@@ -9,6 +9,7 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step loop_phases [sequential|parallel] [periods]
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop [sequential|parallel] [n]
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop_phases [sequential|parallel] [n]
+    python -m hunter_bipedal_control_tpu_torch.profile_step ddp [batch] [knots] [horizon] [RK2|ODE45] [iterations]
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
 ``--lin_backend=dense`` (the plain dense linearization and merit), so that
@@ -36,7 +37,13 @@ standing periods and 5 walking ones, past the gait switch) and records
 period's launch calls by ``SIM_PHASES`` (the plant, sensing split into the
 IMU, the centroidal conversion and the rest, the Kalman filter, the
 observer, the contact classification, the MPC step, the control tick with
-its QP assembly and PDIP).
+its QP assembly and PDIP).  ``ddp`` runs ``entry.ddp_solve`` on the
+flagship (default B=1, 53 knots over 0.8 s, RK2, 2 iterations), then
+records one more ``ddp.solve`` from the same warm start: its wall and
+device-busy time, and its launch calls by ``DDP_PHASES`` (the
+linearization, the projection, the backward pass, the rollouts with the
+re-roll; 'selection' is the rest: the map back to u-space, the line
+search's choice).
 """
 from __future__ import annotations
 
@@ -93,10 +100,16 @@ def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: i
 
 def _charged_launches(prof):
     """A profile's host launch calls: (their number, the number starting
-    inside each "phase:" range, charged to the innermost one, by name)."""
+    inside each host "phase:" range, charged to the innermost one, by
+    name)."""
+    import torch
+
     events = list(prof.events())
+    # the host's ranges: the profiler also records each range on the device
+    # timeline, from its first kernel's start to its last one's end, which
+    # overlaps the host's later launch calls
     ranges = [(e.name[6:], e.time_range.start, e.time_range.end) for e in events
-              if e.name.startswith("phase:")]
+              if e.name.startswith("phase:") and e.device_type == torch.autograd.DeviceType.CPU]
     launches = [e for e in events if "LaunchKernel" in e.name]
     charged = {}
     for ev in launches:
@@ -206,8 +219,10 @@ def _launches_by_phase(run, table):
 
     from .runtime import sim_loop
 
+    from .solver import ddp, riccati, sqp
+
     mods = {"kf": kalman, "obs": contact, "ctrl": controller, "loop": loop, "wbc": wbc,
-            "mpc": mpc_mod, "sim": sim_loop}
+            "mpc": mpc_mod, "sim": sim_loop, "ddp": ddp, "sqp": sqp, "riccati": riccati}
 
     def labelled(name, fn):
         # wraps copies the launch counters the kernel wrappers bump on themselves
@@ -446,6 +461,44 @@ def profile_loop(riccati_parallel: bool = False, periods: int = 2, top: int = 12
             "lin_backend": lin_backend, "per": "period", **_profiled(run, periods, top)}
 
 
+# a DDP solve's phases: (function, module), as ddp.solve calls them
+DDP_PHASES = (("knot_linearization_all", "sqp"), ("project_knot", "sqp"),
+              ("riccati_solve", "riccati"), ("closed_rollout", "ddp"))
+DDP_PHASE_NAMES = {"knot_linearization_all": "linearize", "project_knot": "project",
+                   "riccati_solve": "backward", "closed_rollout": "rollouts"}
+
+
+def profile_ddp(batch: int = 1, knots: int = 53, horizon: float = 0.8, integrator: str = "RK2",
+                iterations: int = 2, top: int = 12, lin_backend: str = "soa"):
+    """One ``ddp.solve`` on the flagship after ``entry.ddp_solve`` (which
+    warms up): wall and device-busy time, launches, the heaviest kernels,
+    and the launch calls by phase."""
+    import torch
+
+    from .entry import build_flagship, ddp_solve
+    from .solver import ddp
+
+    flag = build_flagship(knots, horizon, batch=batch, lin_backend=lin_backend)
+    settings = ddp.DdpSettings(n_intervals=knots, horizon=horizon, integrator=integrator,
+                               n_iterations=iterations)
+    run = ddp_solve(flag, settings)
+    args = (flag.model, settings, flag.params, run.refs, flag.x0, run.warm.states,
+            run.warm.inputs[:, :-1])
+
+    def solve():
+        ddp.solve(*args)
+        torch.cuda.synchronize()
+
+    prof = _profiled(solve, 1, top)
+    total, by_name = _launches_by_phase(solve, DDP_PHASES)
+    phases = {DDP_PHASE_NAMES[n]: v for n, v in by_name.items()}
+    phases["selection"] = total - sum(phases.values())
+    return {"phase": "profile_ddp", "batch": batch, "knots": knots, "horizon": horizon,
+            "integrator": integrator, "iterations": iterations, "per": "solve",
+            "entry_solve_ms": run.seconds * 1e3, **prof, "launch_calls": total,
+            "launch_calls_by_phase": phases}
+
+
 if __name__ == "__main__":
     lb = [x.split("=", 1)[1] for x in sys.argv[1:] if x.startswith("--lin_backend=")]
     kw = {"lin_backend": lb[-1]} if lb else {}
@@ -467,6 +520,12 @@ if __name__ == "__main__":
     elif a and a[0] == "loop":
         print(json.dumps(profile_loop(len(a) > 1 and a[1] == "parallel",
                                       int(a[2]) if len(a) > 2 else 2, **kw)))
+    elif a and a[0] == "ddp":
+        print(json.dumps(profile_ddp(int(a[1]) if len(a) > 1 else 1,
+                                     int(a[2]) if len(a) > 2 else 53,
+                                     float(a[3]) if len(a) > 3 else 0.8,
+                                     a[4] if len(a) > 4 else "RK2",
+                                     int(a[5]) if len(a) > 5 else 2, **kw)))
     elif a and a[0] == "tick":
         print(json.dumps(profile_tick(int(a[1]) if len(a) > 1 else 1,
                                       int(a[2]) if len(a) > 2 else 3, **kw)))

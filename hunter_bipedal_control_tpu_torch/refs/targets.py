@@ -36,12 +36,13 @@ def _interp(times, vals, t):
     n = times.shape[-1]
     i = torch.searchsorted(times.contiguous(), t.contiguous(), right=True) - 1
     i = torch.clamp(i, 0, n - 2)
-    t0 = torch.gather(times, -1, i)
-    t1 = torch.gather(times, -1, i + 1)
+    # a one-node trajectory clamps to -1: JAX reads nodes [-1] and [0], the one node
+    i0, i1 = torch.remainder(i, n), torch.remainder(i + 1, n)
+    t0 = torch.gather(times, -1, i0)
+    t1 = torch.gather(times, -1, i1)
     w = torch.clamp((t - t0) / torch.clamp(t1 - t0, min=1e-9), 0.0, 1.0)[..., None]
-    idx = i[..., None].expand(*i.shape, vals.shape[-1])
-    v0 = torch.gather(vals, -2, idx)
-    v1 = torch.gather(vals, -2, idx + 1)
+    v0 = torch.gather(vals, -2, i0[..., None].expand(*i.shape, vals.shape[-1]))
+    v1 = torch.gather(vals, -2, i1[..., None].expand(*i.shape, vals.shape[-1]))
     return (1.0 - w) * v0 + w * v1
 
 

@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import _build
+from ..models.centroidal import flow_map
 from ..models.robot import RobotModel
 from ..ocp import problem as ocp
 from ..ocp import soa_kernel
@@ -86,6 +87,19 @@ def check_settings(settings: SqpSettings) -> None:
         raise ValueError(f"unknown riccati_solver {settings.riccati_solver!r}")
     if settings.linesearch != "model":
         raise NotImplementedError("only linesearch='model' is ported")
+
+
+# ---------------------------------------------------------------------------
+# discretization
+# ---------------------------------------------------------------------------
+
+
+def rk2_step(model: RobotModel, x, u, dt):
+    """Explicit trapezoidal RK2 (OCS2 SensitivityIntegratorType::RK2) over
+    any leading dims."""
+    k1 = flow_map(model, x, u)
+    k2 = flow_map(model, x + dt * k1, u)
+    return x + 0.5 * dt * (k1 + k2)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +223,7 @@ def _knot_refs(settings: SqpSettings, refs: ReferenceBundle):
             refs.foot_vel_ref[:, :N])
 
 
-def _kernel_refs(refs: ReferenceBundle):
+def kernel_refs(refs: ReferenceBundle):
     """The N+1-knot references as the B1 kernel takes them (contiguous)."""
     return tuple(a.contiguous() for a in (refs.x_nom, refs.contact_flags, refs.foot_pos_ref,
                                           refs.foot_vel_ref))
@@ -239,7 +253,7 @@ def knot_linearization_all(model: RobotModel, settings: SqpSettings, params: ocp
     if settings.lin_backend == "dense" or xs.device.type == "cpu":
         return knot_linearization_all_plain(model, settings, params, refs, xs, us)
     return soa_kernel.soa_linearize(model, params, xs.contiguous(), us.contiguous(),
-                                    *_kernel_refs(refs), settings.horizon / settings.n_intervals)
+                                    *kernel_refs(refs), settings.horizon / settings.n_intervals)
 
 
 def eval_merit_plain(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
@@ -266,7 +280,7 @@ def eval_merit(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,
     if settings.lin_backend == "dense" or xs.device.type == "cpu":
         return eval_merit_plain(model, settings, params, refs, xs, us)
     return soa_kernel.soa_merit(model, params, xs.contiguous(), us.contiguous(),
-                                *_kernel_refs(refs), settings.horizon / settings.n_intervals)
+                                *kernel_refs(refs), settings.horizon / settings.n_intervals)
 
 
 def solve(model: RobotModel, settings: SqpSettings, params: ocp.OcpParams,

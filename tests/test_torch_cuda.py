@@ -64,6 +64,21 @@ by a Python number there as the kernel does, by its reciprocal), the
 float64 one on the CPU; inputs shared by expand
 (stride 0) give the same bits as contiguous copies; one launch each per
 MPC step; float64 and rows that are not contiguous refused.
+ddp_rollout (B15) and the DDP's use of B2 and B3, on the product shape's
+DDP solve on the card (B=1, 53 knots over 0.8 s, RK2, two iterations):
+B15's states, inputs, cost and metric on the first iteration's six
+closed-loop rollouts with each integrator, and on the open-loop re-roll,
+each within max(1e-4, 2 x the float32 plain version's error) of the
+float64 plain version (on the CPU), on its scale max(1, max |plain|);
+ODE45's accepted slots equal to the float32 plain version's; a NaN in
+x_init gives NaN where the plain version has it; float64, rows that are
+not contiguous, a policy without its feedforward and an unknown integrator
+refused; B2 (d = 0, hess_reg 1e-5, the pivoting Gram inverse; its float32
+plain error the largest over the inputs and four one-ulp moves of them)
+and B3 (the backward pass, against the exact plain version) under the same
+rule;
+tests/test_ddp.py's properties on the card's solve and one launch of B1,
+B2, B3 and B15 per iteration plus one re-roll per solve.
 """
 import numpy as np
 import pytest
@@ -83,6 +98,8 @@ from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
 from hunter_bipedal_control_tpu_torch.ops import linalg, qp
 from hunter_bipedal_control_tpu_torch.refs import ik as ik_mod
 from hunter_bipedal_control_tpu_torch.runtime.controller import JointCommand
+from hunter_bipedal_control_tpu_torch.entry import ddp_solve as entry_ddp_solve
+from hunter_bipedal_control_tpu_torch.solver import ddp as ddp_mod
 from hunter_bipedal_control_tpu_torch.solver import mpc as mpc_mod, riccati, sqp
 from hunter_bipedal_control_tpu_torch.wbc import wbc
 
@@ -1209,3 +1226,177 @@ def test_prep_refuses_bad_input(cuda):
         mpc_mod.prepare_references(flag.model, flag.settings,
                                    *(_cast(a, cuda, torch.float64) if hasattr(a, "_fields")
                                      else a.double() for a in args[1:9]))
+
+
+DDP_TOL = 1e-4
+DDP_ROLL = ("xs", "us", "cost", "eq")
+
+
+@pytest.fixture(scope="module")
+def ddp_run():
+    """The product shape's DDP solve on the card (B=1, 53 knots over 0.8 s,
+    RK2, two iterations, warm-started by three SQP solves), every
+    iteration's data captured."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    flag = build_flagship(53, 0.8, batch=1, device=dev)
+    settings = ddp_mod.DdpSettings(n_iterations=2)
+    its = []
+    run = entry_ddp_solve(flag, settings, on_iteration=its.append)
+    torch.cuda.synchronize()
+    return flag, settings, run, its
+
+
+def _roll_args(flag, run, it, closed, alphas):
+    if closed:
+        return (run.refs, flag.x0, it["xs"], it["us"], it["Ks"].contiguous(),
+                it["kffs"].contiguous(), alphas)
+    return (run.refs, flag.x0, run.warm.states, run.warm.inputs[:, :-1].contiguous(), None,
+            None, alphas[:1])
+
+
+def _roll_own_err(got, ref):
+    """max |got - ref| over max(1, max |ref|), on the CPU in float64."""
+    got, ref = got.cpu().double(), ref.cpu().double()
+    return float((got - ref).abs().max() / ref.abs().max().clamp(min=1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["RK2", "RK4", "ODE45"])
+def test_ddp_rollout_kernel(cuda, ddp_run, integrator):
+    """B15 on the first iteration's closed-loop rollouts (six step sizes):
+    each output within max(1e-4, 2 x the float32 plain version's error) of
+    the float64 plain version (on the CPU), ODE45's accepted slots equal to
+    the float32 plain version's."""
+    flag, settings, run, its = ddp_run
+    rs = ddp_mod.rollout_settings(settings._replace(integrator=integrator))
+    args = _roll_args(flag, run, its[0], True, torch.tensor(settings.alphas, device=cuda))
+    before = ddp_mod.closed_rollout.launches
+    got = ddp_mod.closed_rollout(flag.model, flag.params, *args, rs)
+    torch.cuda.synchronize()
+    assert ddp_mod.closed_rollout.launches == before + 1
+    ref32 = ddp_mod.closed_rollout_plain(flag.model, flag.params, *args, rs)
+    f64 = build_flagship(53, 0.8, batch=1, device="cpu", dtype=torch.float64)
+    args64 = (_cast(args[0], "cpu", torch.float64),) + tuple(t.cpu().double() for t in args[1:])
+    ref64 = ddp_mod.closed_rollout_plain(f64.model, f64.params, *args64, rs)
+    for name, a, b, c in zip(DDP_ROLL, got, ref32, ref64):
+        assert a.shape == c.shape and a.dtype == torch.float32, name
+        assert torch.isfinite(a).all(), name
+        assert _roll_own_err(a, c) <= max(DDP_TOL, 2.0 * _roll_own_err(b, c)), name
+    assert torch.equal(got[4].cpu(), ref32[4].cpu())
+    assert (got[4] > 0).all() == (integrator == "ODE45")
+
+
+@pytest.mark.cuda
+def test_ddp_rollout_kernel_open_loop(cuda, ddp_run):
+    """The re-roll (no feedback, u = us_bar): inputs copied exactly, states
+    within max(1e-4, 2 x the float32 plain version's error)."""
+    flag, settings, run, its = ddp_run
+    rs = ddp_mod.rollout_settings(settings)
+    args = _roll_args(flag, run, its[0], False, torch.tensor(settings.alphas, device=cuda))
+    got = ddp_mod.closed_rollout(flag.model, flag.params, *args, rs)
+    ref32 = ddp_mod.closed_rollout_plain(flag.model, flag.params, *args, rs)
+    f64 = build_flagship(53, 0.8, batch=1, device="cpu", dtype=torch.float64)
+    args64 = (_cast(args[0], "cpu", torch.float64), args[1].cpu().double(),
+              args[2].cpu().double(), args[3].cpu().double(), None, None,
+              args[6].cpu().double())
+    ref64 = ddp_mod.closed_rollout_plain(f64.model, f64.params, *args64, rs)
+    assert torch.equal(got[1][:, 0], args[3])
+    for name, a, b, c in zip(DDP_ROLL, got, ref32, ref64):
+        assert _roll_own_err(a, c) <= max(DDP_TOL, 2.0 * _roll_own_err(b, c)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["RK2", "ODE45"])
+def test_ddp_rollout_kernel_nan(cuda, ddp_run, integrator):
+    """A NaN in x_init gives NaN where the plain version has it."""
+    flag, settings, run, its = ddp_run
+    rs = ddp_mod.rollout_settings(settings._replace(integrator=integrator))
+    args = list(_roll_args(flag, run, its[0], True, torch.tensor(settings.alphas, device=cuda)))
+    args[1] = args[1].clone()
+    args[1][0, 3] = float("nan")
+    got = ddp_mod.closed_rollout(flag.model, flag.params, *args, rs)
+    ref = ddp_mod.closed_rollout_plain(flag.model, flag.params, *args, rs)
+    for name, a, b in zip(DDP_ROLL, got, ref):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+
+
+@pytest.mark.cuda
+def test_ddp_rollout_refuses_bad_input(cuda, ddp_run):
+    flag, settings, run, its = ddp_run
+    rs = ddp_mod.rollout_settings(settings)
+    args = list(_roll_args(flag, run, its[0], True, torch.tensor(settings.alphas, device=cuda)))
+    before = ddp_mod.closed_rollout.launches
+    bad = [(1, args[1].double(), TypeError),
+           (3, torch.cat([args[3], args[3]], -1)[..., :22], ValueError),
+           (5, None, ValueError)]
+    for i, value, err in bad:
+        a = list(args)
+        a[i] = value
+        with pytest.raises(err):
+            ddp_mod.closed_rollout(flag.model, flag.params, *a, rs)
+    with pytest.raises(ValueError):
+        ddp_mod.closed_rollout(flag.model, flag.params, *args, rs._replace(integrator="EULER"))
+    assert ddp_mod.closed_rollout.launches == before
+
+
+@pytest.mark.cuda
+def test_ddp_lq_kernels(cuda, ddp_run):
+    """B2 and B3 on the DDP's own data (d = 0, hess_reg 1e-5, the pivoting
+    Gram inverse) against the plain projection and backward pass."""
+    flag, settings, run, its = ddp_run
+    sset = ddp_mod.sqp_settings(settings)
+    (_, A, B, _, qx, qu, Qxx, Quu, Qux, g, C, D, m) = its[0]["lin"]
+    pin = [t.contiguous() for t in (A, B, torch.zeros_like(qx), qx, qu, Qxx, Quu, Qux, g, C, D,
+                                     m)]
+    got = sqp.project_knot(sset, *pin)
+    ref64 = sqp.project_knot_plain(sset, *[t.double() for t in pin])
+    # the float32 plain error: the largest over the inputs and one-ulp moves
+    # of them (but the mask): the Gram's toe and heel rows are nearly
+    # dependent, and one float32 run's error does not bound another's
+    runs = [sqp.project_knot_plain(sset, *pin)]
+    for seed in range(4):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        moved = [torch.nextafter(t, t + torch.randint(-1, 2, t.shape, generator=g,
+                                                       device=cuda) * 1e3)
+                 for t in pin[:-1]]
+        runs.append(sqp.project_knot_plain(sset, *moved, pin[-1]))
+    for k, (a, c) in enumerate(zip(got, ref64)):
+        plain = max(_own_scale_err(r[k], c) for r in runs)
+        assert _own_scale_err(a, c) <= max(DDP_TOL, 2.0 * plain), k
+    A_t, B_t, d_t, qx_t, qw, Qxx_t, Qww, Qwx, E, e, P = [t.float().contiguous() for t in ref64]
+    lq = riccati.StageLQ(A=A_t, B=B_t, d=torch.zeros_like(qx_t), Qxx=Qxx_t, Qww=Qww, Qwx=Qwx,
+                         qx=qx_t, qw=qw)
+    zx = torch.zeros(1, 22, device=cuda)
+    K, kff, _, _ = riccati.riccati_solve(lq, E, P, e, zx, settings.hess_reg)
+    lq64 = riccati.StageLQ(*(t.double() for t in lq))
+    K64, kff64, _, _ = riccati.backward_scan(lq64, torch.zeros(1, 22, 22, device=cuda,
+                                                               dtype=torch.float64),
+                                             zx.double(), settings.hess_reg, solver="gj")
+    K32, kff32, _, _ = riccati.backward_scan(lq, torch.zeros(1, 22, 22, device=cuda), zx,
+                                             settings.hess_reg, solver="gj")
+    for a, b, c in ((K, K32, K64), (kff, kff32, kff64)):
+        assert _own_scale_err(a, c) <= max(DDP_TOL, 2.0 * _own_scale_err(b, c))
+
+
+@pytest.mark.cuda
+def test_ddp_solve_on_card(cuda, ddp_run):
+    """tests/test_ddp.py's properties on the card's solve, one launch of B1,
+    B2, B3 and B15 per iteration and one re-roll per solve."""
+    flag, settings, run, its = ddp_run
+    sol = run.solution
+    assert torch.isfinite(sol.states).all()
+    assert float(sol.step_size) >= 0.5 and float(sol.constraint_violation) < 1e-3
+    dt = settings.horizon / settings.n_intervals
+    defects = sol.states[:, 1:] - sqp.rk2_step(flag.model, sol.states[:, :-1],
+                                               sol.inputs[:, :-1], dt)
+    assert float(defects.abs().max()) < 1e-4
+    assert float((sol.states[..., 8] - 0.63).abs().max()) < 0.05
+    counters = (soa_kernel.soa_linearize, sqp.project_knot, riccati.riccati_solve,
+                ddp_mod.closed_rollout, soa_kernel.soa_merit)
+    before = [c.launches for c in counters]
+    ddp_mod.solve(flag.model, settings, flag.params, run.refs, flag.x0, run.warm.states,
+                  run.warm.inputs[:, :-1])
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2, 3, 0]
