@@ -12,7 +12,10 @@ Phases, each printing one JSON line:
      momentum observer's 5x5 leg systems, the uses B12 and B10 absorbed),
      B2 project_knot, B3 riccati_solve, B4 solve_qp on the WBC's own QPs at
      B=4096, cold and warm (errors against the float32 and float64 plain
-     versions; kernel / plain / library times by CUDA events, medians of 15);
+     versions; kernel / plain / library times by CUDA events, medians of 15),
+     and on 64 seeded QPs of each hierarchical WBC level's shape (n=38,
+     me=1, mi=40 or 1, 15 iterations; ill-conditioned, so the float32 plain
+     error is its largest over the inputs and four one-ulp moves of them);
   4. the MPC path: the flagship problem (B=128 scenarios, 66 knots over
      1.0 s, trot, 0.25 m/s) through ``Mpc`` with ``lin_backend='soa'`` (the
      default: kernel B1), one cold and one warm step, with every kernel's
@@ -58,7 +61,9 @@ Phases, each printing one JSON line:
      policy, launch counts read around it, every tick's command and WBC
      solution and the final estimator and WBC states held against the
      port's CPU float32 and float64 runs; B4 on every tick's own QP (B=1)
-     against its plain versions, with its time and bound; every tick counts
+     against its plain versions, with its time (CUDA events around the
+     wrapper, and its own device time under the profiler), its bound and
+     one warp's floor; every tick counts
      one kalman_update (B12), one momentum_observer (B10), one wbc_qp (B9)
      and one solve_qp launch, and no gj_inverse (B6);
   4b2. B9 (wbc_qp) on every tick's own inputs (B=1), on bench.py's standing
@@ -411,6 +416,12 @@ DDP_OPEN_SEEDS = tuple(range(2))
 DDP_ULP_SEEDS = MAIN_ULP_SEEDS[:2]
 # one lane's issue rate for the serial chain's floor (H100 SXM boost clock)
 SM_CLOCK_HZ = 1.98e9
+# B4 at the hierarchical WBC's shapes: seeded QPs per shape, iterations, and
+# the one-ulp moves of the inputs whose float32 plain errors bound the
+# kernel's (H ~1e6 ill-conditioned: one float32 run is one sample)
+QP_LEVEL_BATCH, QP_LEVEL_ITERS, QP_ULP_SEEDS = 64, 15, tuple(range(4))
+# kernel calls under the profiler for B4's own device time at B=1
+QP_PROFILED_CALLS = 20
 
 
 T_START = time.perf_counter()
@@ -836,18 +847,20 @@ def ddp_rollout_cost(batch, n_alpha, N, integrator, accepted_slots, closed, nx=2
     return (n_in + n_out) * 4, ops
 
 
-def qp_cost(batch, iters, n=38, me=28, mi=40):
-    """Bytes (QP data, start point and floors in; x, duals, residual out)
-    and flops of ``iters`` PDIP iterations (see csrc/solve_qp.cu).  The
-    symmetric products (Hbar, the Schur matrix) count one triangle."""
-    n_in = n * n + n + me * n + me + mi * n + mi + n + mi + me + 2
+def qp_cost(batch, iters, n=38, me=28, mi=40, start=True):
+    """Bytes (QP data, the start point and margin if ``start``, in; x, duals,
+    residual out) and flops of ``iters`` PDIP iterations in the least work
+    of the elimination (see csrc/solve_qp.cu): the symmetric products
+    (Hbar, the Schur Gram matrix) count one triangle, L^-1 [Aeq' rbar] one
+    forward sweep, dx one back sweep."""
+    n_in = n * n + n + me * n + me + mi * n + mi + (n + mi + me + 1 if start else 0)
     n_out = n + me + mi + 1
     per_iter = (2 * n * n + 4 * me * n + 4 * mi * n             # residuals
                 + mi * n * (n + 1) + 3 * mi * n                 # Hbar, rbar
-                + n ** 3 // 3 + 2 * n * n * (me + 1)            # Cholesky 38, 2 sweeps
+                + n ** 3 // 3 + n * n * (me + 1)                # Cholesky 38, forward sweep
                 + me * (me + 1) * n + 2 * me * n                # Schur, its rhs
                 + me ** 3 // 3 + 2 * me * me                    # Cholesky 28, 2 sweeps
-                + 2 * n * me + 2 * mi * n + 20 * mi)            # dx, ds, dlam, step
+                + 2 * n * me + n * n + 2 * mi * n + 20 * mi)    # dx, ds, dlam, step
     return batch * (n_in + n_out) * 4, batch * (iters * per_iter + 2 * (me + mi) * n)
 
 
@@ -1103,7 +1116,7 @@ def main():
     from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
                                                         build_loop, build_sim_loop,
                                                         build_wbc_batch, centroidal_batch,
-                                                        estimator_batch,
+                                                        estimator_batch, qp_batch,
                                                         ddp_solve, mpc_chain, run_loop,
                                                         run_sim_loop,
                                                         sim_step_batch, standing_sensors,
@@ -1304,6 +1317,74 @@ def main():
            qp_cost(WBC_BATCH, qkw["n_iters"]), extra)
     check("solve_qp warm", qp_rows["warm"]["err"], TOL["solve_qp"])
     del qdata, qp_rows, got, ref, ref64
+
+    # B4 at the hierarchical WBC's shapes (JAX wbc/hierarchical.py:157, :220:
+    # n=38, one zero equality row, its level-0 torque and friction rows or
+    # its placeholder row), 15 iterations, cold, on seeded QPs; mu_min is
+    # float32's in every run (the float64 one then runs the same algorithm)
+    def ulp_moved(t, seed):
+        """t with each nonzero entry moved by one ulp up, down or not (seeded):
+        exact zeros (masked rows) stay."""
+        g = torch.Generator().manual_seed(seed)
+        step = torch.randint(-1, 2, t.shape, generator=g).to(t.device, t.dtype)
+        return torch.where((step != 0) & (t != 0), torch.nextafter(t, t + step * 1e3), t)
+
+    lkw = {"n_iters": QP_LEVEL_ITERS, "mu_min": float(torch.finfo(torch.float32).eps) * 50.0}
+    for mi in (40, 1):
+        d64 = qp_batch(QP_LEVEL_BATCH, 1, mi, seed=0, device=dev, dtype=torch.float64)
+        d32 = [t.float() for t in d64]
+        scale = 1.0 + torch.maximum(d64[3].abs().amax(-1), d64[5].abs().amax(-1))
+
+        def level_outputs(sol):
+            return [sol.x, sol.eq_dual, sol.ineq_dual, sol.primal_residual / scale]
+
+        p64 = level_outputs(qp.solve_qp_plain(*d64, **lkw))
+        err = errors(qp_names, level_outputs(qp.solve_qp(*d32, **lkw)),
+                     level_outputs(qp.solve_qp_plain(*d32, **lkw)), p64, {"primal_residual": 1.0})
+        # the one-run rule, reported, not checked: the kernel within max(tol,
+        # 2 x this one float32 plain run's error); and, as witnesses of what
+        # float32 rounding alone does here, the kernel's own errors and the
+        # float32 plain version's, on the card and on the host's CPU (other
+        # summation orders), over the inputs and every move
+        one_run = {n: {"kernel": e[1][1], "plain": e[2][1],
+                       "limit": max(TOL["solve_qp"], TOL_FACTOR * e[2][1]),
+                       "met": e[1][1] <= max(TOL["solve_qp"], TOL_FACTOR * e[2][1])}
+                   for n, e in err.items()}
+        spread = {n: {"kernel": [e[1][1]], "plain": [e[2][1]], "plain_cpu": []}
+                  for n, e in err.items()}
+
+        def cpu_plain(inputs):
+            sol = qp.solve_qp_plain(*[t.cpu() for t in inputs], **lkw)
+            for n, b, c in zip(qp_names, level_outputs(qp.QpSolution(*[t.to(dev) for t in sol])),
+                               p64):
+                spread[n]["plain_cpu"].append(
+                    rel_err(b, c, 1.0 if n == "primal_residual" else 1e-30)[1])
+
+        cpu_plain(d32)
+        for seed in QP_ULP_SEEDS:
+            moved = [ulp_moved(t, 10 * seed + k) for k, t in enumerate(d32)]
+            cpu_plain(moved)
+            for n, a, b, c in zip(qp_names, level_outputs(qp.solve_qp(*moved, **lkw)),
+                                  level_outputs(qp.solve_qp_plain(*moved, **lkw)), p64):
+                floor = 1.0 if n == "primal_residual" else 1e-30
+                e = rel_err(b, c, floor)
+                spread[n]["kernel"].append(rel_err(a, c, floor)[1])
+                spread[n]["plain"].append(e[1])
+                if e[1] > err[n][2][1]:
+                    err[n] = (err[n][0], err[n][1], e)
+        b_ms, b_by = bound(*qp_cost(QP_LEVEL_BATCH, QP_LEVEL_ITERS, me=1, mi=mi, start=False))
+        emit({"phase": "kernel_extra", "name": "solve_qp", "tol": TOL["solve_qp"],
+              "use": "hierarchical WBC level", "batch": QP_LEVEL_BATCH, "n": 38, "me": 1,
+              "mi": mi, "iterations": QP_LEVEL_ITERS, "start": "cold",
+              "outputs": per_output(err, TOL["solve_qp"]),
+              "one_run_rule": one_run, "ulp_seeds": len(QP_ULP_SEEDS),
+              "rel_err_vs_f64_over_moves": {n: {k: [min(v), max(v)] for k, v in d.items()}
+                                            for n, d in spread.items()},
+              "kernel_ms": cuda_ms(lambda: qp.solve_qp(*d32, **lkw)),
+              "plain_ms": cuda_ms(lambda: qp.solve_qp_plain(*d32, **lkw)), "library_ms": None,
+              "bound_ms": b_ms, "bound_by": b_by})
+        check(f"solve_qp hierarchical level mi={mi}", err, TOL["solve_qp"])
+    del d64, d32
 
     # B6 on the Kalman filter's own 28x28 innovation covariance (the tick's
     # first update, B=1), and 4096 copies of it for timing; B12's
@@ -1977,13 +2058,27 @@ def main():
     err = errors(qp_names, *([torch.cat(o) for o in zip(*runs[key])]
                              for key in ("kernel", "plain32", "plain64")),
                  {"primal_residual": 1.0})
-    b_ms, b_by = bound(*qp_cost(1, qk["n_iters"]))
+    cost1 = qp_cost(1, qk["n_iters"])
+    b_ms, b_by = bound(*cost1)
+
+    def qp_calls():
+        for _ in range(QP_PROFILED_CALLS):
+            qp.solve_qp(*qa, **qk)
+        torch.cuda.synchronize()
+
+    # the kernel's own device time per call, apart from its wrapper's host
+    # work (null when the profiler records no such kernel)
+    own = [k["ms"] for k in _profiled(qp_calls, QP_PROFILED_CALLS, 4)["top_kernels"]
+           if "solve_qp_kernel" in k["name"]]
     emit({"phase": "kernel_extra", "name": "solve_qp", "tol": TOL["solve_qp"],
           "outputs": per_output(err, TOL["solve_qp"]), "batch": 1, "iterations": qk["n_iters"],
           "qps": len(tick_qps), "qp": "every tick of the tick path, one launch each",
           "kernel_ms": cuda_ms(lambda: qp.solve_qp(*qa, **qk)),
+          "kernel_device_ms": sum(own) if own else None,
           "plain_ms": cuda_ms(lambda: qp.solve_qp_plain(*qa, **qk)), "library_ms": None,
-          "bound_ms": b_ms, "bound_by": b_by})
+          "bound_ms": b_ms, "bound_by": b_by,
+          # one warp (32 lanes) issuing the QP's operations at one per lane per clock
+          "serial_chain_ms": cost1[1] / 32 / SM_CLOCK_HZ * 1e3})
     check("solve_qp B=1 ticks", err, TOL["solve_qp"])
     del tick_qps, runs
 

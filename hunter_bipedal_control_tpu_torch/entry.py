@@ -16,7 +16,8 @@ standing states, as the repository's batched-WBC benchmark does: ticks
 carrying the WBC state, the first one cold.  ``walking_wbc_batch`` draws a
 batch of walking robots (mixed contacts, both stance modes) from a seed,
 ``estimator_batch`` the inputs of both estimators' updates,
-``centroidal_batch`` those of the loops' sensing, plant and conversion.
+``centroidal_batch`` those of the loops' sensing, plant and conversion,
+``qp_batch`` seeded QPs of the WBC's and the hierarchical WBC's shapes.
 
 ``ddp_solve`` runs the SLQ/DDP solver (``solver/ddp.py``) on the
 flagship's first problem, warm-started from SQP solves.
@@ -251,6 +252,66 @@ def walking_wbc_batch(batch: int = 4096, device=None, dtype=torch.float32,
     t = lambda a: a.to(dev, dtype).contiguous()
     return WbcBatch(load_model(device=dev, dtype=dtype), wbc_mod.default_wbc_params(dev, dtype),
                     t(x_des), t(u_des), t(rbd), t(flags), stance.to(dev))
+
+
+def qp_batch(batch: int, me: int = 28, mi: int = 40, seed: int = 0, device=None,
+             dtype=torch.float32):
+    """``batch`` seeded QPs (H, g, Aeq, beq, Ain, bin) of the WBC's 38
+    variables [accel (16), forces (12), torques (10)], drawn with numpy.
+
+    me = 28 and mi = 40: the weighted WBC's shape (``wbc_qp``): H = X X' /
+    38 + 0.5 I, the equations of motion as 16 random rows, the swing feet's
+    zero-force rows (zero for the feet in contact), the torque limits and
+    the friction pyramid of the feet in contact (``WALK_FLAGS``).
+    me = 1: a level of the hierarchical WBC (JAX ``wbc/hierarchical.py``
+    :157, :220): H = Ah' Ah + (1e-5 tr / 38 + 1e-7) I with Ah = A P (six
+    unit rows A, P the null-space projector of 18 random rows), one zero
+    equality row; with mi = 40 its level-0 torque and friction rows times P
+    (:100-117), offset by a prior solution, with mi = 1 its placeholder
+    row (:218-219): zero, bound 1."""
+    import numpy as np
+
+    n, nv, nf = wbc_mod.NDEC, 16, 12
+    if (me, mi) not in ((wbc_mod.N_EQ_ROWS, wbc_mod.N_INEQ_ROWS), (1, 40), (1, 1)):
+        raise ValueError(f"qp_batch draws me, mi = 28, 40 or 1, 40 or 1, 1; got {me}, {mi}")
+    rng = np.random.default_rng(seed)
+    eye = np.eye(n)
+    flags = np.asarray(WALK_FLAGS)[rng.integers(len(WALK_FLAGS), size=batch)]
+    pyr = np.array([[0., 0., -1.], [1., 0., -0.7], [-1., 0., -0.7], [0., 1., -0.7],
+                    [0., -1., -0.7]])
+    D = np.zeros((batch, 40, n))
+    D[:, 0:10, nv + nf:] = eye[:10, :10]
+    D[:, 10:20, nv + nf:] = -eye[:10, :10]
+    for i in range(4):
+        D[:, 20 + 5 * i:25 + 5 * i, nv + 3 * i:nv + 3 * i + 3] = pyr * flags[:, i, None, None]
+    f = np.concatenate([np.tile([28., 60., 60., 60., 28.], 4), np.zeros(20)])
+    if me > 1:
+        X = rng.standard_normal((batch, n, n))
+        H = X @ X.transpose(0, 2, 1) / n + 0.5 * eye
+        g = rng.standard_normal((batch, n))
+        zf = np.zeros((batch, nf, n))
+        zf[:, :, nv:nv + nf] = eye[:nf, :nf] * np.repeat(1.0 - flags, 3, axis=-1)[:, None]
+        Aeq = np.concatenate([rng.standard_normal((batch, nv, n)), zf], axis=1)
+        beq = np.concatenate([rng.standard_normal((batch, nv)), np.zeros((batch, nf))], axis=1)
+        Ain, bin_ = D, np.broadcast_to(f, (batch, 40))
+    else:
+        A0 = rng.standard_normal((batch, 18, n))
+        P = eye - A0.transpose(0, 2, 1) @ np.linalg.solve(A0 @ A0.transpose(0, 2, 1), A0)
+        A = rng.standard_normal((batch, 6, n))
+        A /= np.linalg.norm(A, axis=-1, keepdims=True)
+        Ah = A @ P
+        H = Ah.transpose(0, 2, 1) @ Ah
+        H = H + (1e-5 * np.trace(H, axis1=1, axis2=2) / n + 1e-7)[:, None, None] * eye
+        g = (Ah.transpose(0, 2, 1) @ rng.standard_normal((batch, 6, 1)))[..., 0]
+        Aeq, beq = np.zeros((batch, 1, n)), np.zeros((batch, 1))
+        if mi == 40:
+            x_prev = 0.1 * rng.standard_normal((batch, n, 1))
+            Ain, bin_ = D @ P, f - (D @ x_prev)[..., 0]
+        else:
+            Ain, bin_ = np.zeros((batch, 1, n)), np.ones((batch, 1))
+    dev = resolve_device(device)
+    return tuple(torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+                 for a in (H, g, Aeq, beq, Ain, bin_))
 
 
 def wbc_chain(wb: WbcBatch, n_ticks: int):

@@ -41,8 +41,9 @@ SIGNATURES = {
     "hk_riccati_solve": [_P] * 16 + [_I, _I, _F, _P],
     # 12 inputs, 4 outputs, 4 scratch buffers, batch, n_knots, reg, stream
     "hk_riccati_assoc": [_P] * 20 + [_I, _I, _F, _P],
-    # 11 inputs, 4 outputs, batch, n, me, mi, n_iters, eq_reg, frac, mu_min, stream
-    "hk_solve_qp": [_P] * 15 + [_I] * 5 + [_F] * 3 + [_P],
+    # 10 inputs (x0, lam0, nu0, margin may be NULL), 5 outputs, batch, n, me, mi, n_iters,
+    # margin stride, eq_reg, frac, mu_min, margin value, stream
+    "hk_solve_qp": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_P],
     # consts, params, Q, R, 6 inputs, 13 outputs, batch, n_knots, dt, stream
     "hk_soa_linearize": [_P] * 23 + [_I, _I, _F, _P],
     # consts, params, Q, R, 6 inputs, 2 outputs, batch, n_cand, n_knots, dt, stream
@@ -145,20 +146,38 @@ def build() -> float:
     return time.perf_counter() - t0
 
 
+def _bind(lib, names):
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library():
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(LIB_PATH)
-        for name, args in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+        lib = _bind(ctypes.CDLL(LIB_PATH), SIGNATURES)
         lib.hk_error_string.argtypes = [ctypes.c_int]
         lib.hk_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def measurement_library(source: str, define: str, names):
+    """``csrc/<source>`` alone, compiled with ``-D<define>`` into a library
+    of its own in BUILD_DIR (a measurement build, beside the package's),
+    loaded, with the entry points ``names`` of SIGNATURES bound."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}_{define.lower()}.so")
+    done = subprocess.run([_nvcc(), *NVCC_FLAGS, f"-D{define}", "-I", CSRC, "-shared", "-o",
+                           so, os.path.join(CSRC, source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} with -D{define}:\n{done.stdout}")
+    return _bind(ctypes.CDLL(so), names)
 
 
 def check(rc: int, name: str) -> None:

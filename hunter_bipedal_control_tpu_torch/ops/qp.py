@@ -7,7 +7,7 @@ row:
     min 0.5 x'Hx + g'x   s.t.  Aeq x = beq,   Ain x <= bin
 
 ``solve_qp`` is the kernel wrapper: a CPU tensor goes through
-``solve_qp_plain``, a CUDA tensor launches ``csrc/solve_qp.cu`` (one block
+``solve_qp_plain``, a CUDA tensor launches ``csrc/solve_qp.cu`` (one warp
 per QP, every iteration in one launch) or raises.  Both keep the JAX
 semantics: a failed Cholesky gives NaN (``jnp.linalg.cholesky`` returns a
 NaN lower triangle, it does not raise), the factored matrices are
@@ -21,6 +21,9 @@ from typing import NamedTuple
 import torch
 
 from ..kernels import _build
+
+# the largest n, me, mi the kernel takes (csrc/solve_qp.cu: MAX_DIM)
+MAX_DIM = 64
 
 
 class QpSolution(NamedTuple):
@@ -119,47 +122,47 @@ def solve_qp(H, g, Aeq, beq, Ain, bin, n_iters: int = 18, eq_reg: float = 1e-8,
     """Batched PDIP — kernel B4.
 
     CPU: ``solve_qp_plain``.  CUDA (float32, contiguous, one leading batch
-    dim): one launch of ``hk_solve_qp``, one block per QP."""
+    dim, n, me, mi in 1..``MAX_DIM``): one launch of ``hk_solve_qp``, one
+    warp per QP.  A missing start point and a ``warm_margin`` given as a
+    number travel as kernel arguments; a margin tensor (a scalar or one per
+    QP, at any stride) is read in place."""
     if H.device.type == "cpu":
         return solve_qp_plain(H, g, Aeq, beq, Ain, bin, n_iters, eq_reg, frac_to_boundary,
                               mu_min, x0, lam0, nu0, warm_margin)
     if H.ndim != 3:
         raise ValueError(f"solve_qp kernel takes one batch dim, got H of shape {tuple(H.shape)}")
     Bn, n, me, mi = H.shape[0], H.shape[-1], Aeq.shape[-2], Ain.shape[-2]
-    if me < 1 or mi < 1 or Bn < 1:
-        raise ValueError(f"solve_qp kernel needs me, mi, batch >= 1; got {me}, {mi}, {Bn}")
+    if not (Bn >= 1 and all(1 <= d <= MAX_DIM for d in (n, me, mi))):
+        raise ValueError(f"solve_qp kernel takes batch >= 1 and n, me, mi in 1..{MAX_DIM}; "
+                         f"got {Bn}, {n}, {me}, {mi}")
     f32, dev = torch.float32, H.device
     if mu_min is None:
         mu_min = float(torch.finfo(f32).eps) * 50.0
-    margin = torch.as_tensor(warm_margin, dtype=f32, device=dev).expand(Bn).contiguous()
-    if x0 is None:
-        x0 = torch.zeros((Bn, n), dtype=f32, device=dev)
-        s_floor = torch.ones(Bn, dtype=f32, device=dev)
+    margin, margin_stride, margin_value = None, 0, 0.0
+    if torch.is_tensor(warm_margin):
+        margin = torch.as_tensor(warm_margin, dtype=f32, device=dev).expand(Bn)
+        margin_stride = margin.stride(0)
     else:
-        s_floor = margin
-    if lam0 is None:
-        lam0 = torch.ones((Bn, mi), dtype=f32, device=dev)
-        lam_floor = torch.ones(Bn, dtype=f32, device=dev)
-    else:
-        lam_floor = margin
-    if nu0 is None:
-        nu0 = torch.zeros((Bn, me), dtype=f32, device=dev)
+        margin_value = float(warm_margin)
     ins = [(H, "H", (n, n)), (g, "g", (n,)), (Aeq, "Aeq", (me, n)), (beq, "beq", (me,)),
            (Ain, "Ain", (mi, n)), (bin, "bin", (mi,)), (x0, "x0", (n,)), (lam0, "lam0", (mi,)),
-           (nu0, "nu0", (me,)), (s_floor, "s_floor", ()), (lam_floor, "lam_floor", ())]
+           (nu0, "nu0", (me,))]
     for t, name, tail in ins:
-        _build.require(t, name, f32, (Bn, *tail), dev)
+        if t is not None:
+            _build.require(t, name, f32, (Bn, *tail), dev)
     x = torch.empty((Bn, n), dtype=f32, device=dev)
     nu = torch.empty((Bn, me), dtype=f32, device=dev)
     lam = torch.empty((Bn, mi), dtype=f32, device=dev)
     res = torch.empty(Bn, dtype=f32, device=dev)
+    its = torch.empty(Bn, dtype=torch.int32, device=dev)
+    ptrs = [None if t is None else t.data_ptr() for t, _, _ in ins]
     lib = _build.library()
-    _build.check(lib.hk_solve_qp(*[t.data_ptr() for t, _, _ in ins], x.data_ptr(),
-                                 nu.data_ptr(), lam.data_ptr(), res.data_ptr(), Bn, n, me, mi,
-                                 int(n_iters), float(eq_reg), float(frac_to_boundary),
-                                 float(mu_min), _build.stream(H)), "solve_qp")
+    _build.check(lib.hk_solve_qp(*ptrs, None if margin is None else margin.data_ptr(),
+                                 x.data_ptr(), nu.data_ptr(), lam.data_ptr(), res.data_ptr(),
+                                 its.data_ptr(), Bn, n, me, mi, int(n_iters), margin_stride,
+                                 float(eq_reg), float(frac_to_boundary), float(mu_min),
+                                 margin_value, _build.stream(H)), "solve_qp")
     solve_qp.launches += 1
-    its = torch.full((Bn,), n_iters, dtype=torch.int32, device=dev)
     return QpSolution(x=x, eq_dual=nu, ineq_dual=lam, iterations=its, primal_residual=res)
 
 

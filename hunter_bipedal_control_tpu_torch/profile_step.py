@@ -10,6 +10,7 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop [sequential|parallel] [n]
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop_phases [sequential|parallel] [n]
     python -m hunter_bipedal_control_tpu_torch.profile_step ddp [batch] [knots] [horizon] [RK2|ODE45] [iterations]
+    python -m hunter_bipedal_control_tpu_torch.profile_step qp_phases [batch] [iterations]
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
 ``--lin_backend=dense`` (the plain dense linearization and merit), so that
@@ -43,7 +44,8 @@ records one more ``ddp.solve`` from the same warm start: its wall and
 device-busy time, and its launch calls by ``DDP_PHASES`` (the
 linearization, the projection, the backward pass, the rollouts with the
 re-roll; 'selection' is the rest: the map back to u-space, the line
-search's choice).
+search's choice).  ``qp_phases`` splits kernel B4's iteration on the WBC's
+QP into its phases by the kernel's own clock (``profile_qp_phases``).
 """
 from __future__ import annotations
 
@@ -499,6 +501,64 @@ def profile_ddp(batch: int = 1, knots: int = 53, horizon: float = 0.8, integrato
             "launch_calls_by_phase": phases}
 
 
+QP_PHASE_NAMES = ("mu", "residuals", "hbar_rbar", "chol_hbar", "forward_sweep", "schur",
+                  "chol_schur", "dnu", "dx", "step")
+
+
+def profile_qp_phases(batch: int = 1, iters: int = 10):
+    """Kernel B4 on the WBC's QP (``entry.build_wbc_batch``'s first
+    ``batch`` standing states, cold, ``iters`` iterations), built once more
+    with ``-DQP_PHASE_CLOCKS`` (``_build.measurement_library``): QP 0's
+    clock64 cycles per iteration by phase (one run after a warm-up) and the
+    kernel's median time with the clocks in (CUDA events, 15 runs)."""
+    import ctypes
+    import statistics
+
+    import torch
+
+    from .entry import build_wbc_batch
+    from .kernels import _build
+    from .ops import qp
+    from .wbc import wbc
+
+    dev = torch.device("cuda")
+    wb = build_wbc_batch(batch, dev)
+    data = [t.contiguous() for t in wbc.wbc_qp(wb.model, wb.params, wb.x_des, wb.u_des, wb.rbd,
+                                               wb.contact_flags, wb.stance_mode)]
+    lib = _build.measurement_library("solve_qp.cu", "QP_PHASE_CLOCKS", ["hk_solve_qp"])
+    lib.hk_qp_phase_cycles.argtypes = [ctypes.c_void_p]
+    lib.hk_qp_phase_cycles.restype = ctypes.c_int
+    cycles = (ctypes.c_ulonglong * len(QP_PHASE_NAMES))()
+
+    def run():
+        return qp.solve_qp(*data, n_iters=iters)
+
+    real_library = _build.library
+    _build.library = lambda: lib
+    try:
+        run()
+        torch.cuda.synchronize()
+        lib.hk_qp_phase_cycles(cycles)
+        run()
+        torch.cuda.synchronize()
+        if lib.hk_qp_phase_cycles(cycles) != 0:
+            raise RuntimeError("hk_qp_phase_cycles failed")
+        times = []
+        for _ in range(15):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    finally:
+        _build.library = real_library
+    return {"phase": "profile_qp_phases", "batch": batch, "iterations": iters,
+            "device": torch.cuda.get_device_name(0),
+            "cycles_per_iteration": {p: c / iters for p, c in zip(QP_PHASE_NAMES, cycles)},
+            "total_cycles_per_iteration": sum(cycles) / iters,
+            "kernel_ms": statistics.median(times)}
+
 if __name__ == "__main__":
     lb = [x.split("=", 1)[1] for x in sys.argv[1:] if x.startswith("--lin_backend=")]
     kw = {"lin_backend": lb[-1]} if lb else {}
@@ -520,6 +580,9 @@ if __name__ == "__main__":
     elif a and a[0] == "loop":
         print(json.dumps(profile_loop(len(a) > 1 and a[1] == "parallel",
                                       int(a[2]) if len(a) > 2 else 2, **kw)))
+    elif a and a[0] == "qp_phases":
+        print(json.dumps(profile_qp_phases(int(a[1]) if len(a) > 1 else 1,
+                                           int(a[2]) if len(a) > 2 else 10)))
     elif a and a[0] == "ddp":
         print(json.dumps(profile_ddp(int(a[1]) if len(a) > 1 else 1,
                                      int(a[2]) if len(a) > 2 else 53,

@@ -10,7 +10,11 @@ within 1e-5 (gj_inverse), 1e-4 (project_knot) and 2e-3 (riccati_solve,
 whose kernel factors Huu by Cholesky where the plain version iterates
 Newton-Schulz).  solve_qp: each output within max(1e-4, 2 x the float32
 plain version's own error) of the float64 plain version, on its own scale
-(the primal residual on the WBC acceptance test's, 1 + max |b|).
+(the primal residual on the WBC acceptance test's, 1 + max |b|), on the
+WBC's QP at B=4096, 3 and 1 and on 64 seeded QPs of the hierarchical WBC's
+shapes (me=1, mi=40 or 1; ill-conditioned: their float32 plain error is the
+largest over the inputs and four one-ulp moves of them); n, me or mi above
+64 refused.
 riccati_solve_parallel (B5, exact solves): each output within max(1e-4,
 2 x the float32 exact plain version's own error) of the float64 exact plain
 version, on its own scale, both plain versions run on the CPU.
@@ -87,7 +91,7 @@ import torch
 from hunter_bipedal_control_tpu_torch.backends import dummy, fullorder
 from hunter_bipedal_control_tpu_torch.entry import (SimBatch, build_flagship, build_sim_loop,
                                                     build_wbc_batch, centroidal_batch,
-                                                    estimator_batch, sim_step_batch,
+                                                    estimator_batch, qp_batch, sim_step_batch,
                                                     walking_wbc_batch)
 from hunter_bipedal_control_tpu_torch.estim import contact, kalman
 from hunter_bipedal_control_tpu_torch.gait import mode_schedule as ms
@@ -250,6 +254,123 @@ def test_solve_qp_kernel_not_spd_gives_nan(cuda):
         assert torch.equal(torch.isnan(a).any(-1), torch.isnan(b).any(-1)), name
         assert torch.isnan(a).any(-1).nonzero().flatten().tolist() == [3], name
     assert torch.isnan(got.primal_residual[3])
+
+
+def _ulp_moved(t, seed):
+    """t with each nonzero entry moved by one ulp up, down or not (seeded):
+    exact zeros (masked rows) stay."""
+    g = torch.Generator().manual_seed(seed)
+    step = torch.randint(-1, 2, t.shape, generator=g).to(t.device, t.dtype)
+    return torch.where((step != 0) & (t != 0), torch.nextafter(t, t + step * 1e3), t)
+
+
+def _check_qp(got, data64, kw, n_iters, ulp_seeds=()):
+    """Each output of the kernel's solution ``got`` within max(1e-4, 2 x the
+    float32 plain version's error) of the float64 plain version, on its own
+    scale (the primal residual on the WBC acceptance test's, floored at 1).
+    With ``ulp_seeds`` the float32 plain error is the largest over the
+    inputs and their one-ulp moves by those seeds (where conditioning
+    amplifies rounding, one float32 run is one sample of its error)."""
+    kw64 = {k: (v.double() if torch.is_tensor(v) else v) for k, v in kw.items()}
+    data32 = [t.float() for t in data64]
+    ref32s = [qp.solve_qp_plain(*d, n_iters=n_iters, **kw) for d in
+              [data32] + [[_ulp_moved(t, 10 * s + k) for k, t in enumerate(data32)]
+                          for s in ulp_seeds]]
+    ref64 = qp.solve_qp_plain(*data64, n_iters=n_iters, **kw64)
+    res_scale = 1.0 + torch.maximum(data64[3].abs().amax(-1), data64[5].abs().amax(-1))
+    for name, floor in (("x", 1e-30), ("eq_dual", 1e-30), ("ineq_dual", 1e-30),
+                        ("primal_residual", 1.0)):
+        a, c = getattr(got, name), getattr(ref64, name)
+        bs = [getattr(r, name) for r in ref32s]
+        assert torch.isfinite(a).all(), name
+        if name == "primal_residual":
+            a, c, bs = a / res_scale, c / res_scale, [b / res_scale for b in bs]
+        plain = max(_own_scale_err(b, c, floor) for b in bs)
+        assert _own_scale_err(a, c, floor) <= max(1e-4, 2.0 * plain), name
+    assert torch.equal(got.iterations.cpu(), torch.full((got.x.shape[0],), n_iters,
+                                                        dtype=torch.int32)), "iterations"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_solve_qp_kernel_small_batch(cuda, batch, warm):
+    """The WBC's QP at B=1 (one warp in the grid) and B=3 (two QPs a block:
+    the second block ragged), 10 iterations, cold and warm."""
+    data64 = [t.contiguous() for t in _wbc_qp(cuda, torch.float64, batch)]
+    kw = dict(x0=torch.zeros(batch, 38, device=cuda), lam0=torch.ones(batch, 40, device=cuda),
+              nu0=torch.zeros(batch, 28, device=cuda), warm_margin=1.0)
+    if warm:
+        kw["x0"] = qp.solve_qp_plain(*data64, n_iters=10, **{
+            k: (v.double() if torch.is_tensor(v) else v) for k, v in kw.items()}).x.float()
+    before = qp.solve_qp.launches
+    got = qp.solve_qp(*[t.float() for t in data64], n_iters=10, **kw)
+    torch.cuda.synchronize()
+    assert qp.solve_qp.launches == before + 1
+    _check_qp(got, data64, kw, 10)
+
+
+@pytest.mark.cuda
+def test_solve_qp_kernel_generic_instance(cuda):
+    """The WBC's QP (B=16, cold, 10 iterations) through both instances of
+    the kernel: as it is (38/28/40, compiled in) and padded to n=39 by a
+    variable no row touches (its H entry the mean of H's diagonal, its g
+    0), which runs the generic instance.  The padded run is held to its
+    float64 plain version by the rule above, its added variable stays
+    exactly 0, and each output of the two runs lies within max(1e-4, 4 x the
+    float32 plain version's error) of the other (two solves each within 2x
+    of the float64 one)."""
+    batch = 16
+    data64 = [t.contiguous() for t in _wbc_qp(cuda, torch.float64, batch)]
+    H, g, Aeq, beq, Ain, bin_ = data64
+    pad = lambda t: torch.nn.functional.pad(t, (0, 1))
+    Hp = torch.nn.functional.pad(H, (0, 1, 0, 1))
+    Hp[:, 38, 38] = torch.diagonal(H, dim1=-2, dim2=-1).mean(-1)
+    padded64 = [Hp.contiguous(), pad(g), pad(Aeq), beq, pad(Ain), bin_]
+    comp = qp.solve_qp(*[t.float() for t in data64], n_iters=10)
+    gen = qp.solve_qp(*[t.float() for t in padded64], n_iters=10)
+    torch.cuda.synchronize()
+    _check_qp(gen, padded64, {}, 10)
+    assert torch.equal(gen.x[:, 38], torch.zeros(batch, device=cuda))
+    ref32 = qp.solve_qp_plain(*[t.float() for t in data64], n_iters=10)
+    ref64 = qp.solve_qp_plain(*data64, n_iters=10)
+    res_scale = 1.0 + torch.maximum(beq.abs().amax(-1), bin_.abs().amax(-1))
+    for name, floor in (("x", 1e-30), ("eq_dual", 1e-30), ("ineq_dual", 1e-30),
+                        ("primal_residual", 1.0)):
+        a, b, p32, c = (getattr(r, name) for r in (gen, comp, ref32, ref64))
+        if name == "x":
+            a = a[:, :38]
+        if name == "primal_residual":
+            a, b, p32, c = (t / res_scale for t in (a, b, p32, c))
+        limit = max(1e-4, 4.0 * _own_scale_err(p32, c, floor))
+        assert _own_scale_err(a, b, floor) <= limit, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mi", [40, 1])
+def test_solve_qp_kernel_hierarchical(cuda, mi):
+    """The hierarchical WBC's shapes (n=38, me=1, mi=40: its level-0 torque
+    and friction rows; mi=1: its placeholder row) on 64 seeded QPs
+    (``entry.qp_batch``), 15 iterations, cold.  Their H is ill-conditioned
+    (~1e6): mu_min is float32's for the float64 run too (both then run one
+    algorithm), and the float32 plain error is its largest over the inputs
+    and four one-ulp moves of them."""
+    data64 = list(qp_batch(64, 1, mi, seed=0, device=cuda, dtype=torch.float64))
+    kw = dict(mu_min=float(torch.finfo(torch.float32).eps) * 50.0)
+    got = qp.solve_qp(*[t.float() for t in data64], n_iters=15, **kw)
+    torch.cuda.synchronize()
+    _check_qp(got, data64, kw, 15, ulp_seeds=range(4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", ["n", "me", "mi"])
+def test_solve_qp_kernel_refuses_dims_above_64(cuda, big):
+    dims = {"n": 38, "me": 28, "mi": 40, big: qp.MAX_DIM + 1}
+    n, me, mi = dims["n"], dims["me"], dims["mi"]
+    z = lambda *s: torch.zeros((2, *s), device=cuda)
+    with pytest.raises(ValueError):
+        qp.solve_qp(z(n, n) + torch.eye(n, device=cuda), z(n), z(me, n), z(me), z(mi, n),
+                    z(mi) + 1.0, n_iters=2)
 
 
 B5_TOL = 1e-4
