@@ -10,9 +10,12 @@ Phases, each printing one JSON line:
      paths' shapes: B6 gj_inverse (IK-shaped 5x5, the use B8a absorbed,
      projection 16x16, the Kalman filter's 28x28 innovation and the
      momentum observer's 5x5 leg systems, the uses B12 and B10 absorbed),
-     B2 project_knot, B3 riccati_solve, B4 solve_qp on the WBC's own QPs at
-     B=4096, cold and warm (errors against the float32 and float64 plain
-     versions; kernel / plain / library times by CUDA events, medians of 15),
+     B2 project_knot, B3 riccati_solve (also against the float64 exact
+     plain version, within max(1e-4, 2x the float32 exact plain version's
+     error), with its own device time and one SM's issue floor), B4
+     solve_qp on the WBC's own QPs at B=4096, cold and warm (errors against
+     the float32 and float64 plain versions; kernel / plain / library times
+     by CUDA events, medians of 15),
      and on 64 seeded QPs of each hierarchical WBC level's shape (n=38,
      me=1, mi=40 or 1, 15 iterations; ill-conditioned, so the float32 plain
      error is its largest over the inputs and four one-ulp moves of them);
@@ -62,8 +65,8 @@ Phases, each printing one JSON line:
      solution and the final estimator and WBC states held against the
      port's CPU float32 and float64 runs; B4 on every tick's own QP (B=1)
      against its plain versions, with its time (CUDA events around the
-     wrapper, and its own device time under the profiler), its bound and
-     one warp's floor; every tick counts
+     wrapper, and its own device time per launch the profiler recorded),
+     its bound and one warp's floor; every tick counts
      one kalman_update (B12), one momentum_observer (B10), one wbc_qp (B9)
      and one solve_qp launch, and no gj_inverse (B6);
   4b2. B9 (wbc_qp) on every tick's own inputs (B=1), on bench.py's standing
@@ -79,7 +82,9 @@ Phases, each printing one JSON line:
      (B=1, N=53) and of N=66 (the card's projection output): each output
      against the float64 exact plain version on the CPU, bfloat16 landing
      above the limit, the gap to the float32 NS plain version (the JAX
-     algorithm), and B3's time on the same data in the same call;
+     algorithm), and B3 on the same data in the same call: its time, its
+     own device time, one SM's issue floor, and its outputs against the
+     exact plain version by phase 3's rule;
   4e. the chained B=1 solve (``entry.mpc_chain``, K_CHAIN solves at N=53,
      'soa') in both Riccati modes: ms per solve, launches, costs held against the
      port's CPU float64 chain with exact solves;
@@ -127,8 +132,8 @@ Phases, each printing one JSON line:
      (``entry.centroidal_batch``, B=4096): each output against the float64
      plain version within max(tol, 2x the float32 plain version's error),
      bfloat16 landing above the limit on the outputs that are not copies;
-     kernel and plain times, each kernel's own device time per call
-     (profiled over CF_PROFILED_CALLS calls), the bounds (``imu_cost``,
+     kernel and plain times, each kernel's own device time per launch the
+     profiler recorded over CF_PROFILED_CALLS calls, the bounds (``imu_cost``,
      ``centroidal_cost``, ``dummy_cost``, ``state_v_cost``);
   4k. the DDP path (``entry.ddp_solve``: the flagship's references, DDP_WARM
      SQP solves, then ``ddp.solve``) at the product shape with RK2 and with
@@ -306,7 +311,7 @@ CF_NAMES = {"synth_imu": ("quat", "omega_local", "accel_local", "omega_world"),
             "state_input_to_v": ("v_b", "v_j", "rbd")}
 CF_COPIES = ("q", "v_j")
 CF_BATCH = 4096
-# kernel calls under the profiler for B13/B14's own device time per call
+# kernel calls under the profiler for B13/B14's own device time
 CF_PROFILED_CALLS = 50
 SIM_FLIP_FACTOR, SIM_FLIP_FLOOR = 2, 2
 SIM_BATCH = 1024
@@ -422,6 +427,14 @@ SM_CLOCK_HZ = 1.98e9
 QP_LEVEL_BATCH, QP_LEVEL_ITERS, QP_ULP_SEEDS = 64, 15, tuple(range(4))
 # kernel calls under the profiler for B4's own device time at B=1
 QP_PROFILED_CALLS = 20
+# B3 (riccati_solve) solves Huu exactly (a Cholesky of its symmetric part),
+# so besides its 2e-3 check against the Newton-Schulz plain version (the
+# JAX algorithm) each output is held to the float64 exact plain version
+# (riccati_solver='gj') within max(RICCATI_EXACT_TOL, TOL_FACTOR x the
+# float32 exact plain version's error), on its own scale: B5's rule.
+RICCATI_EXACT_TOL = 1e-4
+# kernel calls under the profiler for B3's own device time
+RICCATI_PROFILED_CALLS = 20
 
 
 T_START = time.perf_counter()
@@ -1116,7 +1129,7 @@ def main():
     from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
                                                         build_loop, build_sim_loop,
                                                         build_wbc_batch, centroidal_batch,
-                                                        estimator_batch, qp_batch,
+                                                        estimator_batch, projected_lq, qp_batch,
                                                         ddp_solve, mpc_chain, run_loop,
                                                         run_sim_loop,
                                                         sim_step_batch, standing_sensors,
@@ -1219,6 +1232,47 @@ def main():
             raise AssertionError(f"gj_inverse {list(A.shape)}: the bfloat16 plain version "
                                  f"({e_bf16}) is within the limit ({limit})")
 
+    def riccati_exact_case(label, got, args):
+        """B3's outputs against the exact plain version (riccati_solver='gj'):
+        float64 the reference, float32 setting the limit (RICCATI_EXACT_TOL);
+        raises past it.  Returns the line's entries."""
+        host = [riccati.StageLQ(*(t.cpu() for t in args[0]))] + [t.cpu() for t in args[1:5]]
+
+        def exact(dtype):
+            return riccati.riccati_solve_plain(riccati.StageLQ(*(t.to(dtype) for t in host[0])),
+                                               *(t.to(dtype) for t in host[1:]), args[5],
+                                               solver="gj")
+
+        err = errors(("K", "kff", "dxs", "dus"), [t.cpu() for t in got], exact(torch.float32),
+                     exact(torch.float64))
+        check(f"{label} vs the exact plain version", err, RICCATI_EXACT_TOL)
+        return {"vs_exact": per_output(err, RICCATI_EXACT_TOL)}
+
+    def own_device_time(call, n_calls, kernel):
+        """``call()`` n_calls times under the profiler: the kernel's own
+        device time per launch the profiler recorded, apart from its
+        wrapper's host work (null when it recorded none; it may keep fewer
+        launches than were made), and the launches it recorded."""
+        def calls():
+            for _ in range(n_calls):
+                call()
+            torch.cuda.synchronize()
+
+        own = [k for k in _profiled(calls, 1, 4)["top_kernels"] if kernel in k["name"]]
+        recorded = sum(k["count"] for k in own)
+        return (sum(k["ms"] for k in own) / recorded if recorded else None), recorded
+
+    def riccati_own_time(args, n_knots):
+        """B3's own device time (``own_device_time``) and one SM's issue
+        floor for one scenario's sweep."""
+        ms, recorded = own_device_time(lambda: riccati.riccati_solve(*args),
+                                       RICCATI_PROFILED_CALLS, "riccati_kernel")
+        # one SM (128 fp32 lanes) issuing one scenario's operations at one per
+        # lane per clock
+        return {"kernel_device_ms": ms, "profiled_launches": recorded,
+                "profiled_calls": RICCATI_PROFILED_CALLS,
+                "serial_chain_ms": riccati_cost(1, n_knots)[1] / 128 / SM_CLOCK_HZ * 1e3}
+
     # ---- 3. kernels vs plain versions at the main path's shapes ----
     B, N, H = 128, 66, 1.0
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -1272,13 +1326,16 @@ def main():
     ref = riccati.riccati_solve_plain(lq, E, P, e0, dx0, reg)
     ref64 = riccati.riccati_solve_plain(riccati.StageLQ(*as64(lq)), *as64((E, P, e0, dx0)),
                                         reg)
+    b3_args = (lq, E, P, e0, dx0, reg)
+    b3_exact = riccati_exact_case("riccati_solve B=128 N=66", got, b3_args)
     record("riccati_solve", "cuda", "hunter_bipedal_control_tpu_torch/csrc/riccati.cu",
            "hunter_bipedal_control_tpu/solver/riccati.py:60",
            errors(("K", "kff", "dxs", "dus"), got, ref, ref64), TOL["riccati_solve"],
-           cuda_ms(lambda: riccati.riccati_solve(lq, E, P, e0, dx0, reg)),
-           cuda_ms(lambda: riccati.riccati_solve_plain(lq, E, P, e0, dx0, reg)), None,
-           riccati_cost(B, N), {"scenarios": B, "knots": N})
-    del lin, pin, got, ref, ref64, lq, lq64
+           cuda_ms(lambda: riccati.riccati_solve(*b3_args)),
+           cuda_ms(lambda: riccati.riccati_solve_plain(*b3_args)), None,
+           riccati_cost(B, N), {"scenarios": B, "knots": N, **b3_exact,
+                                **riccati_own_time(b3_args, N)})
+    del lin, pin, got, ref, ref64, lq, lq64, b3_args
 
     # B4 on the WBC's own QPs: bench.py's batched-WBC standing states at
     # B=4096, 10 iterations, cold (x0 = 0, the WBC's first tick) and warm
@@ -2061,20 +2118,14 @@ def main():
     cost1 = qp_cost(1, qk["n_iters"])
     b_ms, b_by = bound(*cost1)
 
-    def qp_calls():
-        for _ in range(QP_PROFILED_CALLS):
-            qp.solve_qp(*qa, **qk)
-        torch.cuda.synchronize()
-
-    # the kernel's own device time per call, apart from its wrapper's host
-    # work (null when the profiler records no such kernel)
-    own = [k["ms"] for k in _profiled(qp_calls, QP_PROFILED_CALLS, 4)["top_kernels"]
-           if "solve_qp_kernel" in k["name"]]
+    own_ms, own_n = own_device_time(lambda: qp.solve_qp(*qa, **qk), QP_PROFILED_CALLS,
+                                    "solve_qp_kernel")
     emit({"phase": "kernel_extra", "name": "solve_qp", "tol": TOL["solve_qp"],
           "outputs": per_output(err, TOL["solve_qp"]), "batch": 1, "iterations": qk["n_iters"],
           "qps": len(tick_qps), "qp": "every tick of the tick path, one launch each",
           "kernel_ms": cuda_ms(lambda: qp.solve_qp(*qa, **qk)),
-          "kernel_device_ms": sum(own) if own else None,
+          "kernel_device_ms": own_ms, "profiled_launches": own_n,
+          "profiled_calls": QP_PROFILED_CALLS,
           "plain_ms": cuda_ms(lambda: qp.solve_qp_plain(*qa, **qk)), "library_ms": None,
           "bound_ms": b_ms, "bound_by": b_by,
           # one warp (32 lanes) issuing the QP's operations at one per lane per clock
@@ -2182,28 +2233,10 @@ def main():
         raise AssertionError(f"batched WBC: solutions off the CPU float64 run: {wbc_x}")
 
     # ---- 4d. B5 on the real LQ data of B=1 at N=53 (product) and N=66 (bench) ----
-    def projected_lq(n_knots, horizon):
-        """The cold step's projected LQ data at B=1, from the card's own
-        projection kernel: (lq, E, P, e, dx0) on the card."""
-        f = build_flagship(n_knots, horizon, batch=1, device=dev)
-        sch = mpc_mod.ModeSchedule(*(a[None] for a in f.schedule))
-        tgt = mpc_mod.tg.TargetTrajectories(*(a[None] for a in f.target))
-        bnd, _, _, _ = mpc_mod.prepare_references(
-            f.model, f.settings, f.planner_cfg, f.state.planner, sch, tgt,
-            torch.zeros(1, device=dev), f.x0, z6[None], f.default_joints[None])
-        xs1, us1 = mpc_mod._warm_start(f.model, f.settings, bnd, f.state, f.x0)
-        xn, A1, B1, _, qx1, qu1, Qxx1, Quu1, Qux1, g1, C1, D1, m1 = sqp.knot_linearization_all(
-            f.model, f.settings, f.params, bnd, xs1, us1)
-        pr = sqp.project_knot(f.settings, *(t.contiguous() for t in (
-            A1, B1, xn - xs1[:, 1:], qx1, qu1, Qxx1, Quu1, Qux1, g1, C1, D1, m1)))
-        A_t1, B_t1, d_t1, qx_t1, qw1, Qxx_t1, Qww1, Qwx1, E1, e1, P1 = [t.contiguous() for t in pr]
-        lq1 = riccati.StageLQ(A=A_t1, B=B_t1, d=d_t1, Qxx=Qxx_t1, Qww=Qww1, Qwx=Qwx1, qx=qx_t1,
-                              qw=qw1)
-        return lq1, E1, P1, e1, (f.x0 - xs1[:, 0]).contiguous()
-
     assoc_names = ("K", "kff", "dxs", "dus")
     for n_knots, horizon in ((53, 0.8), (66, 1.0)):
-        lqc, Ec, Pc, ec, dx0c = projected_lq(n_knots, horizon)
+        lqc, Ec, Pc, ec, dx0c = projected_lq(build_flagship(n_knots, horizon, batch=1,
+                                                            device=dev))
         tol = TOL["riccati_solve_parallel"]
         got = riccati.riccati_solve_parallel(lqc, Ec, Pc, ec, dx0c, reg)
         torch.cuda.synchronize()
@@ -2226,9 +2259,16 @@ def main():
                  "b3_kernel_ms_same_data": cuda_ms(lambda: riccati.riccati_solve(*args)),
                  "plain_ms": cuda_ms(lambda: riccati.riccati_solve_parallel_plain(*args)),
                  "b3_plain_ms_same_data": cuda_ms(lambda: riccati.riccati_solve_plain(*args))}
+        b3_got = riccati.riccati_solve(*args)
+        b3_exact = riccati_exact_case(f"riccati_solve B=1 N={n_knots}", b3_got, args)
+        b3_own = riccati_own_time(args, n_knots)
         info = {"scenarios": 1, "knots": n_knots, "plain_bf16_rel_err_vs_f64": e_bf16,
                 "kernel_rel_err_vs_plain_ns_f32": gap, "plain_ns_f32_rel_err_vs_f64": ns_vs64,
                 "b3_kernel_ms_same_data": times["b3_kernel_ms_same_data"],
+                "b3_kernel_device_ms_same_data": b3_own["kernel_device_ms"],
+                "b3_profiled_launches": b3_own["profiled_launches"],
+                "b3_serial_chain_ms": b3_own["serial_chain_ms"],
+                "b3_vs_exact_same_data": b3_exact["vs_exact"],
                 "b3_plain_ms_same_data": times["b3_plain_ms_same_data"],
                 "launches_per_call": 3 + math.ceil(math.log2(n_knots + 1))
                 + math.ceil(math.log2(n_knots))}
@@ -2248,7 +2288,7 @@ def main():
         if low:
             raise AssertionError(f"riccati_solve_parallel N={n_knots}: the bfloat16 plain version "
                                  f"is within the limit on {low} (limits {limits})")
-    del lqc, got
+    del lqc, got, b3_got
 
     # ---- 4e. the chained B=1 solve in both Riccati modes ----
     riccati_kernel = {False: "riccati_solve", True: "riccati_solve_parallel"}
@@ -2689,20 +2729,13 @@ def main():
         last = cases[-1]
         Bn = got[0].shape[0] // len(cases)
 
-        def kernel_calls():
-            for _ in range(CF_PROFILED_CALLS):
-                cf_call(name, last, False)
-            torch.cuda.synchronize()
-
-        # the kernel's own device time per call, apart from its wrapper's host
-        # work (null when the profiler records no such kernel)
-        own = [k["ms"] for k in _profiled(kernel_calls, CF_PROFILED_CALLS, 4)["top_kernels"]
-               if f"{name}_kernel" in k["name"]]
+        own_ms, own_n = own_device_time(lambda: cf_call(name, last, False),
+                                        CF_PROFILED_CALLS, f"{name}_kernel")
         times = (cuda_ms(lambda: cf_call(name, last, False)),
                  cuda_ms(lambda: cf_call(name, last, True), reps=3))
         info = {"label": label, "batch": Bn, "cases": len(cases),
-                "kernel_device_ms": sum(own) if own else None,
-                "plain_bf16_rel_err_vs_f64": e_bf16}
+                "kernel_device_ms": own_ms, "profiled_launches": own_n,
+                "profiled_calls": CF_PROFILED_CALLS, "plain_bf16_rel_err_vs_f64": e_bf16}
 
         def plain_call():
             cf_call(name, last, True)

@@ -4,7 +4,8 @@
 repository's ``__graft_entry__._build``: nominal joints, trot schedule and
 a 0.25 m/s walking target.  ``Mpc(flag.model, flag.settings, flag.params,
 flag.planner_cfg)(flag.state, flag.schedule, flag.target, 0.0, flag.x0,
-zeros(6), flag.default_joints)`` runs one batched step.
+zeros(6), flag.default_joints)`` runs one batched step; ``projected_lq``
+gives its cold step's projected LQ data, the input of the Riccati sweep.
 
 ``build_controller`` and ``tick_chain`` run the 500 Hz control tick that
 consumes the MPC's plan: Kalman update -> momentum observer -> policy
@@ -60,7 +61,7 @@ from .runtime import sim_loop as sim_loop_mod
 from .runtime.controller import Controller, GainConfig, JointCommand, TickOutput, default_gains
 from .solver import ddp
 from .solver import mpc as mpc_mod
-from .solver import sqp
+from .solver import riccati, sqp
 from .wbc import wbc as wbc_mod
 
 DEFAULT_JOINTS = [0.10, 0., 0.40, 0.93, 0.53, -0.10, 0., -0.40, 0.93, -0.53]
@@ -99,6 +100,28 @@ def build_flagship(n_intervals: int = 53, horizon: float = 0.8, batch: int = 1,
     xs = x0[None] + 0.001 * torch.arange(batch, dtype=dtype, device=dev)[:, None]
     state = mpc_mod.init_mpc_state(m, settings, batch, device=dev, dtype=dtype)
     return Flagship(m, settings, params, pcfg, dj, xs, sched, target, state)
+
+
+def projected_lq(flag: Flagship):
+    """The flagship's cold step up to the Riccati sweep: the reference prep
+    at t = 0, the warm start, the linearization and the projection.
+    Returns (lq, E, P, e, dx0) as ``riccati.riccati_solve`` takes them,
+    contiguous, on the flagship's device and dtype."""
+    b = flag.x0.shape[0]
+    z = torch.zeros((b, 6), dtype=flag.x0.dtype, device=flag.x0.device)
+    sched = ms.ModeSchedule(*(a.expand(b, *a.shape) for a in flag.schedule))
+    target = tg.TargetTrajectories(*(a.expand(b, *a.shape) for a in flag.target))
+    bundle, _, _, _ = mpc_mod.prepare_references(
+        flag.model, flag.settings, flag.planner_cfg, flag.state.planner, sched, target,
+        z[:, 0], flag.x0, z, flag.default_joints.expand(b, -1))
+    xs, us = mpc_mod._warm_start(flag.model, flag.settings, bundle, flag.state, flag.x0)
+    xn, A, Bm, _, qx, qu, Qxx, Quu, Qux, g, C, D, mask = sqp.knot_linearization_all(
+        flag.model, flag.settings, flag.params, bundle, xs, us)
+    proj = sqp.project_knot(flag.settings, *(t.contiguous() for t in (
+        A, Bm, xn - xs[:, 1:], qx, qu, Qxx, Quu, Qux, g, C, D, mask)))
+    A_t, B_t, d_t, qx_t, qw, Qxx_t, Qww, Qwx, E, e, P = [t.contiguous() for t in proj]
+    lq = riccati.StageLQ(A=A_t, B=B_t, d=d_t, Qxx=Qxx_t, Qww=Qww, Qwx=Qwx, qx=qx_t, qw=qw)
+    return lq, E, P, e, (flag.x0 - xs[:, 0]).contiguous()
 
 
 def nominal_q(base_z: float, device, dtype) -> torch.Tensor:

@@ -166,17 +166,21 @@ def library():
     return _lib
 
 
-def measurement_library(source: str, define: str, names):
-    """``csrc/<source>`` alone, compiled with ``-D<define>`` into a library
+def measurement_library(source: str, define: str | None, names):
+    """``csrc/<source>`` (or the file at the path ``source``) alone,
+    compiled with ``-D<define>`` (none when define is None) into a library
     of its own in BUILD_DIR (a measurement build, beside the package's),
     loaded, with the entry points ``names`` of SIGNATURES bound."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}_{define.lower()}.so")
-    done = subprocess.run([_nvcc(), *NVCC_FLAGS, f"-D{define}", "-I", CSRC, "-shared", "-o",
-                           so, os.path.join(CSRC, source)],
+    path = os.path.join(CSRC, source)
+    tag = hashlib.sha256(os.path.abspath(path).encode()).hexdigest()[:8]
+    so = os.path.join(BUILD_DIR, f"{os.path.splitext(os.path.basename(source))[0]}_"
+                                 f"{(define or 'plain').lower()}_{tag}.so")
+    flags = [f"-D{define}"] if define else []
+    done = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-I", CSRC, "-shared", "-o", so, path],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source} with -D{define}:\n{done.stdout}")
+        raise RuntimeError(f"nvcc failed on {source} with {flags}:\n{done.stdout}")
     return _bind(ctypes.CDLL(so), names)
 
 

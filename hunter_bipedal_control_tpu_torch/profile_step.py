@@ -11,6 +11,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_loop_phases [sequential|parallel] [n]
     python -m hunter_bipedal_control_tpu_torch.profile_step ddp [batch] [knots] [horizon] [RK2|ODE45] [iterations]
     python -m hunter_bipedal_control_tpu_torch.profile_step qp_phases [batch] [iterations]
+    python -m hunter_bipedal_control_tpu_torch.profile_step riccati_phases [batch] [knots] [horizon]
+    python -m hunter_bipedal_control_tpu_torch.profile_step backends_spread [moves] [riccati.cu]
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
 ``--lin_backend=dense`` (the plain dense linearization and merit), so that
@@ -45,7 +47,15 @@ device-busy time, and its launch calls by ``DDP_PHASES`` (the
 linearization, the projection, the backward pass, the rollouts with the
 re-roll; 'selection' is the rest: the map back to u-space, the line
 search's choice).  ``qp_phases`` splits kernel B4's iteration on the WBC's
-QP into its phases by the kernel's own clock (``profile_qp_phases``).
+QP into its phases by the kernel's own clock (``profile_qp_phases``);
+``riccati_phases`` splits kernel B3's knot on the flagship's cold-step LQ
+data the same way (``profile_riccati_phases``: the copies' wait, SM, H,
+the factor, the first knot's gains, S and s, the rollout; the back sweep's
+own cycles apart, as they overlap the factor).  ``backends_spread`` measures
+no time: it reads how far the flagship's warm step with the dense
+linearization lands from the one with kernel B1, scenario by scenario, at
+x_init as built and moved by one ulp (``profile_backends_spread``),
+optionally with kernel B3 built from another ``riccati.cu``.
 """
 from __future__ import annotations
 
@@ -501,48 +511,34 @@ def profile_ddp(batch: int = 1, knots: int = 53, horizon: float = 0.8, integrato
             "launch_calls_by_phase": phases}
 
 
-QP_PHASE_NAMES = ("mu", "residuals", "hbar_rbar", "chol_hbar", "forward_sweep", "schur",
-                  "chol_schur", "dnu", "dx", "step")
-
-
-def profile_qp_phases(batch: int = 1, iters: int = 10):
-    """Kernel B4 on the WBC's QP (``entry.build_wbc_batch``'s first
-    ``batch`` standing states, cold, ``iters`` iterations), built once more
-    with ``-DQP_PHASE_CLOCKS`` (``_build.measurement_library``): QP 0's
-    clock64 cycles per iteration by phase (one run after a warm-up) and the
-    kernel's median time with the clocks in (CUDA events, 15 runs)."""
+def _clock_phases(source: str, define: str, entry: str, reader: str, n: int, run):
+    """``run()`` with ``csrc/<source>`` built once more with ``-D<define>``
+    (``_build.measurement_library``) in place of the package's library:
+    the ``n`` clock sums its ``reader`` returns (and zeroes) over one run
+    after a warm-up, and the kernel's median time with the clocks in (CUDA
+    events, 15 runs).  Returns (sums, ms)."""
     import ctypes
     import statistics
 
     import torch
 
-    from .entry import build_wbc_batch
     from .kernels import _build
-    from .ops import qp
-    from .wbc import wbc
 
-    dev = torch.device("cuda")
-    wb = build_wbc_batch(batch, dev)
-    data = [t.contiguous() for t in wbc.wbc_qp(wb.model, wb.params, wb.x_des, wb.u_des, wb.rbd,
-                                               wb.contact_flags, wb.stance_mode)]
-    lib = _build.measurement_library("solve_qp.cu", "QP_PHASE_CLOCKS", ["hk_solve_qp"])
-    lib.hk_qp_phase_cycles.argtypes = [ctypes.c_void_p]
-    lib.hk_qp_phase_cycles.restype = ctypes.c_int
-    cycles = (ctypes.c_ulonglong * len(QP_PHASE_NAMES))()
-
-    def run():
-        return qp.solve_qp(*data, n_iters=iters)
-
+    lib = _build.measurement_library(source, define, [entry])
+    read = getattr(lib, reader)
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    cycles = (ctypes.c_ulonglong * n)()
     real_library = _build.library
     _build.library = lambda: lib
     try:
         run()
         torch.cuda.synchronize()
-        lib.hk_qp_phase_cycles(cycles)
+        read(cycles)
         run()
         torch.cuda.synchronize()
-        if lib.hk_qp_phase_cycles(cycles) != 0:
-            raise RuntimeError("hk_qp_phase_cycles failed")
+        if read(cycles) != 0:
+            raise RuntimeError(f"{reader} failed")
         times = []
         for _ in range(15):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -553,11 +549,174 @@ def profile_qp_phases(batch: int = 1, iters: int = 10):
             times.append(a.elapsed_time(b))
     finally:
         _build.library = real_library
+    return list(cycles), statistics.median(times)
+
+
+QP_PHASE_NAMES = ("mu", "residuals", "hbar_rbar", "chol_hbar", "forward_sweep", "schur",
+                  "chol_schur", "dnu", "dx", "step")
+
+
+def profile_qp_phases(batch: int = 1, iters: int = 10):
+    """Kernel B4 on the WBC's QP (``entry.build_wbc_batch``'s first
+    ``batch`` standing states, cold, ``iters`` iterations), built once more
+    with ``-DQP_PHASE_CLOCKS`` (``_clock_phases``): QP 0's clock64 cycles per
+    iteration by phase and the kernel's median time with the clocks in."""
+    import torch
+
+    from .entry import build_wbc_batch
+    from .ops import qp
+    from .wbc import wbc
+
+    wb = build_wbc_batch(batch, torch.device("cuda"))
+    data = [t.contiguous() for t in wbc.wbc_qp(wb.model, wb.params, wb.x_des, wb.u_des, wb.rbd,
+                                               wb.contact_flags, wb.stance_mode)]
+    cycles, ms = _clock_phases("solve_qp.cu", "QP_PHASE_CLOCKS", "hk_solve_qp",
+                               "hk_qp_phase_cycles", len(QP_PHASE_NAMES),
+                               lambda: qp.solve_qp(*data, n_iters=iters))
     return {"phase": "profile_qp_phases", "batch": batch, "iterations": iters,
             "device": torch.cuda.get_device_name(0),
             "cycles_per_iteration": {p: c / iters for p, c in zip(QP_PHASE_NAMES, cycles)},
-            "total_cycles_per_iteration": sum(cycles) / iters,
-            "kernel_ms": statistics.median(times)}
+            "total_cycles_per_iteration": sum(cycles) / iters, "kernel_ms": ms}
+
+
+# the last is the back sweep's own cycles (warp 1), which overlap the factor:
+# not in the total
+RICCATI_PHASE_NAMES = ("loads", "sm", "h", "factor", "gains", "s_update", "rollout",
+                       "gains_off_chain")
+
+
+def profile_riccati_phases(batch: int = 1, knots: int = 53, horizon: float = 0.8):
+    """Kernel B3 on the flagship's cold-step LQ data (``entry.projected_lq``),
+    built once more with ``-DRICCATI_PHASE_CLOCKS`` (``_clock_phases``):
+    scenario 0's clock64 cycles per knot by phase (the rollout's over the
+    knots too) and the kernel's median time with the clocks in."""
+    import torch
+
+    from .entry import build_flagship, projected_lq
+    from .solver import riccati
+
+    flag = build_flagship(knots, horizon, batch=batch, device="cuda")
+    args = (*projected_lq(flag), flag.settings.hess_reg)
+    cycles, ms = _clock_phases("riccati.cu", "RICCATI_PHASE_CLOCKS", "hk_riccati_solve",
+                               "hk_riccati_phase_cycles", len(RICCATI_PHASE_NAMES),
+                               lambda: riccati.riccati_solve(*args))
+    return {"phase": "profile_riccati_phases", "batch": batch, "knots": knots,
+            "horizon": horizon, "device": torch.cuda.get_device_name(0),
+            "cycles_per_knot": {p: c / knots for p, c in zip(RICCATI_PHASE_NAMES, cycles)},
+            "total_cycles_per_knot": sum(cycles[:-1]) / knots, "kernel_ms": ms}
+
+
+class _WithEntry:
+    """The package's kernel library with one entry point taken from another
+    library."""
+
+    def __init__(self, lib, real, name):
+        self._lib, self._real, self._name = lib, real, name
+
+    def __getattr__(self, n):
+        return getattr(self._lib if n == self._name else self._real, n)
+
+
+def profile_backends_spread(moves: int = 8, riccati_source: str | None = None,
+                            batch: int = 128, knots: int = 66, horizon: float = 1.0):
+    """The flagship's warm step (B=128, 66 knots over 1.0 s) with
+    ``lin_backend='dense'`` against the same step with 'soa', both on the
+    card from the 'soa' cold step's state, scenario by scenario as
+    chip_smoke's ``backends`` phase reads them (max |states|, max |inputs|,
+    |cost| relative to max(1, |cost|)): at x_init as built, then moved by one
+    ulp in each of the seeded patterns 0 .. moves - 1 (chip_smoke's
+    MAIN_ULP_SEEDS moves: each entry up, down or kept).  ``riccati_source``:
+    a ``riccati.cu`` (the same C interface) built with
+    ``_build.measurement_library`` and run as kernel B3 in place of the
+    package's.  Per run: the three scenarios farthest apart in cost and the
+    largest distance of each quantity over the batch.  On the first run's
+    warm 'soa' LQ (kernel B3's inputs), the package's B3 and, given one,
+    the other: each output's error on its own scale against the float64
+    exact plain solve (riccati_solver='gj'), on the scenarios listed and
+    over the batch."""
+    import torch
+
+    from .entry import build_flagship
+    from .kernels import _build
+    from .solver import riccati
+    from .solver.mpc import Mpc
+
+    flag = build_flagship(knots, horizon, batch=batch)
+    dev = flag.x0.device
+    soa = Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
+    dense = Mpc(flag.model, flag.settings._replace(lin_backend="dense"), flag.params,
+                flag.planner_cfg)
+    real_library, solve = _build.library, riccati.riccati_solve
+    other = None
+    if riccati_source is not None:
+        other = _WithEntry(_build.measurement_library(riccati_source, None,
+                                                      ["hk_riccati_solve"]),
+                           real_library(), "hk_riccati_solve")
+        _build.library = lambda: other
+    runs, lq = [], []
+
+    def keep(*a):
+        lq.append(a)
+        return solve(*a)
+
+    keep.launches = 0
+    try:
+        for seed in [None] + list(range(moves)):
+            x0 = flag.x0.cpu()
+            if seed is not None:
+                g = torch.Generator().manual_seed(seed)
+                step = torch.randint(-1, 2, x0.shape, generator=g).to(x0.dtype)
+                x0 = torch.where(step != 0, torch.nextafter(x0, x0 + step * 1e3), x0)
+            args = (flag.schedule, flag.target, 0.0, x0.to(dev), torch.zeros(6, device=dev),
+                    flag.default_joints)
+            _, st1, _ = soa(flag.state, *args)
+            riccati.riccati_solve = keep if seed is None else solve
+            try:
+                warm, _, _ = soa(st1, *args)
+            finally:
+                riccati.riccati_solve = solve
+            warm_dense, _, _ = dense(st1, *args)
+            gap = {"states": (warm_dense.states - warm.states).abs().flatten(1).amax(1),
+                   "inputs": (warm_dense.inputs - warm.inputs).abs().flatten(1).amax(1),
+                   "cost_rel": ((warm_dense.cost.double() - warm.cost.double()).abs()
+                                / warm.cost.double().abs().clamp(min=1.0))}
+            gap = {q: v.double().cpu() for q, v in gap.items()}
+            top = gap["cost_rel"].argsort(descending=True)[:3].tolist()
+            runs.append({"ulp_seed": seed,
+                         "top_cost": [{"scenario": b, **{q: v[b].item() for q, v in gap.items()}}
+                                      for b in top],
+                         "max": {q: v.max().item() for q, v in gap.items()},
+                         "step_size_equal": bool(torch.equal(warm_dense.step_size,
+                                                             warm.step_size))})
+    finally:
+        _build.library = real_library
+    shown = sorted({r["scenario"] for r in runs[0]["top_cost"]})
+    lq_args = lq[0]
+    host = [riccati.StageLQ(*(t.cpu().double() for t in lq_args[0]))] + [
+        t.cpu().double() for t in lq_args[1:5]]
+    exact = riccati.riccati_solve_plain(*host, lq_args[5], solver="gj")
+
+    def errors():
+        got = riccati.riccati_solve(*lq_args)
+        out = {}
+        for name, g, e in zip(("K", "kff", "dxs", "dus"), got, exact):
+            err = ((g.cpu().double() - e).abs().flatten(1).amax(1)
+                   / e.abs().flatten(1).amax(1).clamp(min=1e-30))
+            out[name] = {"max": err.max().item(), **{str(b): err[b].item() for b in shown}}
+        return out
+
+    vs_exact = {"package": errors()}
+    if other is not None:
+        _build.library = lambda: other
+        try:
+            vs_exact[riccati_source] = errors()
+        finally:
+            _build.library = real_library
+    return {"phase": "profile_backends_spread", "batch": batch, "knots": knots,
+            "horizon": horizon, "riccati_source": riccati_source or "package",
+            "device": torch.cuda.get_device_name(0), "runs": runs,
+            "b3_vs_exact_f64_on_first_warm_lq": vs_exact}
+
 
 if __name__ == "__main__":
     lb = [x.split("=", 1)[1] for x in sys.argv[1:] if x.startswith("--lin_backend=")]
@@ -583,6 +742,13 @@ if __name__ == "__main__":
     elif a and a[0] == "qp_phases":
         print(json.dumps(profile_qp_phases(int(a[1]) if len(a) > 1 else 1,
                                            int(a[2]) if len(a) > 2 else 10)))
+    elif a and a[0] == "riccati_phases":
+        print(json.dumps(profile_riccati_phases(int(a[1]) if len(a) > 1 else 1,
+                                                int(a[2]) if len(a) > 2 else 53,
+                                                float(a[3]) if len(a) > 3 else 0.8)))
+    elif a and a[0] == "backends_spread":
+        print(json.dumps(profile_backends_spread(int(a[1]) if len(a) > 1 else 8,
+                                                 a[2] if len(a) > 2 else None)))
     elif a and a[0] == "ddp":
         print(json.dumps(profile_ddp(int(a[1]) if len(a) > 1 else 1,
                                      int(a[2]) if len(a) > 2 else 53,

@@ -8,8 +8,10 @@ forward rollouts in ``solver/sqp.py::solve``.
   backward sweep ``backward_scan`` and the rollout scan.  Its plain version
   is the JAX algorithm (Newton-Schulz solve of Huu, 20 iterations + 2
   refinements), or its ``riccati_solver='gj'`` exact solve; on a CUDA
-  tensor it launches ``csrc/riccati.cu``, which factors Huu by Cholesky
-  (NS was a TPU workaround for row-sequential LU).
+  tensor it launches ``csrc/riccati.cu``, which solves Huu exactly by a
+  Cholesky factor of its symmetric part (NS was a TPU workaround for
+  row-sequential LU) and forms S by the Gram form S = sym(Qxx) + H_xx -
+  Yx' Yx, Y = L^-1 [Hux hu], so its gains leave the recursion's chain.
 * ``riccati_solve_parallel`` (B5, ``riccati_parallel=True``, the B=1
   latency configuration): per-stage scattering elements, a reverse
   associative scan of their star products, gains read back per knot, and
@@ -109,9 +111,13 @@ def riccati_solve(lq: StageLQ, E, P, e, dx0, reg: float):
 
     lq fields (B, N, ...), E (B, N, nu, nx), P (B, N, nu, nu), e (B, N, nu),
     dx0 (B, nx).  Returns (Ks, kffs, dxs (B, N+1, nx), dus (B, N, nu)).
-    CPU: ``riccati_solve_plain`` with its defaults.  CUDA (float32): one
-    launch of ``hk_riccati_solve``, one block per scenario, which solves Huu
-    exactly (Cholesky)."""
+    CPU: ``riccati_solve_plain`` with its defaults.  CUDA (float32,
+    nx = nu = 22): one launch of ``hk_riccati_solve``, one block of nine
+    warps per scenario, which solves Huu exactly: per knot one warp factors
+    sym(Huu) with the forward sweep fused in, another turns the knot
+    before into gains, the next knot's inputs arrive meanwhile; the rollout
+    runs in one warp.  A Huu that is not positive definite gives NaN gains
+    at its knot and every earlier one, and a NaN rollout."""
     if lq.A.device.type == "cpu":
         return riccati_solve_plain(lq, E, P, e, dx0, reg)
     Bn, N, nx, _ = lq.A.shape

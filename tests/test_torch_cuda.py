@@ -15,6 +15,14 @@ WBC's QP at B=4096, 3 and 1 and on 64 seeded QPs of the hierarchical WBC's
 shapes (me=1, mi=40 or 1; ill-conditioned: their float32 plain error is the
 largest over the inputs and four one-ulp moves of them); n, me or mi above
 64 refused.
+riccati_solve (B3) solves exactly too: each output also within max(1e-4,
+2 x the float32 exact plain version's own error) of the float64 exact plain
+version (riccati_solver='gj'), on its own scale, on the flagship's cold-step
+data at B=1/N=53 and B=128/N=66; an indefinite Huu gives NaN gains at its
+knot and every earlier one; inputs off a 16-byte boundary give the aligned
+run's outputs bit for bit; a second LQ's gains written into the buffer the
+allocator takes back from a first LQ's give a fresh run's outputs bit for
+bit; float64, non-contiguous input and nx != 22 refused.
 riccati_solve_parallel (B5, exact solves): each output within max(1e-4,
 2 x the float32 exact plain version's own error) of the float64 exact plain
 version, on its own scale, both plain versions run on the CPU.
@@ -91,8 +99,8 @@ import torch
 from hunter_bipedal_control_tpu_torch.backends import dummy, fullorder
 from hunter_bipedal_control_tpu_torch.entry import (SimBatch, build_flagship, build_sim_loop,
                                                     build_wbc_batch, centroidal_batch,
-                                                    estimator_batch, qp_batch, sim_step_batch,
-                                                    walking_wbc_batch)
+                                                    estimator_batch, projected_lq, qp_batch,
+                                                    sim_step_batch, walking_wbc_batch)
 from hunter_bipedal_control_tpu_torch.estim import contact, kalman
 from hunter_bipedal_control_tpu_torch.gait import mode_schedule as ms
 from hunter_bipedal_control_tpu_torch.models import centroidal
@@ -385,27 +393,6 @@ def _random_lq(cuda, batch, n_knots, seed):
     return lq, E, P, e, dx0
 
 
-def _main_path_lq(cuda, n_knots, horizon):
-    """The projected LQ data of the flagship's cold step at B=1 (the card's
-    own projection kernel)."""
-    flag = build_flagship(n_knots, horizon, batch=1, device=cuda)
-    st = flag.settings
-    sched = mpc_mod.ModeSchedule(*(a[None] for a in flag.schedule))
-    target = mpc_mod.tg.TargetTrajectories(*(a[None] for a in flag.target))
-    z6 = torch.zeros(1, 6, device=cuda)
-    bundle, _, _, _ = mpc_mod.prepare_references(
-        flag.model, st, flag.planner_cfg, flag.state.planner, sched, target,
-        torch.zeros(1, device=cuda), flag.x0, z6, flag.default_joints[None])
-    xs, us = mpc_mod._warm_start(flag.model, st, bundle, flag.state, flag.x0)
-    xnext, A, Bm, _, qx, qu, Qxx, Quu, Qux, g, C, D, mask = sqp.knot_linearization_all(
-        flag.model, st, flag.params, bundle, xs, us)
-    proj = sqp.project_knot(st, *(t.contiguous() for t in (A, Bm, xnext - xs[:, 1:], qx, qu,
-                                                           Qxx, Quu, Qux, g, C, D, mask)))
-    A_t, B_t, d_t, qx_t, qw, Qxx_t, Qww, Qwx, E, e, P = [t.contiguous() for t in proj]
-    lq = riccati.StageLQ(A=A_t, B=B_t, d=d_t, Qxx=Qxx_t, Qww=Qww, Qwx=Qwx, qx=qx_t, qw=qw)
-    return lq, E, P, e, (flag.x0 - xs[:, 0]).contiguous()
-
-
 def _b5_against_exact(lq, E, P, e, dx0):
     before = riccati.riccati_solve_parallel.launches
     got = riccati.riccati_solve_parallel(lq, E, P, e, dx0, 1e-6)
@@ -432,7 +419,7 @@ def test_riccati_parallel_kernel_random(cuda, batch, n_knots):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_knots,horizon", [(53, 0.8), (66, 1.0)])
 def test_riccati_parallel_kernel_main_path(cuda, n_knots, horizon):
-    _b5_against_exact(*_main_path_lq(cuda, n_knots, horizon))
+    _b5_against_exact(*projected_lq(build_flagship(n_knots, horizon, batch=1, device=cuda)))
 
 
 @pytest.mark.cuda
@@ -463,6 +450,103 @@ def test_riccati_parallel_kernel_refuses_bad_input(cuda):
                                        1e-6)
     with pytest.raises(ValueError):
         riccati.riccati_solve_parallel(lq._replace(A=lq.A.transpose(-1, -2)), E, P, e, dx0, 1e-6)
+
+
+# B3 solves each knot exactly (a Cholesky of sym(Huu)), so it is held to the
+# exact plain version (riccati_solver='gj') by B5's rule
+B3_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+def test_riccati_solve_kernel_main_path(cuda, batch, n_knots, horizon):
+    """The flagship's cold-step LQ data (the card's own projection): each
+    output within max(1e-4, 2 x the float32 exact plain version's error) of
+    the float64 exact plain version, on its own scale; one launch."""
+    flag = build_flagship(n_knots, horizon, batch=batch, device=cuda)
+    lq, E, P, e, dx0 = projected_lq(flag)
+    reg = flag.settings.hess_reg
+    before = riccati.riccati_solve.launches
+    got = riccati.riccati_solve(lq, E, P, e, dx0, reg)
+    torch.cuda.synchronize()
+    assert riccati.riccati_solve.launches == before + 1
+    ref32 = riccati.riccati_solve_plain(lq, E, P, e, dx0, reg, solver="gj")
+    ref64 = riccati.riccati_solve_plain(riccati.StageLQ(*(t.double() for t in lq)),
+                                        *(t.double() for t in (E, P, e, dx0)), reg, solver="gj")
+    for name, a, b, c in zip(("K", "kff", "dxs", "dus"), got, ref32, ref64):
+        assert torch.isfinite(a).all(), name
+        assert _own_scale_err(a, c) <= max(B3_TOL, 2.0 * _own_scale_err(b, c)), name
+
+
+@pytest.mark.cuda
+def test_riccati_solve_kernel_not_spd_gives_nan(cuda):
+    """An indefinite Qww at knot 6 of 20: the sweep runs backward, so the
+    gains of knots 0-6 are NaN and those after it finite; one launch."""
+    lq, E, P, e, dx0 = _random_lq(cuda, 1, 20, seed=9)
+    Qww = lq.Qww.clone()
+    Qww[0, 6] = -1e3 * torch.eye(NU, device=cuda)
+    before = riccati.riccati_solve.launches
+    K, kff, dxs, dus = riccati.riccati_solve(lq._replace(Qww=Qww), E, P, e, dx0, 1e-6)
+    torch.cuda.synchronize()
+    assert riccati.riccati_solve.launches == before + 1
+    assert torch.isnan(K[0, :7]).all() and torch.isnan(kff[0, :7]).all()
+    assert torch.isfinite(K[0, 7:]).all() and torch.isfinite(kff[0, 7:]).all()
+    assert torch.isnan(dxs[0, 1:]).all() and torch.isnan(dus[0]).all()
+
+
+@pytest.mark.cuda
+def test_riccati_solve_kernel_unaligned_inputs(cuda):
+    """Inputs 4 bytes past a 16-byte boundary take the kernel's 4-byte
+    copies in place of its 16-byte and bulk ones: the same outputs, bit
+    for bit."""
+    lq, E, P, e, dx0 = _random_lq(cuda, 2, 9, seed=3)
+
+    def shifted(t):
+        out = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    got = riccati.riccati_solve(riccati.StageLQ(*(shifted(t) for t in lq)),
+                                *(shifted(t) for t in (E, P, e, dx0)), 1e-6)
+    ref = riccati.riccati_solve(lq, E, P, e, dx0, 1e-6)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_riccati_solve_kernel_reused_gain_buffer(cuda):
+    """Two different LQs in a row, the second's gains written into the
+    buffer the allocator takes back from the first: the rollout's copies
+    read this call's gains, so dxs and dus are within 2e-3 of the plain
+    version and every output equals a run into fresh buffers, bit for bit."""
+    first = _random_lq(cuda, 4, 30, seed=11)
+    second = _random_lq(cuda, 4, 30, seed=12)
+    fresh = riccati.riccati_solve(*second, 1e-6)
+    out = riccati.riccati_solve(*first, 1e-6)
+    torch.cuda.synchronize()
+    ptr = out[0].data_ptr()
+    del out
+    got = riccati.riccati_solve(*second, 1e-6)
+    torch.cuda.synchronize()
+    assert got[0].data_ptr() == ptr
+    ref = riccati.riccati_solve_plain(*second, 1e-6)
+    for name, a, b in zip(("dxs", "dus"), got[2:], ref[2:]):
+        assert rel_err(a, b) < 2e-3, name
+    for a, b in zip(got, fresh):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_riccati_solve_kernel_refuses_bad_input(cuda):
+    lq, E, P, e, dx0 = _random_lq(cuda, 1, 5, seed=1)
+    with pytest.raises(TypeError):
+        riccati.riccati_solve(riccati.StageLQ(*(t.double() for t in lq)), E, P, e, dx0, 1e-6)
+    with pytest.raises(ValueError):
+        riccati.riccati_solve(lq._replace(A=lq.A.transpose(-1, -2)), E, P, e, dx0, 1e-6)
+    with pytest.raises(ValueError):
+        riccati.riccati_solve(lq._replace(A=lq.A[..., :21, :21].contiguous()), E, P, e, dx0,
+                              1e-6)
 
 
 # ---------------------------------------------------------------------------
