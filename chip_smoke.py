@@ -28,7 +28,10 @@ Phases, each printing one JSON line:
      with the exact Huu solve, scenario by scenario, the scenarios where
      one-ulp moves of x_init spread float32 past the limit held to their
      own spread); the same warm step with
-     ``lin_backend='dense'`` on the card held to the 'soa' one, launches per
+     ``lin_backend='dense'`` on the card held to the 'soa' one by the same
+     rule (the batch's limit; the scenarios the main-path check found
+     ill-conditioned on the warm step, at most MAIN_MAX_ILL, to their own
+     spread), launches per
      step (and per phase, the reference prep split into its sub-phases) of
      both backends, the launches per tick and per walking loop period by the
      tick's sub-phases (``profile_step.profile_tick_phases``,
@@ -1710,8 +1713,14 @@ def main():
         dense_mpc(st1, *args)
         torch.cuda.synchronize()
         dense_times.append(time.perf_counter() - t)
-    tol = f32_limits(1)[1]
-    d_sd = dist(warm_dense, type(warm)(*(t.cpu() for t in warm)))
+    # the scenarios the main-path check found ill-conditioned on the warm
+    # step are held to their own spread (MAIN_FACTOR x their float32 runs'
+    # largest distance, or the floor), the others to the batch's limit
+    _, tol, ill_w, own_w, _ = f32_limits(1)
+    gap = per_scenario(warm_dense, type(warm)(*(t.cpu() for t in warm)))
+    d_sd = {q: v[~ill_w].max().item() for q, v in gap.items()}
+    exempt = {int(b): {q: {"gap": gap[q][b].item(), "limit": own_w[q][b].item()} for q in tol}
+              for b in ill_w.nonzero().flatten().tolist()}
     same_alpha = bool(torch.equal(warm_dense.step_size, warm.step_size))
 
     def step_launches(m_):
@@ -1727,14 +1736,17 @@ def main():
         phases[lb] = {**ph["launch_calls_by_phase"],
                       "prepare_references_split": ph["prepare_references_split"]}
     emit({"phase": "backends", "batch": B, "knots": N, "dense_vs_soa": d_sd, "tol": tol,
+          "ill_conditioned": exempt, "ill_conditioned_limit": MAIN_MAX_ILL,
           "step_size_equal": same_alpha, "launches_dense": dense_counts,
           "step_ms": {"soa": step_ms, "dense": statistics.median(dense_times) * 1e3},
           "device_launches_per_step": {k: v["device_launches"] for k, v in prof.items()},
           "profiled": prof, "phases": phases, "tick_phases": profile_tick_phases(1, 3),
           "loop_phases": profile_loop_phases(False, 2)})
-    if not (all(d_sd[q] <= tol[q] for q in tol) and same_alpha):
+    if not (all(d_sd[q] <= tol[q] for q in tol) and len(exempt) <= MAIN_MAX_ILL
+            and all(r["gap"] <= r["limit"] for row in exempt.values() for r in row.values())
+            and same_alpha):
         raise AssertionError(f"warm step: 'dense' vs 'soa' on the card: {d_sd} (tol {tol}), "
-                             f"step sizes equal: {same_alpha}")
+                             f"ill-conditioned {exempt}, step sizes equal: {same_alpha}")
     del dense_mpc, warm_dense
 
     # the product shape: one scenario, 53 knots over 0.8 s
