@@ -19,6 +19,15 @@ seeded LQ of ``tests/test_torch_kernels.py::lq_data`` (B=2, N=6) and on the
 projected first SQP iteration of a small flagship (``entry.projected_lq``,
 B=2, N=8, float64).  A Huu that is not positive definite at one knot gives
 NaN gains at that knot and at every earlier one, finite ones after it.
+
+On the product shape's projected LQ data (``entry.projected_lq``, B=1,
+N=53, float32: the data chip_smoke's phase 4d holds B3 on), the gains of the
+kernel's order lie ~3e-5 (K) and ~1.5e-5 (kff) from the float64 exact
+solve in float64 as in float32: the projection leaves Qww asymmetric (~3e-3
+of its scale), and the kernel solves sym(Huu) where the exact plain version
+solves Huu as projected.  With Qxx and Qww symmetrized the order is the
+exact solve in float64 (1e-9) and within TOL_FACTOR x the float32 exact
+plain version's error in float32: the kernel's arithmetic is not the term.
 """
 import os
 import sys
@@ -30,6 +39,7 @@ import torch
 
 from hunter_bipedal_control_tpu.solver import riccati as jric
 from hunter_bipedal_control_tpu_torch.entry import build_flagship, projected_lq
+from hunter_bipedal_control_tpu_torch.solver import riccati as tric
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_kernels import _jax_forward, lq_data  # noqa: E402
@@ -179,3 +189,38 @@ def test_kernel_order_not_spd_gives_nan():
     assert torch.isfinite(K[0, 4:]).all()
     assert torch.isnan(dxs[0, 1:]).all() and torch.isnan(dus[0]).all()
     assert torch.isfinite(K[1]).all()   # the other scenario is untouched
+
+
+def _scaled(got, ref):
+    return [((g.double() - r).abs().max() / r.abs().max()).item() for g, r in zip(got, ref)]
+
+
+def test_kernel_order_symmetric_parts_on_4d_data():
+    """chip_smoke 4d's K and kff gap (2.63e-5 / 2.13e-5 on the card against
+    the float32 exact plain version's 8.7e-7 / 5.2e-7) is the symmetric
+    parts', not the kernel's rounding."""
+    flag = build_flagship(53, 0.8, batch=1, device="cpu", dtype=torch.float32)
+    lq, E, P, e, dx0 = projected_lq(flag)
+    reg = flag.settings.hess_reg
+
+    def cast(data, dt):
+        return (tric.StageLQ(*(f.to(dt) for f in data)), *(a.to(dt) for a in (E, P, e, dx0)))
+
+    def exact(data, dt):
+        return tric.riccati_solve_plain(*cast(data, dt), reg, solver="gj")
+
+    asym = (lq.Qww - lq.Qww.transpose(-1, -2)).abs().max() / lq.Qww.abs().max()
+    assert asym > 1e-3
+    ref = exact(lq, torch.float64)
+    gap64 = _scaled(kernel_order(*cast(lq, torch.float64), reg), ref)
+    gap32 = _scaled(kernel_order(*cast(lq, torch.float32), reg), ref)
+    exact32 = _scaled(exact(lq, torch.float32), ref)
+    for q in (0, 1):   # K, kff: the symmetric parts' gap, the same in both precisions
+        assert gap64[q] > 1e-5 and gap32[q] > 5 * exact32[q]
+        assert abs(gap32[q] - gap64[q]) < 0.1 * gap64[q]
+    sym = lq._replace(Qxx=_sym(lq.Qxx), Qww=_sym(lq.Qww))
+    ref_s = exact(sym, torch.float64)
+    assert max(_scaled(kernel_order(*cast(sym, torch.float64), reg), ref_s)) < RTOL
+    got32 = _scaled(kernel_order(*cast(sym, torch.float32), reg), ref_s)
+    exact32_s = _scaled(exact(sym, torch.float32), ref_s)
+    assert all(g <= 2.0 * x for g, x in zip(got32, exact32_s)), (got32, exact32_s)
