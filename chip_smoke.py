@@ -76,7 +76,8 @@ Phases, each printing one JSON line:
      batch and on seeded walking states (mixed contact flags, both stance
      modes) at B=4096: the six QP arrays against the float64 plain version
      within max(tol, 2x the float32 plain version's error), bfloat16 landing
-     above the limit; kernel and plain times, the bound (``wbc_qp_cost``);
+     above the limit; kernel and plain times, the kernel's own device time
+     (``own_device_time``) and one warp's floor, the bound (``wbc_qp_cost``);
   4c. the batched WBC (``entry.wbc_chain``): B=4096 standing states, one
      cold tick, then a 6-tick warm chain, solves/s, solutions and accepted
      QPs per tick held against CPU float32 and float64 runs of every 16th
@@ -120,15 +121,16 @@ Phases, each printing one JSON line:
      limit; A_sys = M + diag(armature + dt damping), which the kernel
      eliminates without pivoting, positive definite on every substep (its
      smallest eigenvalue and largest condition number from the float64
-     plain version); kernel and plain times, the bound (``sim_step_cost``);
+     plain version); kernel and plain times, at B=1 the kernel's own
+     device time (``own_device_time``), the bound (``sim_step_cost``);
   4i. B10 (momentum_observer) and B12 (kalman_update) on every update's
      inputs of 4g's loop (B=1, one launch each: 200 and 240) and on a
      seeded walking batch (``entry.estimator_batch``, B=4096): the
      observer's p_scg_z, est_forces and tau_dist and the filter's x_hat, P,
      position and velocity against the float64 plain version within
      max(tol, 2x the float32 plain version's error), bfloat16 landing above
-     the limit; kernel and plain times, the bounds (``observer_cost``,
-     ``kalman_cost``);
+     the limit; kernel and plain times, at B=1 each kernel's own device
+     time, the bounds (``observer_cost``, ``kalman_cost``);
   4j. B13a (synth_imu), B13b (rbd_to_centroidal), B14a (dummy_step) and
      B14b (state_input_to_v) on every call's inputs of 4g's and 4f's loops
      (B=1: 240 sensings, 200 ticks) and on a seeded walking batch
@@ -438,6 +440,9 @@ QP_PROFILED_CALLS = 20
 RICCATI_EXACT_TOL = 1e-4
 # kernel calls under the profiler for B3's own device time
 RICCATI_PROFILED_CALLS = 20
+# kernel calls under the profiler for the own device time of B9 (each case)
+# and of B10, B11 and B12 (at B=1)
+WBC_QP_PROFILED_CALLS = EST_PROFILED_CALLS = 20
 
 
 T_START = time.perf_counter()
@@ -1020,27 +1025,29 @@ def prep_compare(names, got, p32, p64, bf16, dec_k, dec32, dec64):
                          "scenarios": Bn}
 
 
-def wbc_qp_cost(batch, n=38, me=28, mi=40, rows=36, nq=16, links=11, nc=4):
+def wbc_qp_cost(batch, n=38, me=28, mi=40, rows=36, dense=15, nq=16, links=11, nc=4):
     """Bytes (x_des, u_des, rbd, flags in, 79 floats and the stance flag per
     scenario; the model's 497 constants and the 17 gains once; the six QP
-    arrays out, 4,134 floats per scenario) and operations of csrc/wbc_qp.cu
-    per scenario: two FK chains (10 joints: two 3x3 products, two 3x3-vector
-    products, the Rodrigues matrix), the desired base velocity (the world
-    inertias, the CMM base block and its 3x3 inverse), two velocity passes,
-    per (state, link or contact) 16 Jacobian columns with their time
-    derivatives (~60 each) summed against v, M (16 x 16 entries over 11
-    links), nle, the desired base acceleration, the task rows, H (38 x 38
-    over 36 rows) and g."""
+    arrays out, 4,134 floats per scenario) and operations of the function
+    per scenario: two FK chains (10 joints: two 3x3 products, two
+    3x3-vector products, the Rodrigues matrix), the desired base velocity
+    (the world inertias, the CMM base block and its 3x3 inverse), two
+    velocity passes, per (state, link or contact) 16 Jacobian columns with
+    their time derivatives (~60 each) summed against v, M (its 136 distinct
+    entries over 11 links), nle, the desired base acceleration, the task
+    rows, H's 16x16 block (136 entries over the 15 dense rows) and its
+    diagonal, and g."""
     n_in = batch * (79 * 4 + 1) + (497 + 17) * 4
     n_out = batch * (n * n + n + me * n + me + mi * n + mi) * 4
     fk = 10 * (45 + 15 + 15 + 27 + 45 + 6) + 11 * 18 + 20
     base_vel = 11 * 90 + 11 * 60 + 150 + 10 * 30
     columns = 2 * (links + nc) * nq * 60
-    mass = nq * nq * links * 28
+    tri = nq * (nq + 1) // 2
+    mass = tri * links * 28
     nle = nq * links * 12 + links * 40
     acc = links * 60 + nc * 20 + 60
-    tasks = rows * n + 150
-    gram = n * n * rows * 2 + n * rows * 2
+    tasks = dense * nq + rows * 4 + 150
+    gram = tri * dense * 2 + n + nq * dense * 2 + n
     ops = 2 * fk + base_vel + 2 * 10 * 20 + columns + mass + nle + acc + tasks + gram
     return n_in + n_out, batch * ops
 
@@ -1143,6 +1150,7 @@ def main():
     from hunter_bipedal_control_tpu_torch.ocp import soa_kernel
     from hunter_bipedal_control_tpu_torch.ops import linalg, qp
     from hunter_bipedal_control_tpu_torch.profile_step import (_charged_launches, _profiled,
+                                                               own_device_time,
                                                                profile_loop_phases,
                                                                profile_phases, profile_sim_loop,
                                                                profile_sim_loop_phases,
@@ -1250,20 +1258,6 @@ def main():
                      exact(torch.float64))
         check(f"{label} vs the exact plain version", err, RICCATI_EXACT_TOL)
         return {"vs_exact": per_output(err, RICCATI_EXACT_TOL)}
-
-    def own_device_time(call, n_calls, kernel):
-        """``call()`` n_calls times under the profiler: the kernel's own
-        device time per launch the profiler recorded, apart from its
-        wrapper's host work (null when it recorded none; it may keep fewer
-        launches than were made), and the launches it recorded."""
-        def calls():
-            for _ in range(n_calls):
-                call()
-            torch.cuda.synchronize()
-
-        own = [k for k in _profiled(calls, 1, 4)["top_kernels"] if kernel in k["name"]]
-        recorded = sum(k["count"] for k in own)
-        return (sum(k["ms"] for k in own) / recorded if recorded else None), recorded
 
     def riccati_own_time(args, n_knots):
         """B3's own device time (``own_device_time``) and one SM's issue
@@ -2170,10 +2164,16 @@ def main():
         times = (cuda_ms(lambda: wbc_mod.wbc_qp(*a)),
                  cuda_ms(lambda: wbc_mod.wbc_qp_plain(*a), reps=3))
         cost = wbc_qp_cost(Bn)
+        own_ms, own_n = own_device_time(lambda: wbc_mod.wbc_qp(*a), WBC_QP_PROFILED_CALLS,
+                                        "wbc_qp_kernel")
         info = {"label": label, "batch": Bn, "cases": len(cases),
                 "stance_modes": sorted(set(torch.cat([c[6] for c in cases]).tolist())),
                 "contact_modes": len(torch.unique(torch.cat([c[5] for c in cases]), dim=0)),
-                "plain_bf16_rel_err_vs_f64": e_bf16}
+                "plain_bf16_rel_err_vs_f64": e_bf16, "kernel_device_ms": own_ms,
+                "profiled_launches": own_n, "profiled_calls": WBC_QP_PROFILED_CALLS,
+                # one warp (32 lanes) issuing a scenario's operations at one per
+                # lane per clock
+                "serial_chain_ms": wbc_qp_cost(1)[1] / 32 / SM_CLOCK_HZ * 1e3}
         if row:
             record("wbc_qp", "cuda", "hunter_bipedal_control_tpu_torch/csrc/wbc_qp.cu",
                    "hunter_bipedal_control_tpu/wbc/wbc.py:123", err, tol, times[0], times[1],
@@ -2546,6 +2546,10 @@ def main():
         if row:
             # the launches B11 takes away from each tick
             info["plain_device_launches_per_tick"] = _profiled(plain_tick, 1, 1)["device_launches"]
+            own_ms, own_n = own_device_time(lambda: real_substeps(*last), EST_PROFILED_CALLS,
+                                            "sim_step_kernel")
+            info.update(kernel_device_ms=own_ms, profiled_launches=own_n,
+                        profiled_calls=EST_PROFILED_CALLS)
             record("sim_step", "cuda", "hunter_bipedal_control_tpu_torch/csrc/sim_step.cu",
                    "hunter_bipedal_control_tpu/backends/fullorder.py:126", err, tol, times[0],
                    times[1], None, cost, info)
@@ -2644,6 +2648,10 @@ def main():
             # the launches the kernel takes away from each update
             info["plain_device_launches_per_update"] = _profiled(plain_update, 1, 1)[
                 "device_launches"]
+            own_ms, own_n = own_device_time(lambda: run(last), EST_PROFILED_CALLS,
+                                            f"{name}_kernel")
+            info.update(kernel_device_ms=own_ms, profiled_launches=own_n,
+                        profiled_calls=EST_PROFILED_CALLS)
             record(name, "cuda", source, replaces, err, tol, times[0], times[1], None,
                    cost_fn(Bn), info)
         else:

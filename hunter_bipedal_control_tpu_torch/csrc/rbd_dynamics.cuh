@@ -1,5 +1,6 @@
 // One state's rigid-body dynamics on the compiled model, shared by B9
-// (wbc_qp.cu), B10 (momentum_observer.cu), B11 (sim_step.cu) and B12
+// (wbc_qp.cu, which also takes point_column_kin for a state kept apart from
+// a State), B10 (momentum_observer.cu), B11 (sim_step.cu) and B12
 // (kalman_update.cu): the kinematic chain of soa_model.cuh,
 // every link CoM's and contact point's 16 Jacobian columns (v[3:6] are ZYX
 // Euler rates, so the base columns carry E(theta)) with their time
@@ -105,6 +106,64 @@ __device__ void point_column(const State* s, int k, int i, const float* x, const
   } else {
     const int j = i - 6;
     const float mask = static_cast<float>(c_anc[k][j]);
+    const float* aj = w->aw[j];
+    float r[3], rd[3], ad[3], l[3], t1[3], t2[3];
+    for (int a = 0; a < 3; ++a) {
+      r[a] = x[a] - w->anchor[j][a];
+      rd[a] = xd[a] - w->vo[c_child[j]][a];
+    }
+    cross3(w->om[c_parent[j]], aj, ad);
+    cross3(aj, r, l);
+    cross3(ad, r, t1);
+    cross3(aj, rd, t2);
+    for (int a = 0; a < 3; ++a) {
+      lin[a] = l[a] * mask;
+      ang[a] = aj[a] * mask;
+      dlin[a] = (t1[a] + t2[a]) * mask;
+      dang[a] = ad[a] * mask;
+    }
+  }
+}
+
+// point_column on one state's kinematics w, E, dE/dt and v kept apart from
+// a State (B9), the point's link given by its ancestor bits (bit j: SOA_ANC's
+// entry of joint j), which the lanes of a warp hold for different links
+// without reading the constant bank at different addresses: the same
+// arithmetic
+__device__ __forceinline__ unsigned ancestor_bits(int k) {
+  unsigned bits = 0;
+  for (int j = 0; j < NJ; ++j) bits |= static_cast<unsigned>(c_anc[k][j] != 0) << j;
+  return bits;
+}
+
+__device__ void point_column_kin(const Kin* w, const float* E, const float* Ed, const float* v,
+                                 unsigned anc, int i, const float* x, const float* xd,
+                                 float* lin, float* ang, float* dlin, float* dang) {
+  if (i < 3) {
+    for (int a = 0; a < 3; ++a) {
+      lin[a] = a == i ? 1.0f : 0.0f;
+      ang[a] = dlin[a] = dang[a] = 0.0f;
+    }
+  } else if (i < 6) {
+    const int c = i - 3;
+    const float Ec[3] = {E[c], E[3 + c], E[6 + c]};
+    const float Edc[3] = {Ed[c], Ed[3 + c], Ed[6 + c]};
+    float r[3], rd[3], t1[3], t2[3];
+    for (int a = 0; a < 3; ++a) {
+      r[a] = x[a] - w->p[0][a];
+      rd[a] = xd[a] - v[a];
+    }
+    cross3(Ec, r, lin);
+    cross3(Edc, r, t1);
+    cross3(Ec, rd, t2);
+    for (int a = 0; a < 3; ++a) {
+      ang[a] = Ec[a];
+      dlin[a] = t1[a] + t2[a];
+      dang[a] = Edc[a];
+    }
+  } else {
+    const int j = i - 6;
+    const float mask = static_cast<float>((anc >> j) & 1u);
     const float* aj = w->aw[j];
     float r[3], rd[3], ad[3], l[3], t1[3], t2[3];
     for (int a = 0; a < 3; ++a) {

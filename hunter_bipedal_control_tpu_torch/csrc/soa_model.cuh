@@ -162,6 +162,100 @@ __device__ void fk_dev(const float* K, const float* q, Kin* w) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the chain per leg (B9): the tree is the base and two legs of NJ / 2 joints,
+// joint j of leg g = j / LEG_JOINTS with parent link j (the base for the
+// leg's first joint) and child link j + 1 (SOA_PARENT, SOA_CHILD)
+// ---------------------------------------------------------------------------
+
+constexpr int LEG_JOINTS = NJ / 2;
+
+// the base's trig cache (cz, sz, cy, sy), rotation and position from q
+// (fk_dev's first lines)
+__device__ __forceinline__ void base_pose_dev(const float* q, float* trig, float* R0,
+                                              float* p0) {
+  const float cz = cosf(q[3]), sz = sinf(q[3]);
+  const float cy = cosf(q[4]), sy = sinf(q[4]);
+  const float cx = cosf(q[5]), sx = sinf(q[5]);
+  trig[0] = cz; trig[1] = sz; trig[2] = cy; trig[3] = sy;
+  R0[0] = cz * cy; R0[1] = cz * sy * sx - sz * cx; R0[2] = cz * sy * cx + sz * sx;
+  R0[3] = sz * cy; R0[4] = sz * sy * sx + cz * cx; R0[5] = sz * sy * cx - cz * sx;
+  R0[6] = -sy;     R0[7] = cy * sx;                R0[8] = cy * cx;
+  p0[0] = q[0]; p0[1] = q[1]; p0[2] = q[2];
+}
+
+// joint j's local transform at angle qj: T = R_origin rod(qj) (Rodrigues)
+// and its axis in the parent's frame, a = R_origin axis (9 + 3 floats)
+__device__ __forceinline__ void joint_local_dev(const float* K, int j, float qj, float* T,
+                                                float* a) {
+  const float cj = cosf(qj), sj = sinf(qj);
+  const float u = 1.0f - cj;
+  float rod[9];
+  for (int e = 0; e < 9; ++e)
+    rod[e] = ((e % 4 == 0) ? 1.0f : 0.0f) + sj * K[K_RK + 9 * j + e] + u * K[K_RKK + 9 * j + e];
+  mm3(K + K_OROT + 9 * j, rod, T);
+  mv3(K + K_OROT + 9 * j, K + K_AXIS + 3 * j, a);
+}
+
+// leg g's chain from the base's rotation R0 and position p0 and its velocity
+// om0, vo0 (zeros for the base-fixed pass) with joint velocities vj, given
+// each joint's local transform T (9 floats a joint) and axis a (3):
+// the leg's links' R, p, com, om, vo and its joints' aw, anchor into w, the
+// running frame kept in registers; per joint R_child = R T, p_child = p + R
+// origin, aw = R a on the chain (fk_dev's products regrouped, its velocity
+// pass's arithmetic)
+__device__ void leg_chain_dev(const float* K, const float* T, const float* a, const float* vj,
+                              int g, const float* R0, const float* p0, const float* om0,
+                              const float* vo0, Kin* w) {
+  float R[9], p[3], om[3], vo[3];
+  for (int e = 0; e < 9; ++e) R[e] = R0[e];
+  for (int i = 0; i < 3; ++i) {
+    p[i] = p0[i];
+    om[i] = om0[i];
+    vo[i] = vo0[i];
+  }
+#pragma unroll 1
+  for (int n = 0; n < LEG_JOINTS; ++n) {
+    const int j = LEG_JOINTS * g + n, ch = j + 1;
+    float t[3], por[3], aw[3], Rc[9];
+    mv3(R, K + K_OPOS + 3 * j, t);
+    mv3(R, a + 3 * j, aw);
+    mm3(R, T + 9 * j, Rc);
+    for (int i = 0; i < 3; ++i) por[i] = p[i] + t[i];
+    float dp[3], c[3];
+    for (int i = 0; i < 3; ++i) dp[i] = por[i] - p[i];
+    cross3(om, dp, c);
+    for (int i = 0; i < 3; ++i) {
+      vo[i] = vo[i] + c[i];
+      om[i] = om[i] + vj[j] * aw[i];
+      p[i] = por[i];
+    }
+    for (int e = 0; e < 9; ++e) R[e] = Rc[e];
+    float tc[3];
+    mv3(R, K + K_COML + 3 * ch, tc);
+    for (int e = 0; e < 9; ++e) w->R[ch][e] = R[e];
+    for (int i = 0; i < 3; ++i) {
+      w->p[ch][i] = p[i];
+      w->anchor[j][i] = p[i];
+      w->aw[j][i] = aw[i];
+      w->com[ch][i] = p[i] + tc[i];
+      w->om[ch][i] = om[i];
+      w->vo[ch][i] = vo[i];
+    }
+  }
+}
+
+// link k's world inertia R I R^T (world_inertias_dev's for one link)
+__device__ __forceinline__ void link_inertia_world(const float* K, const float* R, int k,
+                                                   float* Iw) {
+  float RI[9];
+  mm3(R, K + K_INER + 9 * k, RI);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j)
+      Iw[3 * i + j] = RI[3 * i] * R[3 * j] + RI[3 * i + 1] * R[3 * j + 1]
+                      + RI[3 * i + 2] * R[3 * j + 2];
+}
+
 // world inertias R I R^T of every link
 __device__ void world_inertias_dev(const float* K, Kin* w) {
   for (int k = 0; k < L; ++k) {

@@ -12,6 +12,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step ddp [batch] [knots] [horizon] [RK2|ODE45] [iterations]
     python -m hunter_bipedal_control_tpu_torch.profile_step qp_phases [batch] [iterations]
     python -m hunter_bipedal_control_tpu_torch.profile_step riccati_phases [batch] [knots] [horizon]
+    python -m hunter_bipedal_control_tpu_torch.profile_step wbc_qp_phases [batch] [wbc_qp.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step wbc_qp_times [other/wbc_qp.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step backends_spread [moves] [riccati.cu]
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
@@ -51,7 +53,12 @@ QP into its phases by the kernel's own clock (``profile_qp_phases``);
 ``riccati_phases`` splits kernel B3's knot on the flagship's cold-step LQ
 data the same way (``profile_riccati_phases``: the copies' wait, SM, H,
 the factor, the first knot's gains, S and s, the rollout; the back sweep's
-own cycles apart, as they overlap the factor).  ``backends_spread`` measures
+own cycles apart, as they overlap the factor); ``wbc_qp_phases`` splits
+kernel B9 on the standing and walking WBC batches the same way
+(``profile_wbc_qp_phases``: scenario 0's cycles by WBC_QP_PHASE_NAMES), and
+``wbc_qp_times`` times B9 around its wrapper and by its own device time,
+beside another ``wbc_qp.cu`` if given (``profile_wbc_qp_times``).
+``backends_spread`` measures
 no time: it reads how far the flagship's warm step with the dense
 linearization lands from the one with kernel B1, scenario by scenario, at
 x_init as built and moved by one ulp (``profile_backends_spread``),
@@ -85,6 +92,23 @@ def _profiled(run, per: int, top: int):
         "top_kernels": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3 / per,
                          "count": e.count / per} for e in heavy],
     }
+
+
+def own_device_time(call, n_calls: int, kernel: str):
+    """``call()`` n_calls times under the profiler: the kernel's own device
+    time per launch the profiler recorded (ms), apart from its wrapper's
+    host work (None when it recorded none; it may keep fewer launches than
+    were made), and the launches it recorded."""
+    import torch
+
+    def calls():
+        for _ in range(n_calls):
+            call()
+        torch.cuda.synchronize()
+
+    own = [k for k in _profiled(calls, 1, 4)["top_kernels"] if kernel in k["name"]]
+    recorded = sum(k["count"] for k in own)
+    return (sum(k["ms"] for k in own) / recorded if recorded else None), recorded
 
 
 def profile_step(batch: int = 128, knots: int = 66, horizon: float = 1.0, top: int = 12,
@@ -606,6 +630,134 @@ def profile_riccati_phases(batch: int = 1, knots: int = 53, horizon: float = 0.8
             "total_cycles_per_knot": sum(cycles[:-1]) / knots, "kernel_ms": ms}
 
 
+# kernel B9's phases (csrc/wbc_qp.cu, -DWBC_QP_PHASE_CLOCKS): the inputs'
+# loads, the two states' chains (with the desired base velocity), the
+# Jacobian columns, M / nle / the desired base acceleration, the task rows,
+# H and g, the constraint rows' stores
+WBC_QP_PHASE_NAMES = ("loads", "chains", "columns", "dynamics", "rows", "h_g", "stores")
+# kernel calls under the profiler for B9's own device time
+WBC_QP_PROFILED_CALLS = 20
+
+
+def _wbc_qp_cases(batch: int):
+    """B9's argument tuples at ``batch``: bench.py's standing batch and
+    ``entry.walking_wbc_batch`` (seed 0), on the card."""
+    import torch
+
+    from .entry import build_wbc_batch, walking_wbc_batch
+
+    dev = torch.device("cuda")
+    return {name: (wb.model, wb.params, wb.x_des, wb.u_des, wb.rbd, wb.contact_flags,
+                   wb.stance_mode)
+            for name, wb in (("standing", build_wbc_batch(batch, dev)),
+                             ("walking", walking_wbc_batch(batch, dev, seed=0)))}
+
+
+def _tick_wbc_inputs(ticks: int = 50):
+    """B9's arguments on the last of ``ticks`` chained ticks of the tick path
+    (B=1, the product shape's cold policy), as chip_smoke's phase 4b runs it."""
+    import torch
+
+    from .entry import build_controller, tick_chain
+    from .runtime import controller as ctrl_mod
+
+    flag, policy = _tick_policy(1, "soa")
+    setup = build_controller(1)
+    seen, real = [], ctrl_mod.wbc_solve
+
+    def keep(model, params, state, *a):
+        seen.append((model, params, *(t.contiguous() for t in a)))
+        return real(model, params, state, *a)
+
+    ctrl_mod.wbc_solve = keep
+    try:
+        tick_chain(setup, policy, flag.schedule, ticks)
+    finally:
+        ctrl_mod.wbc_solve = real
+    torch.cuda.synchronize()
+    return seen[-1]
+
+
+def profile_wbc_qp_phases(batch: int = 1, source: str = "wbc_qp.cu"):
+    """Kernel B9 (``csrc/<source>``, or the file at the path ``source``)
+    built once more with ``-DWBC_QP_PHASE_CLOCKS`` (``_clock_phases``) on
+    bench.py's standing batch and on ``entry.walking_wbc_batch`` at
+    ``batch``: scenario 0's clock64 cycles by phase (WBC_QP_PHASE_NAMES) and
+    the kernel's median time with the clocks in; and the ptxas lines of the
+    package's build of csrc/wbc_qp.cu."""
+    import torch
+
+    from .kernels import _build
+    from .wbc import wbc
+
+    out = {}
+    for name, args in _wbc_qp_cases(batch).items():
+        wbc.wbc_qp(*args)  # the constants and gains on the card, by the package's library
+        cycles, ms = _clock_phases(source, "WBC_QP_PHASE_CLOCKS", "hk_wbc_qp",
+                                   "hk_wbc_qp_phase_cycles", len(WBC_QP_PHASE_NAMES),
+                                   lambda: wbc.wbc_qp(*args))
+        out[name] = {"cycles": dict(zip(WBC_QP_PHASE_NAMES, cycles)),
+                     "total_cycles": sum(cycles), "kernel_ms": ms}
+    log = _build.build_log.split("== wbc_qp.cu", 1)[-1].split("\n== ", 1)[0]
+    return {"phase": "profile_wbc_qp_phases", "batch": batch, "source": source,
+            "device": torch.cuda.get_device_name(0), **out,
+            "ptxas": [ln.strip() for ln in log.splitlines() if "ptxas" in ln]}
+
+
+def profile_wbc_qp_times(other: str | None = None, reps: int = 15):
+    """Kernel B9's time around its wrapper (CUDA events, median of ``reps``)
+    and its own device time per recorded launch (``own_device_time``, over
+    WBC_QP_PROFILED_CALLS calls) on the tick path's last tick (B=1) and at
+    B=4096 on bench.py's standing batch and ``entry.walking_wbc_batch``.
+    Given ``other`` (a ``wbc_qp.cu`` of the same C interface, e.g. a parent
+    checkout's), that kernel too, built with ``_build.measurement_library``
+    and run in place of the package's: package, other, other, package."""
+    import statistics
+
+    import torch
+
+    from .kernels import _build
+    from .wbc import wbc
+
+    cases = {"tick_b1": _tick_wbc_inputs()}
+    cases.update({f"{k}_b4096": v for k, v in _wbc_qp_cases(4096).items()})
+    real_library = _build.library
+    libs = {"package": real_library}
+    if other is not None:
+        alt = _WithEntry(_build.measurement_library(other, None, ["hk_wbc_qp"]),
+                         real_library(), "hk_wbc_qp")
+        libs[other] = lambda: alt
+
+    def event_ms(args):
+        wbc.wbc_qp(*args)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            wbc.wbc_qp(*args)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    order = list(libs) + list(reversed(libs)) if other is not None else list(libs)
+    out = {name: {case: [] for case in cases} for name in libs}
+    try:
+        for name in order:
+            _build.library = libs[name]
+            for case, args in cases.items():
+                own, recorded = own_device_time(lambda: wbc.wbc_qp(*args),
+                                                WBC_QP_PROFILED_CALLS, "wbc_qp_kernel")
+                out[name][case].append({"kernel_ms": event_ms(args), "kernel_device_ms": own,
+                                        "profiled_launches": recorded})
+    finally:
+        _build.library = real_library
+    return {"phase": "profile_wbc_qp_times", "device": torch.cuda.get_device_name(0),
+            "profiled_calls": WBC_QP_PROFILED_CALLS, "reps": reps, "order": order,
+            "times": out}
+
+
 class _WithEntry:
     """The package's kernel library with one entry point taken from another
     library."""
@@ -746,6 +898,11 @@ if __name__ == "__main__":
         print(json.dumps(profile_riccati_phases(int(a[1]) if len(a) > 1 else 1,
                                                 int(a[2]) if len(a) > 2 else 53,
                                                 float(a[3]) if len(a) > 3 else 0.8)))
+    elif a and a[0] == "wbc_qp_phases":
+        print(json.dumps(profile_wbc_qp_phases(int(a[1]) if len(a) > 1 else 1,
+                                               a[2] if len(a) > 2 else "wbc_qp.cu")))
+    elif a and a[0] == "wbc_qp_times":
+        print(json.dumps(profile_wbc_qp_times(a[1] if len(a) > 1 else None)))
     elif a and a[0] == "backends_spread":
         print(json.dumps(profile_backends_spread(int(a[1]) if len(a) > 1 else 8,
                                                  a[2] if len(a) > 2 else None)))

@@ -12,6 +12,7 @@ solution, as the reference's WBC does.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -207,34 +208,81 @@ def wbc_qp_plain(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measure
 
 
 # WbcParams' tensor fields, in the order csrc/wbc_qp.cu reads them
+GAIN_FIELDS = ("torque_limits", "friction_coeff", "swing_kp", "swing_kd", "base_accel_kp",
+               "base_accel_kd", "base_height_kp", "base_height_kd", "base_angular_kp",
+               "base_angular_kd", "weight_swing", "weight_base_accel", "weight_contact_force")
 N_PARAMS = 17
-# one block per scenario: grid.x
+# one block (a warp) per scenario: grid.x
 MAX_BLOCKS = 2 ** 31 - 1
+# the six QP arrays per scenario (H, g, Aeq, beq, Ain, bin), views into one
+# buffer, each array's offset a multiple of 4 floats: the kernel writes H,
+# Aeq and Ain by 16-byte stores
+OUT_SHAPES = ((NDEC, NDEC), (NDEC,), (N_EQ_ROWS, NDEC), (N_EQ_ROWS,), (N_INEQ_ROWS, NDEC),
+              (N_INEQ_ROWS,))
+# the gains buffers and constants kept for the last few WbcParams and models
+CACHE_SIZE = 8
+_params_buffers: dict = {}
+_consts: dict = {}
+
+
+def _keep(cache: dict, key, value):
+    if len(cache) >= CACHE_SIZE:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+    return value[-1]
 
 
 def params_buffer(params: WbcParams) -> torch.Tensor:
     """The WBC's gains and weights in the kernel's layout: the tensor fields
     of ``WbcParams`` in order, one float32 tensor on their device (one
-    concatenation, no sync)."""
-    gains = (params.friction_coeff, params.swing_kp, params.swing_kd, params.base_accel_kp,
-             params.base_accel_kd, params.base_height_kp, params.base_height_kd,
-             params.base_angular_kp, params.base_angular_kd, params.weight_swing,
-             params.weight_base_accel, params.weight_contact_force)
-    if tuple(params.torque_limits.shape) != (5,) or any(t.ndim for t in gains):
+    concatenation, no sync).  Kept per ``WbcParams`` and rebuilt when one of
+    its tensors changes in place (its version counter); a tensor replaced
+    makes another ``WbcParams``."""
+    tensors = tuple(getattr(params, f) for f in GAIN_FIELDS)
+    versions = tuple(t._version for t in tensors)
+    hit = _params_buffers.get(id(params))
+    if hit is not None and hit[0] is params and hit[1] == versions:
+        return hit[2]
+    if tuple(params.torque_limits.shape) != (5,) or any(t.ndim for t in tensors[1:]):
         raise ValueError("wbc_qp kernel: torque_limits must be (5,), the other gains 0-d")
-    return torch.cat([t.reshape(-1).to(torch.float32) for t in (params.torque_limits, *gains)])
+    buf = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    return _keep(_params_buffers, id(params), (params, versions, buf))
+
+
+def consts_buffer(model: RobotModel, device) -> torch.Tensor:
+    """B1's constants buffer of ``model`` on ``device`` (``soa_kernel.
+    consts_buffer``, which refuses a model of another topology), looked up
+    by the model's identity: a model's arrays are not changed in place."""
+    key = (id(model), device)
+    hit = _consts.get(key)
+    if hit is not None and hit[0] is model:
+        return hit[1]
+    return _keep(_consts, key, (model, soa_kernel.consts_buffer(model, device)))
+
+
+def qp_buffers(batch: int, device):
+    """The six QP arrays of ``batch`` scenarios as contiguous float32 views
+    into one buffer, each at a 16-byte-aligned offset."""
+    sizes = [batch * math.prod(shape) for shape in OUT_SHAPES]
+    offsets, end = [], 0
+    for n in sizes:
+        offsets.append(end)
+        end += -(-n // 4) * 4
+    buf = torch.empty(end, dtype=torch.float32, device=device)
+    return tuple(buf[o:o + n].view(batch, *shape)
+                 for o, n, shape in zip(offsets, sizes, OUT_SHAPES))
 
 
 def wbc_qp(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measured, contact_flags,
            stance_mode):
     """Kernel B9: the weighted WBC's QP data (H, g, Aeq, beq, Ain, bin).
 
-    CPU: ``wbc_qp_plain``.  CUDA: one launch of ``hk_wbc_qp``, one block
-    per scenario, or an error: x_des, u_des (B, 22), rbd_measured (B, 32),
+    CPU: ``wbc_qp_plain``.  CUDA: one launch of ``hk_wbc_qp``, a warp per
+    scenario, or an error: x_des, u_des (B, 22), rbd_measured (B, 32),
     contact_flags (B, 4) float32 and stance_mode (B,) bool, contiguous, on
     the card; the model's constants come from B1's buffer
-    (``soa_kernel.consts_buffer``, which refuses a model of another
-    topology)."""
+    (``consts_buffer``, which refuses a model of another topology), the
+    gains from ``params_buffer``; the outputs are ``qp_buffers``' views."""
     if rbd_measured.device.type == "cpu":
         return wbc_qp_plain(model, params, x_des, u_des, rbd_measured, contact_flags,
                             stance_mode)
@@ -248,15 +296,10 @@ def wbc_qp(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measured, con
                            (contact_flags, "contact_flags", (Bn, NUM_FEET))):
         _build.require(t, name, f32, shape, dev)
     _build.require(stance_mode, "stance_mode", torch.bool, (Bn,), dev)
-    K = soa_kernel.consts_buffer(model, dev)
+    K = consts_buffer(model, dev)
     P = params_buffer(params)
     _build.require(P, "params", f32, (N_PARAMS,), dev)
-
-    def out(*tail):
-        return torch.empty((Bn, *tail), dtype=f32, device=dev)
-
-    outs = (out(NDEC, NDEC), out(NDEC), out(N_EQ_ROWS, NDEC), out(N_EQ_ROWS),
-            out(N_INEQ_ROWS, NDEC), out(N_INEQ_ROWS))
+    outs = qp_buffers(Bn, dev)
     lib = _build.library()
     _build.check(lib.hk_wbc_qp(*(t.data_ptr() for t in (K, P, x_des, u_des, rbd_measured,
                                                         contact_flags, stance_mode) + outs),

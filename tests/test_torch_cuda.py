@@ -37,8 +37,10 @@ run on the CPU.
 wbc_qp (B9): each of the six QP arrays within max(1e-4, 2 x the float32
 plain version's own error) of the float64 plain version, on its own scale,
 on standing (bench.py's batch) and walking states (mixed contact flags, both
-stance modes) at B=1 and B=4096; a NaN measurement gives NaN in the same
-rows as the plain version.
+stance modes) at B=1, 3 and 4096; a NaN in the measurement, the desired
+state or input, or a flag gives NaN in the same rows as the plain version
+(in H and g at the same entries); a gain changed in place or replaced
+reaches the next QP; the six outputs contiguous and 16-byte aligned.
 sim_step (B11): the tick's q, v, last acceleration and contact forces, each
 within max(1e-4, 2 x the float32 plain version's own error) of the float64
 plain version, on its own scale, outside the scenarios whose in-contact
@@ -799,7 +801,7 @@ def _wbc_inputs(wb, dtype=torch.float32):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("walking", [False, True], ids=["standing", "walking"])
-@pytest.mark.parametrize("batch", [1, 4096])
+@pytest.mark.parametrize("batch", [1, 3, 4096])
 def test_wbc_qp_kernel(cuda, batch, walking):
     wb = walking_wbc_batch(batch, cuda, seed=batch) if walking else build_wbc_batch(batch, cuda)
     args = _wbc_inputs(wb)
@@ -813,21 +815,33 @@ def test_wbc_qp_kernel(cuda, batch, walking):
         assert a.shape == c.shape and a.dtype == torch.float32, name
         assert torch.isfinite(a).all(), name
         assert _own_scale_err(a, c) <= max(WBC_QP_TOL, 2.0 * _own_scale_err(b, c)), name
-    if walking and batch > 1:
+    if walking and batch == 4096:
         assert wb.stance_mode.any() and not wb.stance_mode.all()
         assert len(torch.unique(wb.contact_flags, dim=0)) == 4
 
 
+# (argument of wbc_qp, column) of the NaN: the measurement's base position,
+# a joint, the angular velocity and a joint velocity; the desired momentum and
+# a desired joint; a contact force and a joint velocity of u_des; a flag
+WBC_NAN_CASES = {"base_pos": (4, 3), "joint": (4, 6), "omega": (4, 16), "joint_vel": (4, 22),
+                 "x_des_momentum": (2, 1), "x_des_joint": (2, 15), "u_des_force": (3, 4),
+                 "u_des_joint_vel": (3, 17), "flag": (5, 2)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("col", [3, 6, 16, 22], ids=["base_pos", "joint", "omega", "joint_vel"])
-def test_wbc_qp_kernel_nan_rows(cuda, col):
-    """A NaN in one scenario's measurement gives NaN QP data in that
-    scenario, in the rows where the plain version has NaN."""
-    wb = walking_wbc_batch(8, cuda, seed=5)
-    rbd = wb.rbd.clone()
-    rbd[3, col] = float("nan")
+@pytest.mark.parametrize("case", list(WBC_NAN_CASES))
+@pytest.mark.parametrize("batch", [8, 1024])
+def test_wbc_qp_kernel_nan_rows(cuda, batch, case):
+    """A NaN in one scenario's measurement, desired state or input, or
+    contact flags gives NaN QP data in that scenario, in the rows where the
+    plain version has NaN (and, for H and g, at the entries); in both of
+    the kernel's launch shapes (four warps a scenario at B=8, one at
+    B=1024)."""
+    arg, col = WBC_NAN_CASES[case]
+    wb = walking_wbc_batch(batch, cuda, seed=5)
     args = list(_wbc_inputs(wb))
-    args[4] = rbd
+    args[arg] = args[arg].clone()
+    args[arg][3, col] = float("nan")
     got = wbc.wbc_qp(*args)
     ref = wbc.wbc_qp_plain(*args)
     torch.cuda.synchronize()
@@ -838,7 +852,55 @@ def test_wbc_qp_kernel_nan_rows(cuda, col):
     for name, a, b in zip(WBC_QP_NAMES, got, ref):
         assert torch.equal(nan_rows(a), nan_rows(b)), name
         assert not nan_rows(a)[[0, 1, 2, 4, 5, 6, 7]].any(), name
-    assert nan_rows(got[3])[3].any()
+        assert not nan_rows(a)[8:].any(), name
+    for name, a, b in zip(WBC_QP_NAMES[:2], got[:2], ref[:2]):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+    assert any(nan_rows(a)[3].any() for a in got)
+    if arg == 4:
+        assert nan_rows(got[3])[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", ["in_place", "replaced"])
+def test_wbc_qp_kernel_gain_change(cuda, change):
+    """The kernel's gains buffer is kept per WbcParams and rebuilt when a
+    gain changes in place or the WbcParams is replaced: the next QP is the
+    one a fresh WbcParams with that gain gives, bit for bit."""
+    wb = walking_wbc_batch(16, cuda, seed=2)
+    args = list(_wbc_inputs(wb))
+    before = wbc.wbc_qp(*args)[1].clone()
+    params = args[1]
+    fresh = args[:1] + [params._replace(**{f: getattr(params, f).clone()
+                                           for f in wbc.GAIN_FIELDS})] + args[2:]
+    fresh[1].swing_kp.mul_(2.0)
+    if change == "in_place":
+        params.swing_kp.mul_(2.0)
+    else:
+        args[1] = params._replace(swing_kp=2.0 * params.swing_kp)
+    got = wbc.wbc_qp(*args)
+    ref = wbc.wbc_qp(*fresh)
+    torch.cuda.synchronize()
+    assert not torch.equal(got[1], before)
+    for name, a, b in zip(WBC_QP_NAMES, got, ref):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+def test_wbc_qp_kernel_outputs_aligned(cuda, batch):
+    """The six outputs are contiguous, each at a 16-byte-aligned address (the
+    kernel stores H, Aeq and Ain by 16 bytes), and B4 takes them as they are:
+    its solution on them is its solution on copies."""
+    wb = walking_wbc_batch(batch, cuda, seed=3)
+    outs = wbc.wbc_qp(*_wbc_inputs(wb))
+    for name, t in zip(WBC_QP_NAMES, outs):
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0, name
+    sol = qp.solve_qp(*outs, n_iters=10)
+    ref = qp.solve_qp(*(t.clone() for t in outs), n_iters=10)
+    torch.cuda.synchronize()
+    for a, b in zip(sol, ref):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert torch.equal(a.isnan(), b.isnan())
 
 
 @pytest.mark.cuda
