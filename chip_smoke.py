@@ -104,13 +104,21 @@ Phases, each printing one JSON line:
      rt_factor configuration) over 40 periods in the default Riccati mode,
      held to tests/golden/sim_stance_walk_40p.npz with tests/test_golden.py's
      checks, its first 3 periods to the port's CPU float64 run; ms per 10 ms
-     period, rt_factor; one sim_step, momentum_observer, wbc_qp and
-     solve_qp launch per tick, six kalman_update, synth_imu (B13a) and
+     period, rt_factor; one sim_step, momentum_observer, contact_class,
+     wbc_qp and solve_qp launch per tick, six kalman_update, synth_imu (B13a) and
      rbd_to_centroidal (B13b) launches per period (the period's own sensing
      and one per tick) and no gj_inverse; launches per walking period by part
      (``profile_sim_loop_phases``: sensing split into the IMU, the
      conversion and the rest) and its device busy time
      (``profile_sim_loop``);
+  4g2. B16 (contact_class) on every tick's inputs of 4g's loop (B=1, one
+     launch each) and on seeded schedules (``entry.contact_class_batch``,
+     B=4096: ticks on event times and one float32 ulp before and after
+     them, NaN forces): its three flags equal to the float32 plain
+     version's on the card, the float64 plain version's flips counted;
+     kernel and plain times, the bound (``contact_class_cost``); 4g counts
+     one contact_class launch per tick and at most CLASS_MAX_LAUNCH_CALLS
+     classification launch calls per period;
   4h. B11 (sim_step) on every tick's inputs of 4g's loop (B=1, one launch
      each) and on a sweep-shaped batch (``entry.sim_step_batch``, B=1024: a
      9 ms delay ring, feet on both sides of the contact surface, per-scenario
@@ -151,10 +159,13 @@ Phases, each printing one JSON line:
      rollouts (and the product shape's re-roll) against its plain versions,
      ODE45's accepted slots equal the float32 plain version's, kernel and
      plain times, the bound (``ddp_rollout_cost``) and the serial chain's
-     floor; B2 and B3 on the product shape's DDP data (d = 0, hess_reg 1e-5,
-     the pivoting Gram inverse) against the plain projection and backward
-     pass;
-  5. the kernels line: launches, error, times and bound of each kernel, B6
+     floor, and on each cell B15's own device time (``own_device_time``)
+     and its time per call back to back, measured in a process of its own
+     (``profile_step ddp_rollout_times``); B2 and B3 on the product shape's
+     DDP data (d = 0, hess_reg 1e-5, the pivoting Gram inverse) against the
+     plain projection and backward pass;
+  5. the kernels line: launches, error, times and bound of each kernel (B16
+     among them), B6
      with one row per use (IK, absorbed into B8a on the MPC path; Kalman,
      absorbed into B12; observer, absorbed into B10).
 The last line is {"ok": true, "device": {...}}.  Any failed check raises.
@@ -382,6 +393,15 @@ GOLDEN_BAND = {"z": 5e-3, "planar": 2e-2, "joints": 3e-2}
 SIM_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
                           "sim_stance_walk_40p.npz")
 SIM_CPU_PERIODS = 3
+# B16 (contact_class) decides three flags per (scenario, leg) from float32
+# times in torch's order, one rounding per operation: its flags must equal
+# the float32 plain version's; the float64 plain version's flips (ticks
+# within rounding of a window's quarter marks or of an event) are counted.
+# A full-order period's classification takes at most this many launch calls
+# (one B16 launch a tick, five ticks).
+CLASS_NAMES = ("est_contact", "early", "late")
+CLASS_BATCH = 4096
+CLASS_MAX_LAUNCH_CALLS = 6
 # The DDP path (4k): entry.ddp_solve on the flagship after DDP_WARM SQP
 # solves (tests/test_ddp.py's use), per cell (name, B, N, horizon,
 # integrator, iterations): the product shape with RK2 and two iterations
@@ -868,6 +888,17 @@ def ddp_rollout_cost(batch, n_alpha, N, integrator, accepted_slots, closed, nx=2
     return (n_in + n_out) * 4, ops
 
 
+def contact_class_cost(batch, p=56, nc=4):
+    """Bytes and operations of B16: per scenario the schedule (event times
+    float32, modes int64), the period's and the tick's times, the commanded
+    contacts, the observer's 16 forces and the threshold read once, three
+    flags per leg written; per leg a binary search of the event times (6
+    comparisons), the window's walk over the phases (at most p + 1 each
+    way, counted at 2 p), frac and the flags (~15)."""
+    n_bytes = batch * (p * 4 + (p + 1) * 8 + 2 * 4 + nc * 4 + 16 * 4 + 3 * nc) + 4
+    return n_bytes, batch * nc * (6 + 2 * p + 15)
+
+
 def qp_cost(batch, iters, n=38, me=28, mi=40, start=True):
     """Bytes (QP data, the start point and margin if ``start``, in; x, duals,
     residual out) and flops of ``iters`` PDIP iterations in the least work
@@ -1139,6 +1170,7 @@ def main():
     from hunter_bipedal_control_tpu_torch.entry import (TICK_DT, build_controller, build_flagship,
                                                         build_loop, build_sim_loop,
                                                         build_wbc_batch, centroidal_batch,
+                                                        contact_class_batch,
                                                         estimator_batch, projected_lq, qp_batch,
                                                         ddp_solve, mpc_chain, run_loop,
                                                         run_sim_loop,
@@ -1471,7 +1503,8 @@ def main():
                 "rbd_to_centroidal": cen_mod.rbd_state_to_centroidal,
                 "dummy_step": dummy_mod.dummy_step,
                 "state_input_to_v": cen_mod.state_input_to_v, "swing_plan": mpc_mod.swing_plan,
-                "knot_refs": mpc_mod.knot_refs, "ddp_rollout": ddp_mod.closed_rollout}
+                "knot_refs": mpc_mod.knot_refs, "ddp_rollout": ddp_mod.closed_rollout,
+                "contact_class": contact.contact_class}
     b1 = ("soa_linearize", "soa_merit")
 
     # the inputs the linearization and the line search's merit get on a
@@ -1527,7 +1560,7 @@ def main():
         linalg.gj_inverse.launches_by_n.clear()
 
     def read_counts(path, kernels, absent=(), steps=0, ticks=0, plant_ticks=0, observer=0,
-                    filter_updates=0, sensing=0, dummy_ticks=0, ddp=None):
+                    filter_updates=0, sensing=0, dummy_ticks=0, ddp=None, classify=0):
         """The launches of the path's run; raise if one of its kernels had
         none, a kernel of ``absent`` had any, swing_plan, leg_ik or knot_refs
         was not launched exactly once per MPC step (``steps`` of them), wbc_qp
@@ -1537,7 +1570,8 @@ def main():
         observer and filter update (``observer``, ``filter_updates``),
         synth_imu and rbd_to_centroidal not once per sensing of the
         full-order loop (``sensing``), dummy_step and state_input_to_v
-        not once per tick of the dummy loop (``dummy_ticks``), or, with
+        not once per tick of the dummy loop (``dummy_ticks``), contact_class
+        not once per tick of the full-order loop (``classify``), or, with
         ``ddp`` = (SQP solves, DDP iterations, DDP solves), soa_linearize,
         project_knot and riccati_solve not once per SQP solve and DDP
         iteration, soa_merit not once per SQP solve, and ddp_rollout not
@@ -1571,6 +1605,9 @@ def main():
                 raise AssertionError(f"{' / '.join(names)}: "
                                      f"{' / '.join(str(counts[k]) for k in names)} launches on "
                                      f"the {path} path, {n} {what}")
+        if counts["contact_class"] != classify:
+            raise AssertionError(f"contact_class: {counts['contact_class']} launches on the "
+                                 f"{path} path, {classify} full-order ticks")
         if ddp is None:
             if counts["ddp_rollout"] != 0:
                 raise AssertionError(f"ddp_rollout was launched on the {path} path")
@@ -2399,6 +2436,7 @@ def main():
     # sim_loop.py calls, for 4i's checks at B=1
     obs_inputs, real_observer = [], sim_loop_mod.momentum_observer_update
     kf_inputs, real_kalman = [], sim_loop_mod.kalman_update
+    class_inputs, real_class = [], sim_loop_mod.contact_class
 
     def substeps_cap(model_, params_, q_, v_, active_, **kw):
         plant_inputs.append((model_, params_, q_, v_, active_))
@@ -2412,11 +2450,16 @@ def main():
         kf_inputs.append(a)
         return real_kalman(*a)
 
+    def class_cap(*a):
+        class_inputs.append(a)
+        return real_class(*a)
+
     zero_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     fullorder.substeps = substeps_cap
     sim_loop_mod.momentum_observer_update, sim_loop_mod.kalman_update = observer_cap, kalman_cap
+    sim_loop_mod.contact_class = class_cap
     sim_loop_mod.synth_imu = cf_capture("synth_imu")
     sim_loop_mod.rbd_state_to_centroidal = cf_capture("rbd_to_centroidal")
     try:
@@ -2426,6 +2469,7 @@ def main():
         fullorder.substeps = real_substeps
         sim_loop_mod.momentum_observer_update = real_observer
         sim_loop_mod.kalman_update = real_kalman
+        sim_loop_mod.contact_class = real_class
         sim_loop_mod.synth_imu = real_cf["synth_imu"]
         sim_loop_mod.rbd_state_to_centroidal = real_cf["rbd_to_centroidal"]
     sim_s = time.perf_counter() - t
@@ -2435,10 +2479,12 @@ def main():
     # B11, the estimators' systems inside B10 and B12
     counts = read_counts("sim_loop", ("leg_ik", "project_knot", "riccati_solve", "solve_qp",
                                       "wbc_qp", "sim_step", "momentum_observer",
-                                      "kalman_update", "synth_imu", "rbd_to_centroidal") + b1,
+                                      "kalman_update", "synth_imu", "rbd_to_centroidal",
+                                      "contact_class") + b1,
                          ("riccati_solve_parallel", "gj_inverse"), steps=s_periods,
                          ticks=s_ticks, plant_ticks=s_ticks, observer=s_ticks,
-                         filter_updates=s_periods + s_ticks, sensing=s_periods + s_ticks)
+                         filter_updates=s_periods + s_ticks, sensing=s_periods + s_ticks,
+                         classify=s_ticks)
     if not all(torch.isfinite(v.double()).all() for v in stelem.values()):
         raise AssertionError("sim_loop: non-finite telemetry")
     sgold = sim_golden_check(stelem, sref)
@@ -2474,6 +2520,61 @@ def main():
         raise AssertionError(f"sim_loop: first periods off the CPU float64 run: {bad}")
     if bool(sfin.emergency_stop.any()):
         raise AssertionError("sim_loop: emergency stop")
+    if not s_phases["launch_calls_by_phase"]["classification"] <= CLASS_MAX_LAUNCH_CALLS:
+        raise AssertionError(f"sim_loop: the classification takes "
+                             f"{s_phases['launch_calls_by_phase']['classification']} launch calls "
+                             f"a period, at most {CLASS_MAX_LAUNCH_CALLS}")
+
+    # ---- 4g2. B16 on every tick's inputs of the loop (B=1), and on seeded schedules ----
+    def class_case(label, cases, row):
+        """contact_class's kernel on each argument tuple of ``cases`` (one
+        launch each) against its plain versions in float32 and float64 on
+        the card; its flags must equal the float32 plain version's."""
+        def cast_args(a, dt):
+            params_, est_, cmd_, sched_, tp_, tt_, h_ = a
+            return (cast(params_, dev, dt), est_.to(dt), cmd_.to(dt),
+                    sched_._replace(event_times=sched_.event_times.to(dt)), tp_.to(dt),
+                    tt_.to(dt), h_)
+
+        runs = {"kernel": [], "plain32": [], "plain64": []}
+        for a in cases:
+            runs["kernel"].append(real_class(*a))
+            runs["plain32"].append(contact.contact_class_plain(*a))
+            runs["plain64"].append(contact.contact_class_plain(*cast_args(a, torch.float64)))
+        cat = {k: [torch.cat(o).float() for o in zip(*v)] for k, v in runs.items()}
+        err = errors(CLASS_NAMES, cat["kernel"], cat["plain32"], cat["plain64"])
+        differ = {n: int((a != b).sum()) for n, a, b in zip(CLASS_NAMES, cat["kernel"],
+                                                             cat["plain32"])}
+        last = cases[-1]
+        Bn = last[5].shape[0]
+        times = (cuda_ms(lambda: real_class(*last)),
+                 cuda_ms(lambda: contact.contact_class_plain(*last)))
+        info = {"label": label, "batch": Bn, "cases": len(cases),
+                "kernel_vs_plain_f32_differ": differ,
+                "plain_f32_vs_f64_differ": {n: int((a != b).sum()) for n, a, b in
+                                            zip(CLASS_NAMES, cat["plain32"], cat["plain64"])},
+                "set": {n: int(a.sum()) for n, a in zip(CLASS_NAMES, cat["kernel"])},
+                "flags": int(cat["kernel"][0].numel())}
+        cost = contact_class_cost(Bn)
+        if row:
+            record("contact_class", "cuda",
+                   "hunter_bipedal_control_tpu_torch/csrc/reference_prep.cu",
+                   "hunter_bipedal_control_tpu/runtime/sim_loop.py:172", err, 0.0, times[0],
+                   times[1], None, cost, info)
+        else:
+            b_ms, b_by = bound(*cost)
+            emit({"phase": "kernel_extra", "name": "contact_class", "tol": 0.0,
+                  "outputs": per_output(err, 0.0), "kernel_ms": times[0], "plain_ms": times[1],
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, **info})
+            check(f"contact_class {label}", err, 0.0)
+        if any(differ.values()):
+            raise AssertionError(f"contact_class {label}: flags differ from the float32 plain "
+                                 f"version's: {differ}")
+
+    class_case("every tick of the sim loop, B=1", class_inputs, True)
+    class_case(f"seeded schedules (ticks on and beside event times, NaN forces), B={CLASS_BATCH}",
+               [tuple(contact_class_batch(CLASS_BATCH, dev, seed=0))], False)
+    del class_inputs
 
     # ---- 4h. B11 on every tick's inputs of the loop (B=1), and on a sweep batch ----
     def sim_case(label, cases, row):
@@ -2863,6 +2964,8 @@ def main():
                                       (slots_32 != slots_64).nonzero().tolist()[:20]}
         cost = ddp_rollout_cost(Bd, Ad, Nd, dset.integrator, int(slots_k.sum()), closed)
         info["serial_chain_ms"] = cost[1] / (Bd * Ad) / SM_CLOCK_HZ * 1e3
+        if closed:
+            ddp_floors[cell] = info["serial_chain_ms"]
         times = (cuda_ms(lambda: ddp_mod.closed_rollout(dflag.model, dflag.params, *args, rs)),
                  ev[0].elapsed_time(ev[1]))
         if row:
@@ -2934,7 +3037,7 @@ def main():
               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "hess_reg": reg})
         check(f"riccati_solve ddp {cell}", err, TOL["riccati_solve"])
 
-    cpu_warm = {}
+    cpu_warm, ddp_floors = {}, {}
     for cell, Bd, Nd, Hd, integ, iters in DDP_CELLS:
         dflag = build_flagship(Nd, Hd, batch=Bd, device=dev)
         dset = ddp_mod.DdpSettings(n_intervals=Nd, horizon=Hd, integrator=integ,
@@ -3079,11 +3182,21 @@ def main():
             ddp_lq_case(cell, dset, it0)
         del its, drun, dflag, card, ref, ns64
 
+    # B15's own device time on each cell, measured in a process of its own:
+    # this process's profiler records few of a long kernel's launches by now
+    done = subprocess.run([sys.executable, "-m", "hunter_bipedal_control_tpu_torch.profile_step",
+                           "ddp_rollout_times"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600, check=True)
+    own_times = json.loads(done.stdout.strip().splitlines()[-1])
+    emit({"phase": "ddp_rollout_own_times", "profiled_calls": own_times["profiled_calls"],
+          "cells": {c: {**v, "serial_chain_ms": ddp_floors.get(c)}
+                    for c, v in own_times["cells"].items()}})
+
     # ---- 5. kernels ----
     cf_rows = ("synth_imu", "rbd_to_centroidal", "dummy_step", "state_input_to_v")
     for n in ("project_knot", "riccati_solve", "riccati_solve_parallel", "solve_qp",
               "leg_ik", "wbc_qp", "sim_step", "momentum_observer", "kalman_update",
-              "swing_plan", "knot_refs", "ddp_rollout") + b1 + cf_rows:
+              "swing_plan", "knot_refs", "ddp_rollout", "contact_class") + b1 + cf_rows:
         rows[n]["launches"] = sum(c[n] for c in path_launches.values())
         rows[n]["launches_by_path"] = {p: c[n] for p, c in path_launches.items()}
     for row, (path, n) in gj_rows.items():
@@ -3095,7 +3208,7 @@ def main():
                                                             "knot_refs", "wbc_qp", "sim_step",
                                                             "momentum_observer",
                                                             "kalman_update") + cf_rows
-                                        + ("ddp_rollout",)]})
+                                        + ("ddp_rollout", "contact_class")]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

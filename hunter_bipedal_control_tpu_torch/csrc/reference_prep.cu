@@ -26,6 +26,16 @@
 // knot_refs_plain (today's torch code of update_planner, foot_reference,
 // _interp and the rest).
 //
+// hk_contact_class (B16) is the full-order loop's contact classification
+// at one tick (the JAX package's runtime/sim_loop.py:172-202, inside its
+// jitted scan: gait/mode_schedule.py::swing_windows :209 over the period's
+// span, phase_index_at_time :205, estim/contact.py::classify_contact :103
+// and early_late_contact_flags :123), a thread per (scenario, leg); its
+// plain version is estim/contact.py::contact_class_plain.  It shares
+// B8b1's window search (contact_window), so the two cannot drift apart.
+// It reads ~0.7 KB of schedule per scenario and writes 12 bytes: bytes
+// bound, a few µs of launch at any batch.
+//
 // Exactness.  Every decision of the prep compares float32 times: the
 // phase of a time (searchsorted(right) over the event times), the
 // target's and the splines' segments, stops + 1e-6, init_time < e,
@@ -83,6 +93,7 @@ constexpr int MAX_T = 16;                 // target nodes staged in shared memor
                                           // (reference_prep.py's MAX_TARGET_NODES)
 constexpr int PLAN_THREADS = 256;
 constexpr int KNOT_THREADS = 128;
+constexpr int CLASS_THREADS = 128;
 constexpr int N_PLAN_DEC_FIXED = 1 + 4 * NLEG * P1;  // + 8 per sample
 constexpr int N_KNOT_DEC = 2 + NLEG * NAX;
 static_assert(NC == NLEG, "reference_prep: the swing planner plans the 4 contacts");
@@ -97,6 +108,7 @@ constexpr float TAIL_EPS = static_cast<float>(1e-9);
 constexpr float INTERP_EPS = static_cast<float>(1e-9);
 constexpr float DT_MIN = static_cast<float>(1e-6);
 constexpr float RAIBERT_K = static_cast<float>(0.03);
+constexpr float EARLY_MARGIN = static_cast<float>(0.009);  // early_late_contact_flags' 9 ms
 // torch's CUDA reciprocals of the Python divisors 9.81 and 3
 constexpr float INV_G = 1.0f / static_cast<float>(9.81);
 constexpr float INV_3 = 1.0f / 3.0f;
@@ -279,6 +291,21 @@ __device__ void leg_nodes(const Plan& P, int leg, int p, int a, float* tn, float
   }
 }
 
+// gait/mode_schedule.py::swing_windows for one (leg, phase p): the start
+// and stop of the contiguous run of phases around p in which the leg's
+// contact flag stays the same, the first phase starting at h_start and the
+// stops clipped to h_end (B8b1 and B16 share it)
+__device__ __forceinline__ void contact_window(const float* ev, const long long* mode, int leg,
+                                               int p, float h_start, float h_end, float* start,
+                                               float* stop) {
+  int qf = p;
+  while (qf > 0 && mode_contact(mode[qf - 1], leg) == mode_contact(mode[qf], leg)) --qf;
+  int qb = p;
+  while (qb < P1 - 1 && mode_contact(mode[qb + 1], leg) == mode_contact(mode[qb], leg)) ++qb;
+  *start = qf == 0 ? h_start : ev[qf - 1];
+  *stop = min_nan(qb < MAX_PHASES ? ev[qb] : BIG, h_end);
+}
+
 __device__ __forceinline__ int phase_of(const float* ev, float t) {
   const int p = upper_bound(ev, MAX_PHASES, t);
   return p > P1 - 1 ? P1 - 1 : p;
@@ -397,12 +424,7 @@ swing_plan_kernel(const float* __restrict__ K, const float* __restrict__ gx, int
   // ---- swing_windows: the contact window around each (leg, phase) ----
   if (lane) {
     const float c = mode_contact(P.mode[p], leg);
-    int qf = p;
-    while (qf > 0 && mode_contact(P.mode[qf - 1], leg) == mode_contact(P.mode[qf], leg)) --qf;
-    int qb = p;
-    while (qb < P1 - 1 && mode_contact(P.mode[qb + 1], leg) == mode_contact(P.mode[qb], leg)) ++qb;
-    P.start[leg][p] = qf == 0 ? P.h_start : P.ev[qf - 1];
-    P.stop[leg][p] = min_nan(qb < MAX_PHASES ? P.ev[qb] : BIG, P.h_end);
+    contact_window(P.ev, P.mode, leg, p, P.h_start, P.h_end, &P.start[leg][p], &P.stop[leg][p]);
     const long long o = (b * NLEG + leg) * P1 + p;
     o_start[o] = P.start[leg][p];
     o_stop[o] = P.stop[leg][p];
@@ -589,7 +611,54 @@ knot_refs_kernel(const float* __restrict__ ginit, int sinit,
     }
 }
 
+// B16: the full-order loop's contact classification at one tick, a thread
+// per (scenario, leg): the phase of tt, the leg's window around it over the
+// period's span [t - H, t + 2H] (contact_window), frac, classify_contact
+// and early_late_contact_flags, in torch's order with one rounding per
+// operation
+__global__ void __launch_bounds__(CLASS_THREADS)
+contact_class_kernel(const float* __restrict__ gev, int sev, const long long* __restrict__ gmode,
+                     int smode, const float* __restrict__ t_period,
+                     const float* __restrict__ tt, const float* __restrict__ cmd,
+                     const float* __restrict__ est, const float* __restrict__ threshold,
+                     int batch, float horizon, float horizon2, bool* __restrict__ o_est,
+                     bool* __restrict__ o_early, bool* __restrict__ o_late) {
+  const long long idx = static_cast<long long>(blockIdx.x) * CLASS_THREADS + threadIdx.x;
+  if (idx >= static_cast<long long>(batch) * NLEG) return;
+  const long long b = idx / NLEG;
+  const int leg = static_cast<int>(idx % NLEG);
+  const float* ev = gev + b * sev;
+  const float t = tt[b], tp = t_period[b];
+  float start, stop;
+  contact_window(ev, gmode + b * smode, leg, upper_bound(ev, MAX_PHASES, t),
+                 sub_rn(tp, horizon), add_rn(tp, horizon2), &start, &stop);
+  const float frac = div_rn(sub_rn(t, start), clamp_min(sub_rn(stop, start), DT_MIN));
+  // the estimated z force of leg i % 2 (est_forces[:, 2] or [:, 8])
+  const bool force = est[b * 16 + (leg % 2 ? 8 : 2)] > *threshold;
+  const float c = cmd[b * NLEG + leg];
+  const bool swing = c < 0.5f, stance = c > 0.5f;
+  const bool contact = (swing && frac > 0.75f) || (stance && frac < 0.25f) ? force : stance;
+  o_est[idx] = contact;
+  o_early[idx] = swing && contact && frac > 0.75f && sub_rn(stop, t) > EARLY_MARGIN;
+  o_late[idx] = stance && !contact && frac < 0.25f;
+}
+
 }  // namespace
+
+extern "C" int hk_contact_class(const float* ev, const long long* modes, const float* t_period,
+                                const float* tt, const float* cmd_contact,
+                                const float* est_forces, const float* threshold, bool* o_est,
+                                bool* o_early, bool* o_late, int sev, int smode, int batch,
+                                float horizon, float horizon2, void* stream) {
+  const long long n = static_cast<long long>(batch) * NLEG;
+  if (batch < 1 || n > 2147483647LL * CLASS_THREADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned blocks = static_cast<unsigned>((n + CLASS_THREADS - 1) / CLASS_THREADS);
+  contact_class_kernel<<<blocks, CLASS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      ev, sev, modes, smode, t_period, tt, cmd_contact, est_forces, threshold, batch, horizon,
+      horizon2, o_est, o_early, o_late);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int hk_swing_plan(const float* consts, const float* x, const float* init,
                              const float* ev, const long long* modes, const float* tt,

@@ -18,7 +18,9 @@ carrying the WBC state, the first one cold.  ``walking_wbc_batch`` draws a
 batch of walking robots (mixed contacts, both stance modes) from a seed,
 ``estimator_batch`` the inputs of both estimators' updates,
 ``centroidal_batch`` those of the loops' sensing, plant and conversion,
-``qp_batch`` seeded QPs of the WBC's and the hierarchical WBC's shapes.
+``qp_batch`` seeded QPs of the WBC's and the hierarchical WBC's shapes,
+``contact_class_batch`` seeded inputs of the full-order loop's contact
+classification.
 
 ``ddp_solve`` runs the SLQ/DDP solver (``solver/ddp.py``) on the
 flagship's first problem, warm-started from SQP solves.
@@ -38,6 +40,7 @@ configuration of the repository benchmark's real-time demonstration
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import NamedTuple
 
@@ -643,6 +646,63 @@ def estimator_batch(batch: int = 4096, device=None, dtype=torch.float32,
         obs_mod.ContactObserverState(*(t(a) for a in observer)), t(rbd),
         t(5.0 * randn(batch, 10)), kf_mod.default_kalman_params(dev, dtype),
         kf_mod.KalmanState(*(t(a) for a in kalman)), {k: t(a) for k, a in sensors.items()})
+
+
+class ContactClassBatch(NamedTuple):
+    params: obs_mod.ContactObserverParams
+    est_forces: torch.Tensor     # (B, 16)
+    cmd_contact: torch.Tensor    # (B, 4) the commanded contacts at tt
+    schedule: ms.ModeSchedule    # (B, MAX_PHASES), (B, MAX_PHASES + 1)
+    t_period: torch.Tensor       # (B,) the period's start
+    tt: torch.Tensor             # (B,) the tick's time
+    horizon: float
+
+
+def contact_class_batch(batch: int = 4096, device=None, dtype=torch.float32,
+                        seed: int = 0) -> ContactClassBatch:
+    """``batch`` inputs of the full-order loop's contact classification
+    (``estim.contact.contact_class``), drawn from ``seed`` in float32 and
+    cast to ``dtype`` exactly: per scenario a schedule of 6-40 phases of
+    0.05-0.4 s from a start in [0, 30] s (BIG_TIME beyond), each phase's
+    mode the previous one's with probability 0.4, else uniform; the tick
+    on an event time, one float32 ulp before or after one (four scenarios
+    in five), or uniform over the next 1.5 s; the period's start 0-4 ticks
+    of 2 ms before it; the observer's forces N(75, 60) with one entry in
+    20 NaN; the commanded contacts those of the tick's mode; the product
+    shape's 0.8 s horizon."""
+    dev = resolve_device(device)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    f32 = torch.float32
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, dtype=f32)
+
+    P = ms.MAX_PHASES
+    t0 = 30.0 * rand(batch)
+    dur = 0.05 + 0.35 * rand(batch, P)
+    ev = t0[:, None] - 0.5 + torch.stack([dur[:, :i + 1].sum(-1) for i in range(P)], -1)
+    n_real = torch.randint(6, 41, (batch,), generator=g)
+    ev = torch.where(torch.arange(P) < n_real[:, None], ev, torch.tensor(ms.BIG_TIME, dtype=f32))
+    modes = torch.randint(0, 4, (batch, P + 1), generator=g)
+    keep = rand(batch, P + 1) < 0.4
+    for p in range(1, P + 1):
+        modes[:, p] = torch.where(keep[:, p], modes[:, p - 1], modes[:, p])
+    # the tick: on an event time (kinds 0-2: on it, an ulp before, after)
+    i = torch.minimum(torch.randint(0, 41, (batch,), generator=g), n_real - 1)
+    e = torch.gather(ev, 1, i[:, None])[:, 0]
+    kind = torch.arange(batch) % 5
+    tt = torch.where(kind == 1, torch.nextafter(e, torch.tensor(-math.inf)),
+                     torch.where(kind == 2, torch.nextafter(e, torch.tensor(math.inf)), e))
+    tt = torch.where(kind == 4, t0 + 1.5 * rand(batch), tt)
+    t_period = tt - 0.002 * torch.randint(0, 5, (batch,), generator=g).to(f32)
+    est = 75.0 + 60.0 * torch.randn(batch, 16, generator=g, dtype=f32)
+    est = torch.where(rand(batch, 16) < 0.05, torch.tensor(math.nan), est)
+    sched = ms.ModeSchedule(event_times=ev, modes=modes)
+    cmd = ms.contact_flags_at_time(sched, tt[:, None])[:, 0]
+    t = lambda a: a.to(dev, dtype).contiguous()
+    return ContactClassBatch(obs_mod.default_contact_params(dev, dtype), t(est), t(cmd),
+                             ms.ModeSchedule(event_times=t(ev), modes=modes.to(dev)),
+                             t(t_period), t(tt), 0.8)
 
 
 class CentroidalBatch(NamedTuple):

@@ -5,7 +5,10 @@ Port of ``hunter_bipedal_control_tpu/estim/contact.py``.  The observer's
 update is kernel B10 (``csrc/momentum_observer.cu``, one launch per update)
 for a CUDA tensor and ``momentum_observer_plain`` for a CPU tensor: M, the
 Coriolis matrix, g and the two legs' damped least-squares wrench solves
-(5 x 5 Gauss-Jordan) in plain torch.
+(5 x 5 Gauss-Jordan) in plain torch.  The full-order loop's per-tick
+contact classification is kernel B16 (``contact_class``,
+``csrc/reference_prep.cu::hk_contact_class``) for CUDA tensors and
+``contact_class_plain`` for CPU tensors.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..gait.mode_schedule import MAX_PHASES, ModeSchedule, phase_index_at_time, swing_windows
 from ..kernels import _build
 from ..models.centroidal import rbd_to_q_v
 from ..models.dynamics import coriolis_matrix, gravity_vector, mass_matrix
@@ -164,3 +168,68 @@ def early_late_contact_flags(contact_seq_at_t, measured_contact, cmd_contact, fr
     early = (cmd_contact < 0.5) & measured_contact & (frac > 0.75) & (time_to_stop > 0.009)
     late = (cmd_contact > 0.5) & (~measured_contact) & (frac < 0.25)
     return early, late
+
+
+def contact_class_plain(params: ContactObserverParams, est_forces, cmd_contact,
+                        schedule: ModeSchedule, t_period, tt, horizon: float):
+    """Kernel B16's plain version: the contact classification and early/late
+    detection at tick time tt (B,) in the current phase's windows, the
+    windows (``swing_windows``, StartStopTime4Legs, LeggedController.cpp:
+    306-308) over the period's span [t_period - horizon, t_period + 2
+    horizon]: (estimated contact, early, late), each (B, 4) bool."""
+    win_starts, win_stops, _ = swing_windows(schedule, t_period - horizon,
+                                             t_period + 2 * horizon)
+    dtype = tt.dtype
+    p = phase_index_at_time(schedule, tt.to(schedule.event_times.dtype)[:, None])
+    idx = p.expand(tt.shape[0], 4)[..., None]
+    ss = torch.stack([torch.gather(win_starts, -1, idx)[..., 0],
+                      torch.gather(win_stops, -1, idx)[..., 0]], dim=-1).to(dtype)
+    est_contact = classify_contact(params, est_forces, cmd_contact, ss, tt)
+    frac = torch.clamp((tt[:, None] - ss[..., 0]) / torch.clamp(ss[..., 1] - ss[..., 0], min=1e-6),
+                       0.0, 1.0)
+    early, late = early_late_contact_flags(None, est_contact, cmd_contact, frac,
+                                           ss[..., 1] - tt[:, None])
+    return est_contact, early, late
+
+
+def contact_class(params: ContactObserverParams, est_forces, cmd_contact,
+                  schedule: ModeSchedule, t_period, tt, horizon: float):
+    """Kernel B16: ``contact_class_plain``'s outputs at one tick.
+
+    CPU: the plain version.  CUDA: one launch of ``hk_contact_class``, a
+    thread per (scenario, leg), or an error: est_forces (B, 16), cmd_contact
+    (B, 4), t_period and tt (B,) float32 and contiguous, the schedule's
+    event times (B, MAX_PHASES) float32 and modes (B, MAX_PHASES + 1) int64
+    each row contiguous at any batch stride, the contact threshold float32
+    with one entry (read on the card, no sync); ``horizon`` a Python float."""
+    if tt.device.type == "cpu":
+        return contact_class_plain(params, est_forces, cmd_contact, schedule, t_period, tt,
+                                   horizon)
+    if tt.dim() != 1 or tt.shape[0] == 0:
+        raise ValueError(f"tt: expected (B,), got {tuple(tt.shape)}")
+    Bn, dev, f32 = tt.shape[0], tt.device, torch.float32
+    if Bn > _build.MAX_SCENARIOS:
+        raise ValueError(f"contact_class: B = {Bn}, the kernel takes 1..{_build.MAX_SCENARIOS}")
+    ev, modes = schedule.event_times, schedule.modes
+    for t, name, dtype, shape, kw in (
+            (ev, "event_times", f32, (Bn, MAX_PHASES), {"batch_stride": True}),
+            (modes, "modes", torch.int64, (Bn, MAX_PHASES + 1), {"batch_stride": True}),
+            (t_period, "t_period", f32, (Bn,), {}), (tt, "tt", f32, (Bn,), {}),
+            (cmd_contact, "cmd_contact", f32, (Bn, NUM_FEET), {}),
+            (est_forces, "est_forces", f32, (Bn, NV), {}),
+            (params.contact_threshold, "contact_threshold", f32,
+             tuple(params.contact_threshold.shape), {})):
+        _build.require(t, name, dtype, shape, dev, **kw)
+    if params.contact_threshold.numel() != 1:
+        raise ValueError("contact_class: the contact threshold must have one entry")
+    out = torch.empty((3, Bn, NUM_FEET), dtype=torch.bool, device=dev)
+    _build.check(_build.library().hk_contact_class(
+        *(t.data_ptr() for t in (ev, modes, t_period, tt, cmd_contact, est_forces,
+                                 params.contact_threshold, out[0], out[1], out[2])),
+        ev.stride(0), modes.stride(0), Bn, float(horizon), float(2 * horizon),
+        _build.stream(tt)), "contact_class")
+    contact_class.launches += 1
+    return out[0], out[1], out[2]
+
+
+contact_class.launches = 0

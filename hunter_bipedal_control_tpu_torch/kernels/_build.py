@@ -75,6 +75,8 @@ SIGNATURES = {
     # 9 inputs, 6 outputs, decisions or NULL, 3 batch strides, batch, knots, samples,
     # horizon / intervals, stream
     "hk_knot_refs": [_P] * 16 + [_I] * 6 + [_F, _P],
+    # 7 inputs, 3 outputs, 2 batch strides, batch, horizon, 2 horizon, stream
+    "hk_contact_class": [_P] * 10 + [_I] * 3 + [_F] * 2 + [_P],
     # consts, params, Q, R, 10 inputs (K and kff may be NULL), 5 outputs, batch, n_alpha,
     # n_knots, integrator, max_substeps, dt, abs_tol, rel_tol, h_min, stream
     "hk_ddp_rollout": [_P] * 19 + [_I] * 5 + [_F] * 4 + [_P],
@@ -85,6 +87,8 @@ MAX_SCENARIOS = 2 ** 31 - 1
 
 _lib = None
 build_log = ""
+# the compiler's output of each measurement library, by the library's path
+measurement_logs = {}
 
 
 def _nvcc() -> str:
@@ -181,6 +185,7 @@ def measurement_library(source: str, define: str | None, names):
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source} with {flags}:\n{done.stdout}")
+    measurement_logs[so] = done.stdout
     return _bind(ctypes.CDLL(so), names)
 
 

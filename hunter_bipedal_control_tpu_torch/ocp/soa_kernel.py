@@ -34,6 +34,18 @@ MAX_BLOCKS = 2 ** 31 - 1
 _topology = None
 _DEV_CONSTS: dict = {}
 _CHECKED: dict = {}
+# the wrappers' buffers kept by their owner's identity (bounded): the
+# constants per (model, device), the OCP's parameters per OcpParams
+CACHE_SIZE = 8
+_BY_MODEL: dict = {}
+_BY_PARAMS: dict = {}
+
+
+def _keep(cache: dict, key, value):
+    if len(cache) >= CACHE_SIZE:
+        cache.pop(next(iter(cache)))
+    cache[key] = value
+    return value[-1]
 
 
 def compiled_topology() -> dict:
@@ -86,7 +98,13 @@ def consts_values(c: soa.SoaConsts) -> np.ndarray:
 
 
 def consts_buffer(model, device) -> torch.Tensor:
-    """The model's constants on ``device`` (float32), built once per model."""
+    """The model's constants on ``device`` (float32), built once per model:
+    looked up first by the model's identity (a model's arrays are not
+    changed in place), then by its content."""
+    key = (id(model), str(device))
+    hit = _BY_MODEL.get(key)
+    if hit is not None and hit[0] is model:
+        return hit[1]
     c = soa.build_consts(model)
     check_topology(c)
     key = (id(c), str(device))
@@ -98,19 +116,27 @@ def consts_buffer(model, device) -> torch.Tensor:
                              f"{compiled_topology()['n_consts']}")
         hit = (c, torch.as_tensor(vals, dtype=torch.float32, device=device))
         _DEV_CONSTS[key] = hit
-    return hit[1]
+    return _keep(_BY_MODEL, (id(model), str(device)), (model, hit[1]))
 
 
 def params_buffer(params) -> torch.Tensor:
     """The OCP's scalar gains and joint limits in the kernel's layout, one
-    float32 tensor on the params' device (one concatenation, no sync)."""
+    float32 tensor on the params' device (one concatenation, no sync), kept
+    per ``OcpParams`` and rebuilt when one of its tensors changes in place
+    (its version counter); a tensor replaced makes another ``OcpParams``."""
+    tensors = tuple(t for t in params if torch.is_tensor(t))
+    versions = tuple(t._version for t in tensors)
+    hit = _BY_PARAMS.get(id(params))
+    if hit is not None and hit[0] is params and hit[1] == versions:
+        return hit[2]
     fields = (params.xy_position_gain, params.stance_z_ref, params.position_error_gain,
               params.friction_coeff, params.cone_regularization, params.cone_mu,
               params.cone_delta, params.swing_weight, params.pos_limit_mu,
               params.pos_limit_delta, params.vel_limit_mu, params.vel_limit_delta,
               params.force_limit_mu, params.force_limit_delta, params.force_z_max,
               params.joint_lower, params.joint_upper, params.joint_vel_limit)
-    return torch.cat([t.reshape(-1).to(torch.float32) for t in fields])
+    buf = torch.cat([t.reshape(-1).to(torch.float32) for t in fields])
+    return _keep(_BY_PARAMS, id(params), (params, versions, buf))
 
 
 def kernel_inputs(model, params, xs, us, x_nom, flags, fpr, fvr, lead):

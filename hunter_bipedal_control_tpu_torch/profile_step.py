@@ -15,6 +15,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step wbc_qp_phases [batch] [wbc_qp.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step wbc_qp_times [other/wbc_qp.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step backends_spread [moves] [riccati.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step ddp_rollout_phases [B] [N] [H] [RK2|ODE45] [ddp_rollout.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step ddp_rollout_times
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
 ``--lin_backend=dense`` (the plain dense linearization and merit), so that
@@ -58,6 +60,13 @@ kernel B9 on the standing and walking WBC batches the same way
 (``profile_wbc_qp_phases``: scenario 0's cycles by WBC_QP_PHASE_NAMES), and
 ``wbc_qp_times`` times B9 around its wrapper and by its own device time,
 beside another ``wbc_qp.cu`` if given (``profile_wbc_qp_times``).
+``ddp_rollout_phases`` splits kernel B15 on the DDP's first
+iteration's closed-loop rollouts the same way (``profile_ddp_rollout_phases``:
+rollout 0's cycles per knot by DDP_ROLLOUT_PHASE_NAMES), beside the
+kernel's time and own device time, optionally for another
+``ddp_rollout.cu`` (e.g. a parent checkout's with the same clock marks);
+``ddp_rollout_times`` times B15 on chip_smoke's three DDP cells
+(``profile_ddp_rollout_times``).
 ``backends_spread`` measures
 no time: it reads how far the flagship's warm step with the dense
 linearization lands from the one with kernel B1, scenario by scenario, at
@@ -382,8 +391,8 @@ def profile_loop_phases(riccati_parallel: bool = False, periods: int = 2,
 # the full-order loop's parts, as sim_loop.py calls them
 SIM_PHASES = (("sim_step", "sim"), ("_sense_and_estimate", "sim"), ("synth_imu", "sim"),
               ("rbd_state_to_centroidal", "sim"), ("kalman_update", "sim"),
-              ("momentum_observer_update", "sim"), ("_classify_contacts", "sim"),
-              ("swing_windows", "sim"), ("control_tick", "sim"), ("wbc_qp", "wbc"),
+              ("momentum_observer_update", "sim"), ("contact_class", "sim"),
+              ("control_tick", "sim"), ("wbc_qp", "wbc"),
               ("solve_qp", "wbc"), ("mpc_step", "mpc"))
 
 
@@ -414,7 +423,7 @@ def profile_sim_loop_phases(riccati_parallel: bool = False, periods: int = 2,
     (``rbd_state_to_centroidal``) and the rest of ``_sense_and_estimate``
     but the filter (``sensing_rest``: the commanded contacts, the rbd
     state), the Kalman filter (six updates per period), the observer, the
-    contact classification (with the period's swing windows), the MPC step,
+    contact classification (kernel B16, one launch a tick), the MPC step,
     the control tick (the QP assembly and the PDIP apart), the rest (the gait
     upkeep, the command filter, the loop's own code)."""
     import torch
@@ -433,7 +442,7 @@ def profile_sim_loop_phases(riccati_parallel: bool = False, periods: int = 2,
              "centroidal": by["rbd_state_to_centroidal"],
              "sensing_rest": by["_sense_and_estimate"],
              "kalman": by["kalman_update"], "observer": by["momentum_observer_update"],
-             "classification": by["_classify_contacts"] + by["swing_windows"],
+             "classification": by["contact_class"],
              "mpc_step": by["mpc_step"], "wbc_qp": by["wbc_qp"], "solve_qp": by["solve_qp"],
              "control_tick_rest": by["control_tick"]}
     parts["other"] = total - sum(parts.values())
@@ -542,7 +551,6 @@ def _clock_phases(source: str, define: str, entry: str, reader: str, n: int, run
     after a warm-up, and the kernel's median time with the clocks in (CUDA
     events, 15 runs).  Returns (sums, ms)."""
     import ctypes
-    import statistics
 
     import torch
 
@@ -563,17 +571,10 @@ def _clock_phases(source: str, define: str, entry: str, reader: str, n: int, run
         torch.cuda.synchronize()
         if read(cycles) != 0:
             raise RuntimeError(f"{reader} failed")
-        times = []
-        for _ in range(15):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            run()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
+        ms = _event_ms(run)
     finally:
         _build.library = real_library
-    return list(cycles), statistics.median(times)
+    return list(cycles), ms
 
 
 QP_PHASE_NAMES = ("mu", "residuals", "hbar_rbar", "chol_hbar", "forward_sweep", "schur",
@@ -712,8 +713,6 @@ def profile_wbc_qp_times(other: str | None = None, reps: int = 15):
     Given ``other`` (a ``wbc_qp.cu`` of the same C interface, e.g. a parent
     checkout's), that kernel too, built with ``_build.measurement_library``
     and run in place of the package's: package, other, other, package."""
-    import statistics
-
     import torch
 
     from .kernels import _build
@@ -728,19 +727,6 @@ def profile_wbc_qp_times(other: str | None = None, reps: int = 15):
                          real_library(), "hk_wbc_qp")
         libs[other] = lambda: alt
 
-    def event_ms(args):
-        wbc.wbc_qp(*args)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            wbc.wbc_qp(*args)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
     order = list(libs) + list(reversed(libs)) if other is not None else list(libs)
     out = {name: {case: [] for case in cases} for name in libs}
     try:
@@ -749,13 +735,147 @@ def profile_wbc_qp_times(other: str | None = None, reps: int = 15):
             for case, args in cases.items():
                 own, recorded = own_device_time(lambda: wbc.wbc_qp(*args),
                                                 WBC_QP_PROFILED_CALLS, "wbc_qp_kernel")
-                out[name][case].append({"kernel_ms": event_ms(args), "kernel_device_ms": own,
+                out[name][case].append({"kernel_ms": _event_ms(lambda: wbc.wbc_qp(*args), reps),
+                                        "kernel_device_ms": own,
                                         "profiled_launches": recorded})
     finally:
         _build.library = real_library
     return {"phase": "profile_wbc_qp_times", "device": torch.cuda.get_device_name(0),
             "profiled_calls": WBC_QP_PROFILED_CALLS, "reps": reps, "order": order,
             "times": out}
+
+
+# kernel B15's phases (csrc/ddp_rollout.cu, -DDDP_ROLLOUT_PHASE_CLOCKS): the
+# knot's loads and the outputs' stores, the feedback, the row pass's FK, base
+# velocity (world inertias, momentum, the base block), full velocities and
+# contact points and velocities, the rows' terms (flow rows, equality and
+# soft rows, |g|_1), the stage cost, the integrator's further flows, and
+# the integrator's own work (axpys, stage sums, ODE45's error norm and
+# decisions)
+DDP_ROLLOUT_PHASE_NAMES = ("loads", "feedback", "fk", "base_velocity", "velocity_contacts",
+                           "row_terms", "stage_cost", "flows", "integrator")
+# kernel calls under the profiler for B15's own device time
+DDP_ROLLOUT_PROFILED_CALLS = 10
+
+
+# chip_smoke's DDP cells: (name, B, N, horizon, integrator)
+DDP_ROLLOUT_CELLS = (("product_rk2", 1, 53, 0.8, "RK2"), ("product_ode45", 1, 53, 0.8, "ODE45"),
+                     ("bench_rk2", 128, 66, 1.0, "RK2"))
+
+
+def _ddp_rollout_args(batch: int, knots: int, horizon: float, integrator: str):
+    """``ddp.closed_rollout``'s arguments on the first iteration of
+    ``entry.ddp_solve`` on the flagship (six step sizes, one iteration after
+    three SQP solves), on the card."""
+    import torch
+
+    from .entry import build_flagship, ddp_solve
+    from .solver import ddp
+
+    flag = build_flagship(knots, horizon, batch=batch, device="cuda")
+    settings = ddp.DdpSettings(n_intervals=knots, horizon=horizon, integrator=integrator,
+                               n_iterations=1)
+    its = []
+    run = ddp_solve(flag, settings, on_iteration=its.append)
+    it = its[0]
+    return (flag.model, flag.params, run.refs, flag.x0, it["xs"], it["us"],
+            it["Ks"].contiguous(), it["kffs"].contiguous(),
+            torch.tensor(settings.alphas, device=flag.x0.device), ddp.rollout_settings(settings))
+
+
+def _event_ms(fn, reps: int = 15):
+    """Median time of one ``fn()`` between two CUDA events."""
+    import statistics
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def profile_ddp_rollout_times():
+    """Kernel B15 on each of chip_smoke's DDP cells (DDP_ROLLOUT_CELLS, the
+    first iteration's closed-loop rollouts): its time around the wrapper
+    (CUDA events, median of 15), its own device time per recorded launch
+    (``own_device_time`` over DDP_ROLLOUT_PROFILED_CALLS calls) and its time
+    per call back to back (the same calls between two events).  chip_smoke
+    runs this in a process of its own, whose profiler records every launch."""
+    import torch
+
+    from .solver import ddp
+
+    out = {}
+    for name, batch, knots, horizon, integrator in DDP_ROLLOUT_CELLS:
+        args = _ddp_rollout_args(batch, knots, horizon, integrator)
+        call = lambda: ddp.closed_rollout(*args)  # noqa: E731
+        own, recorded = own_device_time(call, DDP_ROLLOUT_PROFILED_CALLS, "ddp_rollout")
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(DDP_ROLLOUT_PROFILED_CALLS):
+            call()
+        b.record()
+        b.synchronize()
+        out[name] = {"batch": batch, "knots": knots, "integrator": integrator,
+                     "kernel_ms": _event_ms(call), "kernel_device_ms": own,
+                     "profiled_launches": recorded,
+                     "back_to_back_ms": a.elapsed_time(b) / DDP_ROLLOUT_PROFILED_CALLS}
+    return {"phase": "profile_ddp_rollout_times", "device": torch.cuda.get_device_name(0),
+            "profiled_calls": DDP_ROLLOUT_PROFILED_CALLS, "cells": out}
+
+
+def profile_ddp_rollout_phases(batch: int = 1, knots: int = 53, horizon: float = 0.8,
+                               integrator: str = "RK2", source: str = "ddp_rollout.cu"):
+    """Kernel B15 (``csrc/<source>``, or the file at the path ``source``) on
+    the first iteration's closed-loop rollouts of ``entry.ddp_solve`` on the
+    flagship (six step sizes, one iteration after three SQP solves), built
+    once more with ``-DDDP_ROLLOUT_PHASE_CLOCKS`` (``_clock_phases``):
+    rollout 0's clock64 cycles per knot by DDP_ROLLOUT_PHASE_NAMES and the
+    kernel's median time with the clocks in; the source built without the
+    clocks: its median time around the wrapper (CUDA events, 15 runs) and
+    its own device time per recorded launch (``own_device_time``); the
+    ptxas lines of both builds."""
+    import torch
+
+    from .kernels import _build
+    from .solver import ddp
+
+    args = _ddp_rollout_args(batch, knots, horizon, integrator)
+    ddp.closed_rollout(*args)  # the constants on the card, by the package's library
+    cycles, clocked_ms = _clock_phases(source, "DDP_ROLLOUT_PHASE_CLOCKS", "hk_ddp_rollout",
+                                       "hk_ddp_rollout_phase_cycles",
+                                       len(DDP_ROLLOUT_PHASE_NAMES),
+                                       lambda: ddp.closed_rollout(*args))
+    real_library = _build.library
+    plain = _WithEntry(_build.measurement_library(source, None, ["hk_ddp_rollout"]),
+                       real_library(), "hk_ddp_rollout")
+    _build.library = lambda: plain
+    try:
+        slots = int(ddp.closed_rollout(*args)[4].sum())
+        kernel_ms = _event_ms(lambda: ddp.closed_rollout(*args))
+        own, recorded = own_device_time(lambda: ddp.closed_rollout(*args),
+                                        DDP_ROLLOUT_PROFILED_CALLS, "ddp_rollout")
+    finally:
+        _build.library = real_library
+    ptxas = {k: [ln.strip() for ln in v.splitlines() if "ptxas" in ln and "ddp_rollout" in k]
+             for k, v in _build.measurement_logs.items()}
+    return {"phase": "profile_ddp_rollout_phases", "batch": batch, "knots": knots,
+            "horizon": horizon, "integrator": integrator, "source": source,
+            "step_sizes": args[8].shape[0], "accepted_slots": slots,
+            "device": torch.cuda.get_device_name(0),
+            "cycles_per_knot": {p: c / knots for p, c in zip(DDP_ROLLOUT_PHASE_NAMES, cycles)},
+            "total_cycles_per_knot": sum(cycles) / knots, "clocked_kernel_ms": clocked_ms,
+            "kernel_ms": kernel_ms, "kernel_device_ms": own,
+            "profiled_launches": recorded, "profiled_calls": DDP_ROLLOUT_PROFILED_CALLS,
+            "ptxas": {k.rsplit("/", 1)[-1]: v for k, v in ptxas.items() if v}}
 
 
 class _WithEntry:
@@ -906,6 +1026,14 @@ if __name__ == "__main__":
     elif a and a[0] == "backends_spread":
         print(json.dumps(profile_backends_spread(int(a[1]) if len(a) > 1 else 8,
                                                  a[2] if len(a) > 2 else None)))
+    elif a and a[0] == "ddp_rollout_times":
+        print(json.dumps(profile_ddp_rollout_times()))
+    elif a and a[0] == "ddp_rollout_phases":
+        print(json.dumps(profile_ddp_rollout_phases(int(a[1]) if len(a) > 1 else 1,
+                                                    int(a[2]) if len(a) > 2 else 53,
+                                                    float(a[3]) if len(a) > 3 else 0.8,
+                                                    a[4] if len(a) > 4 else "RK2",
+                                                    a[5] if len(a) > 5 else "ddp_rollout.cu")))
     elif a and a[0] == "ddp":
         print(json.dumps(profile_ddp(int(a[1]) if len(a) > 1 else 1,
                                      int(a[2]) if len(a) > 2 else 53,

@@ -12,13 +12,15 @@ then the nonlinear closed-loop rollouts of every line-search step
 
     u_k = u_bar_k + alpha kff_k + K_k (x_k - x_bar_k)
 
-in one launch of kernel B15 (``closed_rollout``, ``csrc/ddp_rollout.cu``)
+in one launch of kernel B15 (``closed_rollout``, ``csrc/ddp_rollout.cu``:
+a block per scenario, a warp per step size)
 and the selection of the first step whose merit beats the current
 trajectory's.  The warm start is first re-rolled open loop (B15 with no
 feedback), so every iterate is dynamically feasible.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -116,16 +118,33 @@ def closed_rollout_plain(model: RobotModel, params: ocp.OcpParams, refs: sqp.Ref
 INTEGRATOR_CODE = {kind: i for i, kind in enumerate(INTEGRATORS)}
 
 
+def _outputs(Bn: int, A: int, N: int, device):
+    """xs (B, A, N+1, nx), us (B, A, N, nu), cost and eq (B, A) float32 and
+    slots (B, A, N) int32 as views of one buffer."""
+    nx, nu = soa_kernel.NX, soa_kernel.NU
+    shapes = ((Bn, A, N + 1, nx), (Bn, A, N, nu), (Bn, A), (Bn, A), (Bn, A, N))
+    sizes = [math.prod(sh) for sh in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=device)
+    views, o = [], 0
+    for n, sh in zip(sizes, shapes):
+        views.append(buf[o:o + n].view(sh))
+        o += n
+    views[-1] = views[-1].view(torch.int32)
+    return views
+
+
 def closed_rollout(model: RobotModel, params: ocp.OcpParams, refs: sqp.ReferenceBundle,
                    x_init, xs_bar, us_bar, Ks, kffs, alphas, rs: RolloutSettings):
     """``closed_rollout_plain``'s outputs — kernel B15.
 
     CPU: the plain version.  CUDA (float32): one launch of
-    ``hk_ddp_rollout``, a thread per (scenario, step size) walking the N
-    knots, or an error: every input float32, contiguous, on one card (the
-    references as B1 takes them, (B, N+1, ...)); the model's constants from
-    B1's buffer (``soa_kernel.consts_buffer``, which refuses a model of
-    another topology)."""
+    ``hk_ddp_rollout``, a block per scenario and a warp per step size
+    walking the N knots, or an error: every input float32, contiguous, on
+    one card (the references as B1 takes them, (B, N+1, ...)); the model's
+    constants from B1's buffer (``soa_kernel.consts_buffer``, which refuses
+    a model of another topology) and the OCP's parameters from B1's
+    parameter buffer (``soa_kernel.params_buffer``), both kept by identity;
+    the five outputs are views of one buffer."""
     if x_init.device.type == "cpu":
         return closed_rollout_plain(model, params, refs, x_init, xs_bar, us_bar, Ks, kffs,
                                     alphas, rs)
@@ -146,15 +165,21 @@ def closed_rollout(model: RobotModel, params: ocp.OcpParams, refs: sqp.Reference
            (us_bar, "us_bar", (Bn, N, nu)), (alphas, "alphas", (A,))]
     if Ks is not None:
         ins += [(Ks, "Ks", (Bn, N, nu, nx)), (kffs, "kffs", (Bn, N, nu))]
+    x_nom, flags, fpr, fvr = sqp.kernel_refs(refs)
+    ins += [(x_nom, "x_nom", (Bn, N + 1, nx)), (flags, "flags", (Bn, N + 1, soa_kernel.NC)),
+            (fpr, "foot_pos_ref", (Bn, N + 1, soa_kernel.NC, 3)),
+            (fvr, "foot_vel_ref", (Bn, N + 1, soa_kernel.NC, 3)),
+            (params.Q, "Q", (nx, nx)), (params.R, "R", (nu, nu))]
     for t, name, shape in ins:
         _build.require(t, name, f32, shape, dev)
-    consts, prm, Q, R, _, _, x_nom, flags, fpr, fvr = soa_kernel.kernel_inputs(
-        model, params, xs_bar, us_bar, *sqp.kernel_refs(refs), (Bn,))
-    xs = torch.empty((Bn, A, N + 1, nx), dtype=f32, device=dev)
-    us = torch.empty((Bn, A, N, nu), dtype=f32, device=dev)
-    cost = torch.empty((Bn, A), dtype=f32, device=dev)
-    eq = torch.empty_like(cost)
-    slots = torch.empty((Bn, A, N), dtype=torch.int32, device=dev)
+    if params.collision is not None:
+        raise NotImplementedError("self-collision terms are not ported yet")
+    consts, prm, Q, R = (soa_kernel.consts_buffer(model, dev), soa_kernel.params_buffer(params),
+                         params.Q, params.R)
+    if prm.numel() != soa_kernel.compiled_topology()["n_params"]:
+        raise ValueError(f"soa kernel: {prm.numel()} parameters, the kernel takes "
+                         f"{soa_kernel.compiled_topology()['n_params']}")
+    xs, us, cost, eq, slots = _outputs(Bn, A, N, dev)
     fb = (None, None) if Ks is None else (Ks.data_ptr(), kffs.data_ptr())
     _build.check(_build.library().hk_ddp_rollout(
         consts.data_ptr(), prm.data_ptr(), Q.data_ptr(), R.data_ptr(), x_init.data_ptr(),

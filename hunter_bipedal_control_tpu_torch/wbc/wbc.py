@@ -219,10 +219,9 @@ MAX_BLOCKS = 2 ** 31 - 1
 # Aeq and Ain by 16-byte stores
 OUT_SHAPES = ((NDEC, NDEC), (NDEC,), (N_EQ_ROWS, NDEC), (N_EQ_ROWS,), (N_INEQ_ROWS, NDEC),
               (N_INEQ_ROWS,))
-# the gains buffers and constants kept for the last few WbcParams and models
+# the gains buffers kept for the last few WbcParams
 CACHE_SIZE = 8
 _params_buffers: dict = {}
-_consts: dict = {}
 
 
 def _keep(cache: dict, key, value):
@@ -249,17 +248,6 @@ def params_buffer(params: WbcParams) -> torch.Tensor:
     return _keep(_params_buffers, id(params), (params, versions, buf))
 
 
-def consts_buffer(model: RobotModel, device) -> torch.Tensor:
-    """B1's constants buffer of ``model`` on ``device`` (``soa_kernel.
-    consts_buffer``, which refuses a model of another topology), looked up
-    by the model's identity: a model's arrays are not changed in place."""
-    key = (id(model), device)
-    hit = _consts.get(key)
-    if hit is not None and hit[0] is model:
-        return hit[1]
-    return _keep(_consts, key, (model, soa_kernel.consts_buffer(model, device)))
-
-
 def qp_buffers(batch: int, device):
     """The six QP arrays of ``batch`` scenarios as contiguous float32 views
     into one buffer, each at a 16-byte-aligned offset."""
@@ -281,8 +269,9 @@ def wbc_qp(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measured, con
     scenario, or an error: x_des, u_des (B, 22), rbd_measured (B, 32),
     contact_flags (B, 4) float32 and stance_mode (B,) bool, contiguous, on
     the card; the model's constants come from B1's buffer
-    (``consts_buffer``, which refuses a model of another topology), the
-    gains from ``params_buffer``; the outputs are ``qp_buffers``' views."""
+    (``soa_kernel.consts_buffer``, which refuses a model of another
+    topology), the gains from ``params_buffer``; the outputs are
+    ``qp_buffers``' views."""
     if rbd_measured.device.type == "cpu":
         return wbc_qp_plain(model, params, x_des, u_des, rbd_measured, contact_flags,
                             stance_mode)
@@ -296,7 +285,7 @@ def wbc_qp(model: RobotModel, params: WbcParams, x_des, u_des, rbd_measured, con
                            (contact_flags, "contact_flags", (Bn, NUM_FEET))):
         _build.require(t, name, f32, shape, dev)
     _build.require(stance_mode, "stance_mode", torch.bool, (Bn,), dev)
-    K = consts_buffer(model, dev)
+    K = soa_kernel.consts_buffer(model, dev)
     P = params_buffer(params)
     _build.require(P, "params", f32, (N_PARAMS,), dev)
     outs = qp_buffers(Bn, dev)

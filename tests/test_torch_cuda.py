@@ -84,15 +84,30 @@ B15's states, inputs, cost and metric on the first iteration's six
 closed-loop rollouts with each integrator, and on the open-loop re-roll,
 each within max(1e-4, 2 x the float32 plain version's error) of the
 float64 plain version (on the CPU), on its scale max(1, max |plain|);
-ODE45's accepted slots equal to the float32 plain version's; a NaN in
-x_init gives NaN where the plain version has it; float64, rows that are
-not contiguous, a policy without its feedforward and an unknown integrator
-refused; B2 (d = 0, hess_reg 1e-5, the pivoting Gram inverse; its float32
+ODE45's accepted slots equal to the float32 plain version's; the same
+rule at B=3 (the flagship's batch) and B=128 (the product shape's data
+tiled, x_init moved per scenario by 1e-3; every 8th scenario held) with
+one, six and ten step sizes (ten: two blocks a scenario) over the
+rollouts whose float64 states stay within 1e3, and on the re-roll at
+B=128 (the warm start tiled, its inputs moved per scenario; the float32
+plain error over x_init and two one-ulp moves, chip_smoke's re-roll
+rule); a NaN in x_init, in one gain or in one knot's x_nom
+gives NaN where the plain version has it; float64, rows that are not
+contiguous, a policy without its feedforward, references of another
+length and an unknown integrator refused, launching nothing; B2 (d = 0,
+hess_reg 1e-5, the pivoting Gram inverse; its float32
 plain error the largest over the inputs and four one-ulp moves of them)
 and B3 (the backward pass, against the exact plain version) under the same
 rule;
 tests/test_ddp.py's properties on the card's solve and one launch of B1,
 B2, B3 and B15 per iteration plus one re-roll per solve.
+contact_class (B16), the full-order loop's contact classification: its
+three flags equal to the float32 plain version's on the card (decisions in
+torch's order and rounding) on ``entry.contact_class_batch``'s seeded
+schedules (ticks on and one ulp beside event times, NaN forces) at B=1, 3
+and 4096, with a schedule shared by expand (stride 0) too; one launch per
+call; float64 times, int32 modes and a wrong width refused, launching
+nothing.
 """
 import numpy as np
 import pytest
@@ -101,6 +116,7 @@ import torch
 from hunter_bipedal_control_tpu_torch.backends import dummy, fullorder
 from hunter_bipedal_control_tpu_torch.entry import (SimBatch, build_flagship, build_sim_loop,
                                                     build_wbc_batch, centroidal_batch,
+                                                    contact_class_batch,
                                                     estimator_batch, projected_lq, qp_batch,
                                                     sim_step_batch, walking_wbc_batch)
 from hunter_bipedal_control_tpu_torch.estim import contact, kalman
@@ -1575,18 +1591,146 @@ def test_ddp_rollout_kernel_open_loop(cuda, ddp_run):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("integrator", ["RK2", "ODE45"])
-def test_ddp_rollout_kernel_nan(cuda, ddp_run, integrator):
-    """A NaN in x_init gives NaN where the plain version has it."""
+@pytest.mark.parametrize("where", ["x_init", "K", "x_nom"])
+@pytest.mark.parametrize("integrator", ["RK2", "RK4", "ODE45"])
+def test_ddp_rollout_kernel_nan(cuda, ddp_run, integrator, where):
+    """A NaN in x_init, in one gain of one knot or in one knot's x_nom gives
+    NaN where the plain version has it (x_nom's: the cost alone)."""
     flag, settings, run, its = ddp_run
     rs = ddp_mod.rollout_settings(settings._replace(integrator=integrator))
     args = list(_roll_args(flag, run, its[0], True, torch.tensor(settings.alphas, device=cuda)))
-    args[1] = args[1].clone()
-    args[1][0, 3] = float("nan")
+    if where == "x_init":
+        args[1] = args[1].clone()
+        args[1][0, 3] = float("nan")
+    elif where == "K":
+        args[4] = args[4].clone()
+        args[4][0, 20, 14, 3] = float("nan")
+    else:
+        x_nom = args[0].x_nom.clone()
+        x_nom[0, 30, 8] = float("nan")
+        args[0] = args[0]._replace(x_nom=x_nom)
     got = ddp_mod.closed_rollout(flag.model, flag.params, *args, rs)
     ref = ddp_mod.closed_rollout_plain(flag.model, flag.params, *args, rs)
     for name, a, b in zip(DDP_ROLL, got, ref):
         assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+    assert torch.isnan(got[2]).all()
+
+
+@pytest.fixture(scope="module")
+def ddp_batch_runs(ddp_run):
+    """B15's closed-loop rollout arguments at B=3 and B=128.  B=3: the
+    product shape's DDP solve on the card at batch 3 (one iteration after
+    three SQP solves), its first iteration.  B=128: the B=1 run's first
+    iteration tiled, x_init moved per scenario by a seeded 1e-3 (every block
+    reads its own copy; the flagship's own B=128 scenarios start far from
+    the nominal state, where the first iteration's rollouts amplify
+    rounding past the float32 plain version's own distance to float64)."""
+    dev = torch.device("cuda")
+    flag3 = build_flagship(53, 0.8, batch=3, device=dev)
+    its = []
+    run3 = entry_ddp_solve(flag3, ddp_mod.DdpSettings(n_iterations=1), on_iteration=its.append)
+    flag, settings, run, its1 = ddp_run
+    it = its1[0]
+    g = torch.Generator(device="cpu").manual_seed(0)
+    x0 = (flag.x0.cpu() + 1e-3 * torch.randn(128, 22, generator=g)).to(dev)
+    tile = lambda t: t.expand(128, *t.shape[1:]).contiguous()  # noqa: E731
+    refs = type(run.refs)(*(tile(t) for t in run.refs))
+    torch.cuda.synchronize()
+    return {3: (flag3, (run3.refs, flag3.x0, its[0]["xs"], its[0]["us"],
+                        its[0]["Ks"].contiguous(), its[0]["kffs"].contiguous())),
+            128: (flag, (refs, x0, tile(it["xs"]), tile(it["us"]), tile(it["Ks"]),
+                         tile(it["kffs"])))}
+
+
+# ten step sizes: two blocks of a scenario's rollouts (eight warps, then two)
+ALPHAS_10 = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01, 0.7, 0.3, 0.05, 0.002)
+# at B=128 the plain versions run on every 8th scenario
+BATCH_STRIDE = 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("integrator", ["RK2", "RK4", "ODE45"])
+@pytest.mark.parametrize("n_alpha", [1, 6, 10])
+@pytest.mark.parametrize("batch", [3, 128])
+def test_ddp_rollout_kernel_batches(cuda, ddp_run, ddp_batch_runs, batch, n_alpha, integrator):
+    """B15 at B=3 and 128 with one, six and ten step sizes: each output
+    within max(1e-4, 2 x the float32 plain version's error) of the float64
+    plain version (on the CPU), each rollout on its scale max(1, max
+    |plain|), over the rollouts whose float64 states stay finite and within
+    1e3 (at B=128 every 8th scenario); ODE45's accepted slots equal to the
+    float32 plain version's there; one launch."""
+    _, settings, _, _ = ddp_run
+    flag, roll = ddp_batch_runs[batch]
+    rs = ddp_mod.rollout_settings(settings._replace(integrator=integrator))
+    args = roll + (torch.tensor(ALPHAS_10[:n_alpha], device=cuda),)
+    before = ddp_mod.closed_rollout.launches
+    got = ddp_mod.closed_rollout(flag.model, flag.params, *args, rs)
+    torch.cuda.synchronize()
+    assert ddp_mod.closed_rollout.launches == before + 1
+    sub = torch.arange(0, batch, BATCH_STRIDE if batch > 8 else 1, device=cuda)
+    args = (type(args[0])(*(t[sub] for t in args[0])),) + tuple(t[sub] for t in args[1:6]) + (
+        args[6],)
+    got = tuple(t[sub] for t in got)
+    ref32 = ddp_mod.closed_rollout_plain(flag.model, flag.params, *args, rs)
+    f64 = build_flagship(53, 0.8, batch=1, device="cpu", dtype=torch.float64)
+    args64 = (_cast(args[0], "cpu", torch.float64),) + tuple(t.cpu().double() for t in args[1:])
+    ref64 = ddp_mod.closed_rollout_plain(f64.model, f64.params, *args64, rs)
+    xs64 = ref64[0].flatten(2)
+    held = torch.isfinite(xs64).all(-1) & (xs64.abs().amax(-1) <= 1e3)
+    assert held.any()
+
+    def per_roll(a, c):
+        a, c = a.cpu().double(), c.cpu().double()
+        a, c = (a[..., None], c[..., None]) if a.dim() == 2 else (a, c)
+        return ((a - c).abs().flatten(2).amax(-1)
+                / c.abs().flatten(2).amax(-1).clamp(min=1.0))[held].max().item()
+
+    for name, a, b, c in zip(DDP_ROLL, got, ref32, ref64):
+        assert a.shape == c.shape and a.dtype == torch.float32, name
+        assert per_roll(a, c) <= max(DDP_TOL, 2.0 * per_roll(b, c)), name
+    assert torch.equal(got[4].cpu()[held], ref32[4].cpu()[held])
+    assert (got[4][held] > 0).all() == (integrator == "ODE45")
+
+
+@pytest.mark.cuda
+def test_ddp_rollout_kernel_open_loop_batch(cuda, ddp_run, ddp_batch_runs):
+    """The re-roll at B=128: the product shape's warm start tiled, its
+    inputs moved per scenario by a seeded 1e-3 N or rad/s (every block
+    reads its own copy): inputs copied exactly, each output within
+    max(1e-4, 2 x the float32 plain version's error) of the float64 plain
+    version over the finite rollouts, the float32 plain error the largest
+    over x_init and two one-ulp moves of it (chip_smoke's re-roll rule: the
+    open loop amplifies rounding, one float32 run's error bounds no
+    other's)."""
+    flag, _ = ddp_batch_runs[128]
+    _, settings, run, _ = ddp_run
+    rs = ddp_mod.rollout_settings(settings)
+    tile = lambda t: t.expand(128, *t.shape[1:]).contiguous()  # noqa: E731
+    g = torch.Generator(device="cpu").manual_seed(1)
+    us = tile(run.warm.inputs[:, :-1]) + (1e-3 * torch.randn(128, 53, 22, generator=g)).to(cuda)
+    args = (type(run.refs)(*(tile(t) for t in run.refs)), tile(flag.x0),
+            tile(run.warm.states), us, None, None,
+            torch.tensor(settings.alphas[:1], device=cuda))
+    got = ddp_mod.closed_rollout(flag.model, flag.params, *args, rs)
+    assert torch.equal(got[1][:, 0], args[3])
+    runs = [ddp_mod.closed_rollout_plain(flag.model, flag.params, *args, rs)]
+    for seed in range(2):
+        gm = torch.Generator(device=cuda).manual_seed(seed)
+        x0 = args[1]
+        moved = torch.nextafter(x0, x0 + torch.randint(-1, 2, x0.shape, generator=gm,
+                                                       device=cuda) * 1e3)
+        runs.append(ddp_mod.closed_rollout_plain(flag.model, flag.params, args[0], moved,
+                                                 *args[2:], rs))
+    f64 = build_flagship(53, 0.8, batch=1, device="cpu", dtype=torch.float64)
+    args64 = (_cast(args[0], "cpu", torch.float64), args[1].cpu().double(),
+              args[2].cpu().double(), args[3].cpu().double(), None, None,
+              args[6].cpu().double())
+    ref64 = ddp_mod.closed_rollout_plain(f64.model, f64.params, *args64, rs)
+    held = torch.isfinite(ref64[0].flatten(2)).all(-1)
+    for k, (name, a, c) in enumerate(zip(DDP_ROLL, got, ref64)):
+        a, c = (t.cpu().double()[held] for t in (a, c))
+        plain = max(_roll_own_err(r[k].cpu().double()[held], c) for r in runs)
+        assert _roll_own_err(a, c) <= max(DDP_TOL, 2.0 * plain), name
 
 
 @pytest.mark.cuda
@@ -1595,9 +1739,11 @@ def test_ddp_rollout_refuses_bad_input(cuda, ddp_run):
     rs = ddp_mod.rollout_settings(settings)
     args = list(_roll_args(flag, run, its[0], True, torch.tensor(settings.alphas, device=cuda)))
     before = ddp_mod.closed_rollout.launches
+    short = args[0]._replace(x_nom=args[0].x_nom[:, :-1].contiguous())
     bad = [(1, args[1].double(), TypeError),
            (3, torch.cat([args[3], args[3]], -1)[..., :22], ValueError),
-           (5, None, ValueError)]
+           (5, None, ValueError), (0, short, ValueError),
+           (6, args[6].double(), TypeError)]
     for i, value, err in bad:
         a = list(args)
         a[i] = value
@@ -1667,3 +1813,46 @@ def test_ddp_solve_on_card(cuda, ddp_run):
                   run.warm.inputs[:, :-1])
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2, 3, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 4096])
+def test_contact_class_kernel(cuda, batch):
+    """B16's flags equal the float32 plain version's on the card, one launch
+    per call."""
+    cb = contact_class_batch(batch, cuda, seed=5)
+    before = contact.contact_class.launches
+    got = contact.contact_class(*cb)
+    torch.cuda.synchronize()
+    assert contact.contact_class.launches == before + 1
+    ref = contact.contact_class_plain(*cb)
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.bool and a.shape == (batch, 4)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_contact_class_reads_shared_schedule_by_stride(cuda):
+    cb = contact_class_batch(64, cuda, seed=6)
+    shared = ms.ModeSchedule(event_times=cb.schedule.event_times[:1].expand(64, -1),
+                             modes=cb.schedule.modes[:1].expand(64, -1))
+    cb = cb._replace(schedule=shared)
+    got = contact.contact_class(*cb)
+    ref = contact.contact_class_plain(*cb._replace(schedule=ms.ModeSchedule(
+        *(t.contiguous() for t in shared))))
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_contact_class_refuses_bad_input(cuda):
+    cb = contact_class_batch(8, cuda, seed=7)
+    before = contact.contact_class.launches
+    bad = [(cb._replace(tt=cb.tt.double()), TypeError),
+           (cb._replace(schedule=cb.schedule._replace(modes=cb.schedule.modes.int())), TypeError),
+           (cb._replace(est_forces=cb.est_forces[:, :12].contiguous()), ValueError),
+           (cb._replace(cmd_contact=cb.cmd_contact.t().contiguous().t()), ValueError)]
+    for args, err in bad:
+        with pytest.raises(err):
+            contact.contact_class(*args)
+    assert contact.contact_class.launches == before
