@@ -129,8 +129,12 @@ Phases, each printing one JSON line:
      limit; A_sys = M + diag(armature + dt damping), which the kernel
      eliminates without pivoting, positive definite on every substep (its
      smallest eigenvalue and largest condition number from the float64
-     plain version); kernel and plain times, at B=1 the kernel's own
-     device time (``own_device_time``), the bound (``sim_step_cost``);
+     plain version); kernel and plain times, the kernel's own device time
+     (``own_device_time``) at B=1 and at B=1024 (and both again in a
+     process of their own, ``profile_step sim_step_times``, whose profiler
+     records every launch), the bound (``sim_step_cost``) and at B=1 one
+     lane's serial floor (``serial_chain_ms``: the needed operations at one
+     a clock);
   4i. B10 (momentum_observer) and B12 (kalman_update) on every update's
      inputs of 4g's loop (B=1, one launch each: 200 and 240) and on a
      seeded walking batch (``entry.estimator_batch``, B=4096): the
@@ -701,7 +705,7 @@ def sim_step_cost(batch, substeps, scaled, field, nq=16, nc=4, nj=10,
     and the mass scale only where the run gives them (``field``,
     ``scaled``); the contact law, the motors, Jc' f, the right-hand side;
     the solve of the positive definite A_sys by Cholesky (n^3/3 + 2 n^2,
-    where csrc/sim_step.cu's Gauss-Jordan spends ~n^3); the Euler update."""
+    where csrc/sim_step.cu's Gauss-Jordan spends ~n^3/2); the Euler update."""
     n_in = batch * (2 * nq + 5 * nj + 4) + (497 + 8 + nj)
     n_out = batch * (3 * nq + 3 * nc)
     depth = [0] * (nj + 1)
@@ -2644,13 +2648,16 @@ def main():
                 "delay_steps": last[1].delay_steps, "flips": flips,
                 "in_contact_share": float(d64.double().mean()), "a_sys": a_sys,
                 "plain_bf16_rel_err_vs_f64": e_bf16}
+        own_ms, own_n = own_device_time(lambda: real_substeps(*last), EST_PROFILED_CALLS,
+                                        "sim_step_kernel")
+        info.update(kernel_device_ms=own_ms, profiled_launches=own_n,
+                    profiled_calls=EST_PROFILED_CALLS)
         if row:
-            # the launches B11 takes away from each tick
+            # the launches B11 takes away from each tick; one lane's floor
             info["plain_device_launches_per_tick"] = _profiled(plain_tick, 1, 1)["device_launches"]
-            own_ms, own_n = own_device_time(lambda: real_substeps(*last), EST_PROFILED_CALLS,
-                                            "sim_step_kernel")
-            info.update(kernel_device_ms=own_ms, profiled_launches=own_n,
-                        profiled_calls=EST_PROFILED_CALLS)
+            info["serial_chain_ms"] = sim_step_cost(1, n_sub, last[1].mass_scale is not None,
+                                                    last[1].gravity_delta is not None
+                                                    )[1] / SM_CLOCK_HZ * 1e3
             record("sim_step", "cuda", "hunter_bipedal_control_tpu_torch/csrc/sim_step.cu",
                    "hunter_bipedal_control_tpu/backends/fullorder.py:126", err, tol, times[0],
                    times[1], None, cost, info)
@@ -3191,6 +3198,14 @@ def main():
     emit({"phase": "ddp_rollout_own_times", "profiled_calls": own_times["profiled_calls"],
           "cells": {c: {**v, "serial_chain_ms": ddp_floors.get(c)}
                     for c, v in own_times["cells"].items()}})
+
+    # B11's own device time at B=1 and B=1024, measured the same way
+    done = subprocess.run([sys.executable, "-m", "hunter_bipedal_control_tpu_torch.profile_step",
+                           "sim_step_times"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600, check=True)
+    sim_times = json.loads(done.stdout.strip().splitlines()[-1])
+    emit({"phase": "sim_step_own_times", "batches": sim_times["batches"],
+          "serial_chain_ms": sim_step_cost(1, 8, True, True)[1] / SM_CLOCK_HZ * 1e3})
 
     # ---- 5. kernels ----
     cf_rows = ("synth_imu", "rbd_to_centroidal", "dummy_step", "state_input_to_v")

@@ -198,6 +198,9 @@ def _next_state(params: SimParams, state, buf, head, q, v, acc, f_c) -> SimState
 
 # SimParams' scalars in the order csrc/sim_step.cu reads them
 N_PARAMS = 8
+# the launches' fixed pointers kept for the last few (model, SimParams, B)
+CACHE_SIZE = 8
+_launch_args: dict = {}
 
 
 def params_buffer(params: SimParams) -> torch.Tensor:
@@ -211,14 +214,45 @@ def params_buffer(params: SimParams) -> torch.Tensor:
     return torch.cat([t.reshape(1).to(torch.float32) for t in fields])
 
 
-def _knobs(params: SimParams, Bn, dev):
-    """mass_scale (B,) and gravity_delta (B, 3) as the kernel reads them: 1
-    and 0 where they are None."""
-    ms = (torch.ones(Bn, device=dev) if params.mass_scale is None
-          else _per_scenario(params.mass_scale, (Bn,)))
-    gd = (torch.zeros((Bn, 3), device=dev) if params.gravity_delta is None
-          else _per_scenario(params.gravity_delta, (Bn, 3)))
-    return ms.contiguous(), gd.contiguous()
+def _static_args(model: RobotModel, params: SimParams, Bn, dev):
+    """The kernel's pointers that do not change from tick to tick: the
+    model's constants, the parameter buffer, the effort limits, the mass
+    scale and the field (0 where None); checked when first built, then kept
+    per (model, SimParams, B, device) until a SimParams tensor changes in
+    place (its version counter)."""
+    key = (id(model), id(params), Bn, dev)
+    hit = _launch_args.get(key)
+    if (hit is not None and hit[0] is model and hit[1] is params
+            and all(t._version == n for t, n in hit[2])):
+        return hit[3]
+    f32 = torch.float32
+    K = soa_kernel.consts_buffer(model, dev)
+    P = params_buffer(params)
+    _build.require(P, "params", f32, (N_PARAMS,), dev)
+    effort = model.joint_effort
+    _build.require(effort, "joint_effort", f32, (NJ,), dev)
+    ms = _knob(params.mass_scale, (Bn,))
+    gd = _knob(params.gravity_delta, (Bn, 3))
+    if ms is not None:
+        _build.require(ms, "mass_scale", f32, (Bn,), dev)
+    if gd is not None:
+        _build.require(gd, "gravity_delta", f32, (Bn, 3), dev)
+    # the tensors are kept beside their pointers
+    ptrs = (K.data_ptr(), P.data_ptr(), effort.data_ptr(),
+            None if ms is None else ms.data_ptr(), None if gd is None else gd.data_ptr())
+    if len(_launch_args) >= CACHE_SIZE:
+        _launch_args.pop(next(iter(_launch_args)))
+    versions = [(t, t._version) for t in params if torch.is_tensor(t)]
+    _launch_args[key] = (model, params, versions, ptrs, (K, P, effort, ms, gd))
+    return ptrs
+
+
+def _knob(x, shape):
+    """A knob as the kernel reads it: None, or contiguous (B, ...) (a scalar
+    expanded)."""
+    if x is None or (x.shape == shape and x.is_contiguous()):
+        return x
+    return _per_scenario(x, shape).contiguous()
 
 
 def substeps(model: RobotModel, params: SimParams, q, v, active, with_decisions=False):
@@ -226,13 +260,15 @@ def substeps(model: RobotModel, params: SimParams, q, v, active, with_decisions=
 
     CPU: ``substeps_plain``.  CUDA: one launch of ``hk_sim_step``, one
     block per scenario, or an error: q, v (B, 16) and the active command
-    (B, 5, 10) float32, contiguous, on the card; the SimParams scalars 0-d,
-    mass_scale and gravity_delta scalars or (B,) and (B, 3); the model's
-    constants from B1's buffer (``soa_kernel.consts_buffer``, which refuses
-    a model of another topology).  Returns (q, v, the last substep's
-    acceleration (B, 16), contact forces (B, 4, 3)), and with
-    ``with_decisions`` also every substep's in-contact decisions
-    (B, substeps, 4) bool."""
+    (B, 5, 10) float32, contiguous, on the card; the SimParams scalars 0-d
+    (``params_buffer``), mass_scale and
+    gravity_delta None, scalars or (B,) and (B, 3); the model's constants
+    from B1's buffer (``soa_kernel.consts_buffer``, which refuses a model of
+    another topology); these checked once per (model, SimParams, B)
+    (``_static_args``).  Returns (q, v, the last substep's acceleration
+    (B, 16), contact forces (B, 4, 3)), contiguous (q, v and the
+    acceleration views into one buffer), and with ``with_decisions`` also
+    every substep's in-contact decisions (B, substeps, 4) bool."""
     if q.device.type == "cpu":
         dec = [] if with_decisions else None
         out = substeps_plain(model, params, q, v, active, dec)
@@ -247,23 +283,16 @@ def substeps(model: RobotModel, params: SimParams, q, v, active, with_decisions=
     for t, name, shape in ((q, "q", (Bn, NV)), (v, "v", (Bn, NV)),
                            (active, "active", (Bn, 5, NJ))):
         _build.require(t, name, f32, shape, dev)
-    K = soa_kernel.consts_buffer(model, dev)
-    P = params_buffer(params)
-    _build.require(P, "params", f32, (N_PARAMS,), dev)
-    effort = model.joint_effort
-    _build.require(effort, "joint_effort", f32, (NJ,), dev)
-    ms, gd = _knobs(params, Bn, dev)
-    _build.require(ms, "mass_scale", f32, (Bn,), dev)
-    _build.require(gd, "gravity_delta", f32, (Bn, 3), dev)
-    q_out, v_out, acc = (torch.empty((Bn, NV), dtype=f32, device=dev) for _ in range(3))
+    K, P, effort, ms, gd = _static_args(model, params, Bn, dev)
+    q_out, v_out, acc = torch.empty((3, Bn, NV), dtype=f32, device=dev).unbind(0)
     f_c = torch.empty((Bn, NUM_FEET, 3), dtype=f32, device=dev)
     dec = (torch.empty((Bn, params.substeps, NUM_FEET), dtype=torch.bool, device=dev)
            if with_decisions else None)
     lib = _build.library()
-    _build.check(lib.hk_sim_step(*(t.data_ptr() for t in (K, P, effort, q, v, active, ms, gd,
-                                                         q_out, v_out, acc, f_c)),
-                                 None if dec is None else dec.data_ptr(), Bn, params.substeps,
-                                 _build.stream(q)), "sim_step")
+    _build.check(lib.hk_sim_step(K, P, effort, q.data_ptr(), v.data_ptr(), active.data_ptr(), ms,
+                                 gd, q_out.data_ptr(), v_out.data_ptr(), acc.data_ptr(),
+                                 f_c.data_ptr(), None if dec is None else dec.data_ptr(), Bn,
+                                 params.substeps, _build.stream(q)), "sim_step")
     sim_step.launches += 1
     return (q_out, v_out, acc, f_c, dec) if with_decisions else (q_out, v_out, acc, f_c)
 

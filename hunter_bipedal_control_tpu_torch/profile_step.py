@@ -17,6 +17,10 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step backends_spread [moves] [riccati.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step ddp_rollout_phases [B] [N] [H] [RK2|ODE45] [ddp_rollout.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step ddp_rollout_times
+    python -m hunter_bipedal_control_tpu_torch.profile_step sim_step_phases [B] [sim_step.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step sim_step_times
+    python -m hunter_bipedal_control_tpu_torch.profile_step own_times [solves] [periods]
+    python -m hunter_bipedal_control_tpu_torch.profile_step rt_factor [periods]
 
 Any form takes ``--lin_backend=soa`` (the default: kernel B1) or
 ``--lin_backend=dense`` (the plain dense linearization and merit), so that
@@ -66,7 +70,16 @@ rollout 0's cycles per knot by DDP_ROLLOUT_PHASE_NAMES), beside the
 kernel's time and own device time, optionally for another
 ``ddp_rollout.cu`` (e.g. a parent checkout's with the same clock marks);
 ``ddp_rollout_times`` times B15 on chip_smoke's three DDP cells
-(``profile_ddp_rollout_times``).
+(``profile_ddp_rollout_times``).  ``sim_step_phases`` splits kernel B11 on
+``entry.sim_step_batch``'s tick the same way (``profile_sim_step_phases``:
+scenario 0's cycles per substep by SIM_STEP_PHASE_NAMES), beside the
+kernel's time and own device time, optionally for another ``sim_step.cu``;
+``sim_step_times`` times the package's B11 at B=1 and 1024
+(``profile_sim_step_times``);
+``own_times`` reads the own device time at B=1 of B5, B8b2, B16 and B11
+on the chained solve and the full-order loop (``profile_own_times``);
+``rt_factor`` times the full-order loop without the profiler
+(``profile_rt_factor``).
 ``backends_spread`` measures
 no time: it reads how far the flagship's warm step with the dense
 linearization lands from the one with kernel B1, scenario by scenario, at
@@ -878,6 +891,202 @@ def profile_ddp_rollout_phases(batch: int = 1, knots: int = 53, horizon: float =
             "ptxas": {k.rsplit("/", 1)[-1]: v for k, v in ptxas.items() if v}}
 
 
+# kernel B11's phases (csrc/sim_step.cu, -DSIM_STEP_PHASE_CLOCKS): the chain
+# (FK, world inertias, the velocity pass), the Jacobian columns, the dynamics
+# (M, nle with the field, the contact law, the motors), the tableau
+# [A_sys | rhs], its solve, the semi-implicit Euler update
+SIM_STEP_PHASE_NAMES = ("chain", "columns", "dynamics", "tableau", "solve", "euler")
+# kernel calls under the profiler for B11's own device time
+SIM_STEP_PROFILED_CALLS = 20
+
+
+def _sim_step_args(batch: int):
+    """``fullorder.substeps``' arguments on ``entry.sim_step_batch(batch,
+    seed=0)``'s tick (a 9 ms delay ring, feet on both sides of the contact
+    surface, per-scenario mass scale and field), on the card."""
+    import torch
+
+    from .backends import fullorder
+    from .entry import sim_step_batch
+
+    sb = sim_step_batch(batch, torch.device("cuda"), seed=0, delay_ms=9.0)
+    active = fullorder._push_command(sb.params, sb.state, sb.command)[2].contiguous()
+    return (sb.model, sb.params, sb.state.q, sb.state.v, active)
+
+
+def _sim_step_times(args):
+    """Kernel B11 through its wrapper on ``args`` with the library in place:
+    its median time around the wrapper (CUDA events, 15 runs), its own
+    device time per recorded launch (``own_device_time`` over
+    SIM_STEP_PROFILED_CALLS calls), the wrapper's host time per call with
+    the calls enqueued back to back, their device time per call back to back
+    (two events), and the wrapper's host time with the C call stubbed out."""
+    import torch
+
+    from .backends import fullorder
+    from .kernels import _build
+
+    run = lambda: fullorder.substeps(*args)  # noqa: E731
+    kernel_ms = _event_ms(run)
+    own, recorded = own_device_time(run, SIM_STEP_PROFILED_CALLS, "sim_step")
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    ev0.record()
+    for _ in range(SIM_STEP_PROFILED_CALLS):
+        run()
+    host_ms = (time.perf_counter() - t) * 1e3 / SIM_STEP_PROFILED_CALLS
+    ev1.record()
+    ev1.synchronize()
+    back_to_back_ms = ev0.elapsed_time(ev1) / SIM_STEP_PROFILED_CALLS
+    library = _build.library
+    stub = _WithEntry(_Stub(), library(), "hk_sim_step")
+    _build.library = lambda: stub
+    try:
+        t = time.perf_counter()
+        for _ in range(SIM_STEP_PROFILED_CALLS):
+            run()
+        host_stub_ms = (time.perf_counter() - t) * 1e3 / SIM_STEP_PROFILED_CALLS
+    finally:
+        _build.library = library
+    return {"kernel_ms": kernel_ms, "kernel_device_ms": own, "profiled_launches": recorded,
+            "profiled_calls": SIM_STEP_PROFILED_CALLS, "host_ms_per_call": host_ms,
+            "host_ms_without_launch": host_stub_ms, "back_to_back_ms": back_to_back_ms}
+
+
+def profile_sim_step_phases(batch: int = 1, source: str = "sim_step.cu"):
+    """Kernel B11 (``csrc/<source>``, or the file at the path ``source``) on
+    ``_sim_step_args(batch)``, built once more with
+    ``-DSIM_STEP_PHASE_CLOCKS`` (``_clock_phases``): scenario 0's clock64
+    cycles per substep by SIM_STEP_PHASE_NAMES and the kernel's median time
+    with the clocks in; the source built without the clocks, timed by
+    ``_sim_step_times``; the ptxas lines of both builds."""
+    import torch
+
+    from .backends import fullorder
+    from .kernels import _build
+
+    args = _sim_step_args(batch)
+    n_sub = args[1].substeps
+    fullorder.substeps(*args)  # the constants on the card, by the package's library
+    cycles, clocked_ms = _clock_phases(source, "SIM_STEP_PHASE_CLOCKS", "hk_sim_step",
+                                       "hk_sim_step_phase_cycles", len(SIM_STEP_PHASE_NAMES),
+                                       lambda: fullorder.substeps(*args))
+    real_library = _build.library
+    plain = _WithEntry(_build.measurement_library(source, None, ["hk_sim_step"]),
+                       real_library(), "hk_sim_step")
+    _build.library = lambda: plain
+    try:
+        times = _sim_step_times(args)
+    finally:
+        _build.library = real_library
+    ptxas = {k: [ln.strip() for ln in v.splitlines() if "ptxas" in ln and "sim_step" in k]
+             for k, v in _build.measurement_logs.items()}
+    return {"phase": "profile_sim_step_phases", "batch": batch, "source": source,
+            "substeps": n_sub, "device": torch.cuda.get_device_name(0),
+            "cycles_per_substep": {p: c / n_sub for p, c in zip(SIM_STEP_PHASE_NAMES, cycles)},
+            "total_cycles_per_substep": sum(cycles) / n_sub, "clocked_kernel_ms": clocked_ms,
+            **times, "ptxas": {k.rsplit("/", 1)[-1]: v for k, v in ptxas.items() if v}}
+
+
+def profile_sim_step_times():
+    """Kernel B11 as the package builds it, timed by ``_sim_step_times`` at
+    B=1 and B=1024 (``_sim_step_args``).  chip_smoke runs this in a process
+    of its own, whose profiler records every launch."""
+    import torch
+
+    return {"phase": "profile_sim_step_times", "device": torch.cuda.get_device_name(0),
+            "batches": {str(b): _sim_step_times(_sim_step_args(b)) for b in (1, 1024)}}
+
+
+def _device_by_name(run):
+    """``run()`` (which ends synchronized) under the profiler: per device
+    kernel name, (its device ms summed, its recorded launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+    return {e.key: (e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def profile_rt_factor(periods: int = 40):
+    """The full-order loop of bench.py's real-time demonstration
+    (``entry.build_sim_loop``, ``entry.rt_commands(periods)``: 10 standing
+    periods, then 0.3 m/s) run twice from its cold state in this process:
+    the first run builds and warms up, the second is timed (host clock,
+    synchronized): ms per 10 ms period and rt_factor = simulated s / wall s.
+    No profiler."""
+    import torch
+
+    from .entry import build_sim_loop, rt_commands, run_sim_loop
+
+    setup = build_sim_loop()
+    cmds = rt_commands(periods)
+    t = time.perf_counter()
+    run_sim_loop(setup, cmds)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    run_sim_loop(setup, cmds)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    return {"phase": "profile_rt_factor", "device": torch.cuda.get_device_name(0),
+            "periods": periods, "first_run_s": first_s, "seconds": wall_s,
+            "ms_per_period": wall_s / periods * 1e3, "rt_factor": periods * 0.01 / wall_s}
+
+
+# B5's kernels (csrc/riccati_assoc.cu): one riccati_solve_parallel call
+# launches them 15 times at N=53
+B5_KERNELS = ("elements_kernel", "combine_kernel", "gains_kernel", "affine_kernel",
+              "rollout_kernel")
+
+
+def profile_own_times(solves: int = 10, periods: int = 2):
+    """Own device times at B=1 of the kernels whose launches run at B=1 on
+    the main paths, from the profiler's device records: B5
+    (``riccati_solve_parallel``, all its launches of a call) and B8b2
+    (``knot_refs``) over ``solves`` chained product-shape solves (N=53, 0.8 s,
+    the parallel Riccati, after two warm-up solves); B16 (``contact_class``)
+    and B11 (``sim_step``) over ``periods`` walking periods of the
+    full-order loop.  Per kernel: the device ms per launch and per call over
+    the launches the profiler recorded, and those counts."""
+    import torch
+
+    from .entry import build_flagship, mpc_chain, run_sim_loop
+
+    flag = build_flagship(53, 0.8, batch=1)
+    mpc_chain(flag, 2, riccati_parallel=True)
+    torch.cuda.synchronize()
+    chain = _device_by_name(lambda: (mpc_chain(flag, solves, riccati_parallel=True),
+                                     torch.cuda.synchronize()))
+    setup = _walking_sim_loop(False, "soa")
+    loop = _device_by_name(lambda: (run_sim_loop(setup, [WALK] * periods),
+                                    torch.cuda.synchronize()))
+
+    def pick(table, names, calls, exclude=()):
+        hits = [(ms, n) for k, (ms, n) in table.items()
+                if any(x in k for x in names) and not any(x in k for x in exclude)]
+        ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        return {"device_ms": ms, "recorded_launches": n, "calls": calls,
+                "ms_per_launch": ms / n if n else None, "ms_per_call": ms / calls}
+
+    ticks = 5 * periods
+    return {"phase": "profile_own_times", "device": torch.cuda.get_device_name(0),
+            "riccati_solve_parallel": pick(chain, B5_KERNELS, solves, ("ddp_rollout",)),
+            "knot_refs": pick(chain, ("knot_refs_kernel",), solves),
+            "contact_class": pick(loop, ("contact_class_kernel",), ticks),
+            "sim_step": pick(loop, ("sim_step_kernel",), ticks)}
+
+
+class _Stub:
+    """A kernel entry point that launches nothing and returns success."""
+
+    def __getattr__(self, n):
+        return lambda *a: 0
+
+
 class _WithEntry:
     """The package's kernel library with one entry point taken from another
     library."""
@@ -1026,6 +1235,16 @@ if __name__ == "__main__":
     elif a and a[0] == "backends_spread":
         print(json.dumps(profile_backends_spread(int(a[1]) if len(a) > 1 else 8,
                                                  a[2] if len(a) > 2 else None)))
+    elif a and a[0] == "sim_step_phases":
+        print(json.dumps(profile_sim_step_phases(int(a[1]) if len(a) > 1 else 1,
+                                                 a[2] if len(a) > 2 else "sim_step.cu")))
+    elif a and a[0] == "sim_step_times":
+        print(json.dumps(profile_sim_step_times()))
+    elif a and a[0] == "own_times":
+        print(json.dumps(profile_own_times(int(a[1]) if len(a) > 1 else 10,
+                                           int(a[2]) if len(a) > 2 else 2)))
+    elif a and a[0] == "rt_factor":
+        print(json.dumps(profile_rt_factor(int(a[1]) if len(a) > 1 else 40)))
     elif a and a[0] == "ddp_rollout_times":
         print(json.dumps(profile_ddp_rollout_times()))
     elif a and a[0] == "ddp_rollout_phases":

@@ -46,9 +46,12 @@ within max(1e-4, 2 x the float32 plain version's own error) of the float64
 plain version, on its own scale, outside the scenarios whose in-contact
 decisions went the other way from the float64 plain version's in some
 substep; the kernel flips at most 2 x the float32 plain version's
-scenarios + 2; on the standing robot (B=1) and on a sweep-shaped batch
-(``entry.sim_step_batch``, B=1024, a 9 ms delay ring, per-scenario mass
-scale and field); a NaN state gives NaN where the plain version has it.
+scenarios + 2; on the standing robot (B=1) and on sweep-shaped batches
+(``entry.sim_step_batch``, B=3, 1024 and 4096: both warp layouts and a
+ragged last wave; a 9 ms delay ring, per-scenario mass scale and field, or
+neither), the same bits without the decisions; a NaN in q, v, the command,
+the mass scale or the field gives NaN where the plain version has it; a
+SimParams tensor changed in place reaches the next launch.
 momentum_observer (B10) and kalman_update (B12): each output (the observer's
 p_scg_z, est_forces and tau_dist; the filter's x_hat and P) within
 max(1e-4, 2 x the float32 plain version's own error) of the float64 plain
@@ -976,19 +979,24 @@ def _sim_held(sb):
     return got, errs, int(flip_k.sum()), int(flip_p.sum())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 1024])
-def test_sim_step_kernel(cuda, batch):
+def _sim_case(cuda, batch, knobs=True):
+    """The sim loop's standing robot under a PD hold at its joints (B=1), or
+    ``entry.sim_step_batch``'s sweep states (per-scenario mass scale and
+    field, or with ``knobs`` False none)."""
     if batch == 1:
-        # the sim loop's standing robot under a PD hold at its joints
         setup = build_sim_loop(cuda)
         st = setup.state.plant
         zeros = torch.zeros((1, 10), device=cuda)
         cmd = JointCommand(st.q[:, 6:], zeros, torch.full_like(zeros, 40.0),
                            torch.full_like(zeros, 2.0), zeros)
-        sb = SimBatch(setup.model, setup.sim_params, st, cmd)
-    else:
-        sb = sim_step_batch(batch, cuda, seed=3)
+        return SimBatch(setup.model, setup.sim_params, st, cmd)
+    sb = sim_step_batch(batch, cuda, seed=3)
+    if not knobs:
+        sb = sb._replace(params=sb.params._replace(mass_scale=None, gravity_delta=None))
+    return sb
+
+
+def _sim_kernel_held(sb, batch):
     before = fullorder.sim_step.launches
     got, errs, flips, flips32 = _sim_held(sb)
     assert fullorder.sim_step.launches == before + 1
@@ -997,9 +1005,49 @@ def test_sim_step_kernel(cuda, batch):
     for name, (e, e32) in errs.items():
         assert e <= max(SIM_TOL, 2.0 * e32), (name, e, e32)
     assert flips <= 2 * flips32 + 2, (flips, flips32)
-    if batch > 1:
+    if batch >= 1024:
         share = got[4].float().mean().item()
         assert 0.2 < share < 0.8, share
+    # without the decisions: the same launch, the same bits
+    again = fullorder.substeps(*_sim_inputs(sb, torch.float32))
+    torch.cuda.synchronize()
+    for name, a, b in zip(SIM_NAMES, again, got[:4]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3, 1024, 4096])
+def test_sim_step_kernel(cuda, batch):
+    """B=1 and 3 take four warps a scenario, 1024 and 4096 one (4096: a
+    ragged last wave)."""
+    _sim_kernel_held(_sim_case(cuda, batch), batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [3, 1024])
+def test_sim_step_kernel_knobs_none(cuda, batch):
+    """mass_scale and gravity_delta None: the wrapper hands the kernel 1 and 0."""
+    _sim_kernel_held(_sim_case(cuda, batch, knobs=False), batch)
+
+
+@pytest.mark.cuda
+def test_sim_step_kernel_params_changed_in_place(cuda):
+    """The wrapper keeps its fixed pointers per (model, SimParams, B): a
+    SimParams tensor changed in place (the friction coefficient, the field)
+    reaches the next launch, which equals a launch on a fresh SimParams."""
+    sb = sim_step_batch(64, cuda, seed=6)
+    model, params, q, v, active = _sim_inputs(sb, torch.float32)
+    before = fullorder.substeps(model, params, q, v, active)
+    params.friction_mu.mul_(0.5)
+    params.gravity_delta.add_(0.25)
+    after = fullorder.substeps(model, params, q, v, active)
+    fresh = params._replace(**{f: getattr(params, f).clone() for f in ("friction_mu",
+                                                                        "gravity_delta")})
+    ref = fullorder.substeps(model, fresh, q, v, active)
+    torch.cuda.synchronize()
+    assert not torch.equal(after[1], before[1])
+    for name, a, b in zip(SIM_NAMES, after, ref):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.cuda
@@ -1027,18 +1075,32 @@ def test_sim_step_wrapper_launches_once(cuda):
 
 
 @pytest.mark.cuda
-def test_sim_step_kernel_nan(cuda):
-    sb = sim_step_batch(8, cuda, seed=5)
-    q = sb.state.q.clone()
-    q[3, 4] = float("nan")
-    sb = sb._replace(state=sb.state._replace(q=q))
-    args = _sim_inputs(sb, torch.float32)
+@pytest.mark.parametrize("where", ["q", "v", "command", "mass_scale", "gravity_delta"])
+@pytest.mark.parametrize("batch", [8, 1024])
+def test_sim_step_kernel_nan(cuda, where, batch):
+    """A NaN in scenario 3's q, v, command, mass scale or field, in turn:
+    NaN where the float32 plain version has it, in every output."""
+    sb = sim_step_batch(batch, cuda, seed=5)
+    args = list(_sim_inputs(sb, torch.float32))
+    if where in ("q", "v"):
+        t = args[2 if where == "q" else 3].clone()
+        t[3, 4 if where == "q" else 12] = float("nan")
+        args[2 if where == "q" else 3] = t
+    elif where == "command":
+        t = args[4].clone()
+        t[3, 2, 6] = float("nan")
+        args[4] = t
+    else:
+        knob = getattr(args[1], where).clone()
+        knob[3] = float("nan")
+        args[1] = args[1]._replace(**{where: knob})
     got = fullorder.substeps(*args)
     ref = fullorder.substeps_plain(*args)
     torch.cuda.synchronize()
+    others = [b for b in range(batch) if b != 3]
     for name, a, b in zip(SIM_NAMES, got, ref):
         assert torch.equal(torch.isnan(a), torch.isnan(b)), name
-        assert not torch.isnan(a[[0, 1, 2, 4, 5, 6, 7]]).any(), name
+        assert not torch.isnan(a[others]).any(), name
     assert torch.isnan(got[0][3]).all()
 
 
