@@ -48,7 +48,12 @@ Phases, each printing one JSON line:
      (the keep-if-improved tests then go both ways): both passes' joints
      against the float64 plain version within max(tol, 2x the float32 plain
      version's error), bfloat16 landing above the limit, the decisions of
-     the plain versions counted per pass; kernel and plain times;
+     the plain versions counted per pass; kernel and plain times, on the
+     main path's inputs one lane's serial floor (``serial_chain_ms``: a
+     leg's operations of both passes at one a clock) and the kernel's own
+     device time at B=1, S=6 and B=128, S=7, measured first in a process of
+     its own (``profile_step leg_ik_times``, whose profiler records every
+     launch);
   4a3. B8b (swing_plan, knot_refs) on the inputs the same warm steps gave
      the reference prep's two kernels, and again with every shared input
      made contiguous (the outputs bit for bit the same): every output
@@ -923,24 +928,29 @@ def qp_cost(batch, iters, n=38, me=28, mi=40, start=True):
 def ik_cost(batch, n_samples, trans_it, rot_it, nj=10):
     """Bytes (poses, toe targets, warm joints, target rotations, the leg
     joints' constants and the contact offsets of both toes in; both passes'
-    joints out) and operations of the two IK passes as csrc/leg_ik.cu runs
-    them per (scenario, sample, leg): per joint of a toe evaluation two 3x3
-    products, three 3x3-vector products, the Rodrigues matrix and its
-    cosine and sine; the Jacobian's five cross products; per step the 5x5
-    normal system, its Gauss-Jordan inverse (as ``gj_cost``) and the
-    solution; the rotation step's local-frame Jacobians, the projector
-    through the 3x3 adjugate inverse, and log3."""
-    joint = 45 + 15 + 3 + 15 + 2 + 1 + 36 + 45
-    toe = 5 * joint + 18 + 5 * 12
-    solve5 = 5 * 26 + 25 + 5 * (2 * 5 + 4 * 5 * 4) + 45
+    joints out) and the operations the two IK passes need per (scenario,
+    sample, leg), as one serial chain would compute them with no work done
+    twice: 1 + 2 (trans_it + rot_it) toe evaluations (the toe at the best
+    joints is kept, so each step evaluates only its candidate), each joint
+    of one taking its sine and cosine, its local factor KA + s KB + (1 - c)
+    KC (KB, KC formed once per launch from the origin's rotation and the
+    axis: two 3x3 products per joint), the chain's 3x3 product and
+    translation, its world axis and Jacobian column; each damped solve
+    the symmetric 5x5 normal system (one triangle), G' e and Gauss-Jordan
+    elimination of [A | G' e] with no inverse formed; the rotation step's
+    local-frame Jacobians, the symmetric Jlin Jlin' + damp I, its adjugate
+    inverse, the symmetric projector N, Jang N, N w, and log3."""
+    joint = 2 + 1 + 36 + 45 + 18 + 15 + 12
+    toe = 5 * joint + 18
+    solve5 = 15 * 5 + 5 + 5 * 5 + 4 * sum(1 + 2 * (5 - k) for k in range(5)) + 5 + 5
     rot_err = 45 + 3 + 2 + 3 + 9 + 6
     trans_step = toe + solve5 + 20 + 12
-    rot_step = toe + 150 + 84 + 42 + 75 + 150 + 135 + solve5 + 45 + 20 + rot_err + 7
-    per_pass = toe + 12 + trans_it * trans_step + toe + rot_err + 7 + rot_it * rot_step
+    rot_step = toe + 150 + 57 + 42 + 75 + 90 + 135 + solve5 + 45 + 20 + rot_err + 7
+    per_pass = 12 + trans_it * trans_step + rot_err + 7 + rot_it * rot_step
     legs = 2 * batch * n_samples
     n_in = batch * n_samples * (6 + 6) + batch * (nj + 9) + 2 * nj + nj * 33 + 2 * 3
     n_out = 2 * batch * n_samples * nj
-    return (n_in + n_out) * 4, legs * (22 + 2 * per_pass)
+    return (n_in + n_out) * 4, legs * (22 + toe + 2 * per_pass) + nj * 90
 
 
 def _rows_read(t):
@@ -1875,6 +1885,17 @@ def main():
         b1_case("soa_merit", cap["merit"], row)
 
     # ---- 4a2. B8a on the warm steps' own IK inputs, and moved off them ----
+    # B8a's own device time at both shapes, in a process of its own, whose
+    # profiler records every launch (this one's may record none)
+    done = subprocess.run([sys.executable, "-m", "hunter_bipedal_control_tpu_torch.profile_step",
+                           "leg_ik_times"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600, check=True)
+    ik_own = {case: runs[0] for case, runs in
+              json.loads(done.stdout.strip().splitlines()[-1])["times"]["package"].items()}
+    emit({"phase": "leg_ik_own_times", "cases": ik_own,
+          "serial_chain_ms": {f"s{S}": ik_cost(1, S, 3, 2)[1] / (2 * S) / SM_CLOCK_HZ * 1e3
+                              for S in (6, 7)}})
+
     def ik_case(cap, row, offset_seed=None):
         """leg_ik on the captured main-path inputs of ``joint_reference_ik``
         (moved by a seeded offset of the base poses and toe targets if
@@ -1937,6 +1958,15 @@ def main():
                 "offset": None if offset_seed is None else IK_OFFSET[Bn],
                 "flipped_legs": flips, "rel_err_vs_f64_all_legs": all_legs,
                 "plain_f64_decisions_per_pass": decisions, "plain_bf16_rel_err_vs_f64": e_bf16}
+        if offset_seed is None:
+            # the kernel's own device time on these inputs (leg_ik_own_times),
+            # and one lane's floor: a leg's operations (both passes) at one a clock
+            own = ik_own[f"b{Bn}_s{S}"]
+            info.update(kernel_device_ms=own["kernel_device_ms"],
+                        profiled_launches=own["profiled_launches"],
+                        profiled_calls=own["profiled_calls"], own_time_from="leg_ik_own_times",
+                        serial_chain_ms=ik_cost(1, S, kw["trans_it"], kw["rot_it"])[1]
+                        / (2 * S) / SM_CLOCK_HZ * 1e3)
         label = f"leg_ik B={Bn} S={S}" + ("" if offset_seed is None else " offset")
         if row:
             record("leg_ik", "cuda", "hunter_bipedal_control_tpu_torch/csrc/leg_ik.cu",

@@ -19,6 +19,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step ddp_rollout_times
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_step_phases [B] [sim_step.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_step_times
+    python -m hunter_bipedal_control_tpu_torch.profile_step leg_ik_phases [B] [S] [leg_ik.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step leg_ik_times [other/leg_ik.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step own_times [solves] [periods]
     python -m hunter_bipedal_control_tpu_torch.profile_step rt_factor [periods]
 
@@ -76,6 +78,13 @@ scenario 0's cycles per substep by SIM_STEP_PHASE_NAMES), beside the
 kernel's time and own device time, optionally for another ``sim_step.cu``;
 ``sim_step_times`` times the package's B11 at B=1 and 1024
 (``profile_sim_step_times``);
+``leg_ik_phases`` splits kernel B8a on the warm MPC step's IK inputs
+(B=1 with 6 samples, the product shape, or B=128 with 7, the bench shape)
+the same way (``profile_leg_ik_phases``: problem 0's cycles per IK step by
+LEG_IK_PHASE_NAMES), beside the kernel's time and own device time,
+optionally for another ``leg_ik.cu``; ``leg_ik_times`` times the
+package's B8a at both shapes, beside another ``leg_ik.cu`` if given
+(``profile_leg_ik_times``);
 ``own_times`` reads the own device time at B=1 of B5, B8b2, B16 and B11
 on the chained solve and the full-order loop (``profile_own_times``);
 ``rt_factor`` times the full-order loop without the profiler
@@ -88,6 +97,7 @@ optionally with kernel B3 built from another ``riccati.cu``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import sys
@@ -590,6 +600,107 @@ def _clock_phases(source: str, define: str, entry: str, reader: str, n: int, run
     return list(cycles), ms
 
 
+@contextlib.contextmanager
+def _entry_from(lib, entry: str):
+    """Within the block, the package's kernel library with its C entry point
+    ``entry`` taken from ``lib`` (a measurement build, or ``_Stub()``)."""
+    from .kernels import _build
+
+    real_library = _build.library
+    swapped = _WithEntry(lib, real_library(), entry)
+    _build.library = lambda: swapped
+    try:
+        yield
+    finally:
+        _build.library = real_library
+
+
+def _kernel_times(run, kernel: str, calls: int, entry: str | None = None):
+    """A kernel through its wrapper ``run()``, with the library in place:
+    its median time around the wrapper (``_event_ms``), its own device time
+    per recorded launch (``own_device_time`` over ``calls`` calls, the
+    device kernels whose name holds ``kernel``), the wrapper's host time per
+    call with the calls enqueued back to back, their device time per call
+    back to back (two events), and given the C ``entry`` point the
+    wrapper's host time with that call stubbed out."""
+    import torch
+
+    kernel_ms = _event_ms(run)
+    own, recorded = own_device_time(run, calls, kernel)
+    torch.cuda.synchronize()
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    ev0.record()
+    for _ in range(calls):
+        run()
+    host_ms = (time.perf_counter() - t) * 1e3 / calls
+    ev1.record()
+    ev1.synchronize()
+    out = {"kernel_ms": kernel_ms, "kernel_device_ms": own, "profiled_launches": recorded,
+           "profiled_calls": calls, "host_ms_per_call": host_ms,
+           "back_to_back_ms": ev0.elapsed_time(ev1) / calls}
+    if entry is not None:
+        with _entry_from(_Stub(), entry):
+            t = time.perf_counter()
+            for _ in range(calls):
+                run()
+            out["host_ms_without_launch"] = (time.perf_counter() - t) * 1e3 / calls
+    return out
+
+
+def _ptxas(tag: str):
+    """The ptxas lines (with the stack and spill lines) of the measurement
+    builds whose library name holds ``tag``."""
+    from .kernels import _build
+
+    return {k.rsplit("/", 1)[-1]: [ln.strip() for ln in v.splitlines()
+                                   if "ptxas" in ln or "spill" in ln]
+            for k, v in _build.measurement_logs.items() if tag in k.rsplit("/", 1)[-1]}
+
+
+def _kernel_phases(source: str, define: str, entry: str, names, run, kernel: str,
+                   calls: int, extra=None):
+    """``run()`` with ``csrc/<source>`` (or the file at the path ``source``)
+    built with ``-D<define>`` (``_clock_phases``, the reader
+    ``<entry>_phase_cycles``): the clock sums by ``names`` and the kernel's
+    median time with the clocks in; then the source built without the
+    clocks in place of ``entry``, timed by ``_kernel_times`` (and
+    ``extra()``'s result under "extra", if given); the ptxas lines of both
+    builds."""
+    from .kernels import _build
+
+    cycles, clocked_ms = _clock_phases(source, define, entry, f"{entry}_phase_cycles",
+                                       len(names), run)
+    with _entry_from(_build.measurement_library(source, None, [entry]), entry):
+        times = _kernel_times(run, kernel, calls, entry)
+        more = {} if extra is None else {"extra": extra()}
+    tag = entry.removeprefix("hk_")
+    return {"cycles": dict(zip(names, cycles)), "total_cycles": sum(cycles),
+            "clocked_kernel_ms": clocked_ms, **times, **more, "ptxas": _ptxas(tag)}
+
+
+def _compare_sources(cases, entry: str, other: str | None, measure):
+    """``measure(args)`` on each of ``cases`` (name: args) with the
+    package's library; given ``other`` (a source of the same C interface,
+    e.g. a parent checkout's), with its ``entry`` built by
+    ``_build.measurement_library`` in place of the package's too, in the
+    order package, other, other, package.  Returns the order and, per
+    source and case, the list of results in that order."""
+    from .kernels import _build
+
+    libs = {"package": None}
+    if other is not None:
+        libs[other] = _build.measurement_library(other, None, [entry])
+    order = list(libs) + list(reversed(libs)) if other is not None else list(libs)
+    out = {name: {case: [] for case in cases} for name in libs}
+    for name in order:
+        with (_entry_from(libs[name], entry) if libs[name] is not None
+              else contextlib.nullcontext()):
+            for case, args in cases.items():
+                out[name][case].append(measure(args))
+    return order, out
+
+
 QP_PHASE_NAMES = ("mu", "residuals", "hbar_rbar", "chol_hbar", "forward_sweep", "schur",
                   "chol_schur", "dnu", "dx", "step")
 
@@ -718,44 +829,23 @@ def profile_wbc_qp_phases(batch: int = 1, source: str = "wbc_qp.cu"):
             "ptxas": [ln.strip() for ln in log.splitlines() if "ptxas" in ln]}
 
 
-def profile_wbc_qp_times(other: str | None = None, reps: int = 15):
-    """Kernel B9's time around its wrapper (CUDA events, median of ``reps``)
-    and its own device time per recorded launch (``own_device_time``, over
-    WBC_QP_PROFILED_CALLS calls) on the tick path's last tick (B=1) and at
-    B=4096 on bench.py's standing batch and ``entry.walking_wbc_batch``.
-    Given ``other`` (a ``wbc_qp.cu`` of the same C interface, e.g. a parent
-    checkout's), that kernel too, built with ``_build.measurement_library``
-    and run in place of the package's: package, other, other, package."""
+def profile_wbc_qp_times(other: str | None = None):
+    """Kernel B9 timed by ``_kernel_times`` (WBC_QP_PROFILED_CALLS calls) on
+    the tick path's last tick (B=1) and at B=4096 on bench.py's standing
+    batch and ``entry.walking_wbc_batch``, beside another ``wbc_qp.cu`` of
+    the same C interface if given (``_compare_sources``)."""
     import torch
 
-    from .kernels import _build
     from .wbc import wbc
 
     cases = {"tick_b1": _tick_wbc_inputs()}
     cases.update({f"{k}_b4096": v for k, v in _wbc_qp_cases(4096).items()})
-    real_library = _build.library
-    libs = {"package": real_library}
-    if other is not None:
-        alt = _WithEntry(_build.measurement_library(other, None, ["hk_wbc_qp"]),
-                         real_library(), "hk_wbc_qp")
-        libs[other] = lambda: alt
-
-    order = list(libs) + list(reversed(libs)) if other is not None else list(libs)
-    out = {name: {case: [] for case in cases} for name in libs}
-    try:
-        for name in order:
-            _build.library = libs[name]
-            for case, args in cases.items():
-                own, recorded = own_device_time(lambda: wbc.wbc_qp(*args),
-                                                WBC_QP_PROFILED_CALLS, "wbc_qp_kernel")
-                out[name][case].append({"kernel_ms": _event_ms(lambda: wbc.wbc_qp(*args), reps),
-                                        "kernel_device_ms": own,
-                                        "profiled_launches": recorded})
-    finally:
-        _build.library = real_library
+    order, out = _compare_sources(
+        cases, "hk_wbc_qp", other,
+        lambda args: _kernel_times(lambda: wbc.wbc_qp(*args), "wbc_qp_kernel",
+                                   WBC_QP_PROFILED_CALLS, "hk_wbc_qp"))
     return {"phase": "profile_wbc_qp_times", "device": torch.cuda.get_device_name(0),
-            "profiled_calls": WBC_QP_PROFILED_CALLS, "reps": reps, "order": order,
-            "times": out}
+            "profiled_calls": WBC_QP_PROFILED_CALLS, "order": order, "times": out}
 
 
 # kernel B15's phases (csrc/ddp_rollout.cu, -DDDP_ROLLOUT_PHASE_CLOCKS): the
@@ -817,11 +907,9 @@ def _event_ms(fn, reps: int = 15):
 
 def profile_ddp_rollout_times():
     """Kernel B15 on each of chip_smoke's DDP cells (DDP_ROLLOUT_CELLS, the
-    first iteration's closed-loop rollouts): its time around the wrapper
-    (CUDA events, median of 15), its own device time per recorded launch
-    (``own_device_time`` over DDP_ROLLOUT_PROFILED_CALLS calls) and its time
-    per call back to back (the same calls between two events).  chip_smoke
-    runs this in a process of its own, whose profiler records every launch."""
+    first iteration's closed-loop rollouts), timed by ``_kernel_times``
+    (DDP_ROLLOUT_PROFILED_CALLS calls).  chip_smoke runs this in a process
+    of its own, whose profiler records every launch."""
     import torch
 
     from .solver import ddp
@@ -829,18 +917,9 @@ def profile_ddp_rollout_times():
     out = {}
     for name, batch, knots, horizon, integrator in DDP_ROLLOUT_CELLS:
         args = _ddp_rollout_args(batch, knots, horizon, integrator)
-        call = lambda: ddp.closed_rollout(*args)  # noqa: E731
-        own, recorded = own_device_time(call, DDP_ROLLOUT_PROFILED_CALLS, "ddp_rollout")
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(DDP_ROLLOUT_PROFILED_CALLS):
-            call()
-        b.record()
-        b.synchronize()
         out[name] = {"batch": batch, "knots": knots, "integrator": integrator,
-                     "kernel_ms": _event_ms(call), "kernel_device_ms": own,
-                     "profiled_launches": recorded,
-                     "back_to_back_ms": a.elapsed_time(b) / DDP_ROLLOUT_PROFILED_CALLS}
+                     **_kernel_times(lambda: ddp.closed_rollout(*args), "ddp_rollout",
+                                     DDP_ROLLOUT_PROFILED_CALLS)}
     return {"phase": "profile_ddp_rollout_times", "device": torch.cuda.get_device_name(0),
             "profiled_calls": DDP_ROLLOUT_PROFILED_CALLS, "cells": out}
 
@@ -849,46 +928,28 @@ def profile_ddp_rollout_phases(batch: int = 1, knots: int = 53, horizon: float =
                                integrator: str = "RK2", source: str = "ddp_rollout.cu"):
     """Kernel B15 (``csrc/<source>``, or the file at the path ``source``) on
     the first iteration's closed-loop rollouts of ``entry.ddp_solve`` on the
-    flagship (six step sizes, one iteration after three SQP solves), built
-    once more with ``-DDDP_ROLLOUT_PHASE_CLOCKS`` (``_clock_phases``):
-    rollout 0's clock64 cycles per knot by DDP_ROLLOUT_PHASE_NAMES and the
-    kernel's median time with the clocks in; the source built without the
-    clocks: its median time around the wrapper (CUDA events, 15 runs) and
-    its own device time per recorded launch (``own_device_time``); the
-    ptxas lines of both builds."""
+    flagship (six step sizes, one iteration after three SQP solves),
+    measured by ``_kernel_phases`` with ``-DDDP_ROLLOUT_PHASE_CLOCKS``:
+    rollout 0's clock64 cycles per knot by DDP_ROLLOUT_PHASE_NAMES, the
+    kernel's times with and without the clocks, the accepted slots of the
+    build without them, and the ptxas lines of both builds."""
     import torch
 
-    from .kernels import _build
     from .solver import ddp
 
     args = _ddp_rollout_args(batch, knots, horizon, integrator)
-    ddp.closed_rollout(*args)  # the constants on the card, by the package's library
-    cycles, clocked_ms = _clock_phases(source, "DDP_ROLLOUT_PHASE_CLOCKS", "hk_ddp_rollout",
-                                       "hk_ddp_rollout_phase_cycles",
-                                       len(DDP_ROLLOUT_PHASE_NAMES),
-                                       lambda: ddp.closed_rollout(*args))
-    real_library = _build.library
-    plain = _WithEntry(_build.measurement_library(source, None, ["hk_ddp_rollout"]),
-                       real_library(), "hk_ddp_rollout")
-    _build.library = lambda: plain
-    try:
-        slots = int(ddp.closed_rollout(*args)[4].sum())
-        kernel_ms = _event_ms(lambda: ddp.closed_rollout(*args))
-        own, recorded = own_device_time(lambda: ddp.closed_rollout(*args),
-                                        DDP_ROLLOUT_PROFILED_CALLS, "ddp_rollout")
-    finally:
-        _build.library = real_library
-    ptxas = {k: [ln.strip() for ln in v.splitlines() if "ptxas" in ln and "ddp_rollout" in k]
-             for k, v in _build.measurement_logs.items()}
+    run = lambda: ddp.closed_rollout(*args)  # noqa: E731
+    run()  # the constants on the card, by the package's library
+    m = _kernel_phases(source, "DDP_ROLLOUT_PHASE_CLOCKS", "hk_ddp_rollout",
+                       DDP_ROLLOUT_PHASE_NAMES, run, "ddp_rollout", DDP_ROLLOUT_PROFILED_CALLS,
+                       extra=lambda: int(run()[4].sum()))
+    cycles = m.pop("cycles")
     return {"phase": "profile_ddp_rollout_phases", "batch": batch, "knots": knots,
             "horizon": horizon, "integrator": integrator, "source": source,
-            "step_sizes": args[8].shape[0], "accepted_slots": slots,
+            "step_sizes": args[8].shape[0], "accepted_slots": m.pop("extra"),
             "device": torch.cuda.get_device_name(0),
-            "cycles_per_knot": {p: c / knots for p, c in zip(DDP_ROLLOUT_PHASE_NAMES, cycles)},
-            "total_cycles_per_knot": sum(cycles) / knots, "clocked_kernel_ms": clocked_ms,
-            "kernel_ms": kernel_ms, "kernel_device_ms": own,
-            "profiled_launches": recorded, "profiled_calls": DDP_ROLLOUT_PROFILED_CALLS,
-            "ptxas": {k.rsplit("/", 1)[-1]: v for k, v in ptxas.items() if v}}
+            "cycles_per_knot": {p: c / knots for p, c in cycles.items()},
+            "total_cycles_per_knot": m.pop("total_cycles") / knots, **m}
 
 
 # kernel B11's phases (csrc/sim_step.cu, -DSIM_STEP_PHASE_CLOCKS): the chain
@@ -914,89 +975,137 @@ def _sim_step_args(batch: int):
     return (sb.model, sb.params, sb.state.q, sb.state.v, active)
 
 
-def _sim_step_times(args):
-    """Kernel B11 through its wrapper on ``args`` with the library in place:
-    its median time around the wrapper (CUDA events, 15 runs), its own
-    device time per recorded launch (``own_device_time`` over
-    SIM_STEP_PROFILED_CALLS calls), the wrapper's host time per call with
-    the calls enqueued back to back, their device time per call back to back
-    (two events), and the wrapper's host time with the C call stubbed out."""
-    import torch
-
-    from .backends import fullorder
-    from .kernels import _build
-
-    run = lambda: fullorder.substeps(*args)  # noqa: E731
-    kernel_ms = _event_ms(run)
-    own, recorded = own_device_time(run, SIM_STEP_PROFILED_CALLS, "sim_step")
-    torch.cuda.synchronize()
-    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t = time.perf_counter()
-    ev0.record()
-    for _ in range(SIM_STEP_PROFILED_CALLS):
-        run()
-    host_ms = (time.perf_counter() - t) * 1e3 / SIM_STEP_PROFILED_CALLS
-    ev1.record()
-    ev1.synchronize()
-    back_to_back_ms = ev0.elapsed_time(ev1) / SIM_STEP_PROFILED_CALLS
-    library = _build.library
-    stub = _WithEntry(_Stub(), library(), "hk_sim_step")
-    _build.library = lambda: stub
-    try:
-        t = time.perf_counter()
-        for _ in range(SIM_STEP_PROFILED_CALLS):
-            run()
-        host_stub_ms = (time.perf_counter() - t) * 1e3 / SIM_STEP_PROFILED_CALLS
-    finally:
-        _build.library = library
-    return {"kernel_ms": kernel_ms, "kernel_device_ms": own, "profiled_launches": recorded,
-            "profiled_calls": SIM_STEP_PROFILED_CALLS, "host_ms_per_call": host_ms,
-            "host_ms_without_launch": host_stub_ms, "back_to_back_ms": back_to_back_ms}
-
-
 def profile_sim_step_phases(batch: int = 1, source: str = "sim_step.cu"):
     """Kernel B11 (``csrc/<source>``, or the file at the path ``source``) on
-    ``_sim_step_args(batch)``, built once more with
-    ``-DSIM_STEP_PHASE_CLOCKS`` (``_clock_phases``): scenario 0's clock64
-    cycles per substep by SIM_STEP_PHASE_NAMES and the kernel's median time
-    with the clocks in; the source built without the clocks, timed by
-    ``_sim_step_times``; the ptxas lines of both builds."""
+    ``_sim_step_args(batch)``, measured by ``_kernel_phases`` with
+    ``-DSIM_STEP_PHASE_CLOCKS``: scenario 0's clock64 cycles per substep by
+    SIM_STEP_PHASE_NAMES, the kernel's times with and without the clocks,
+    and the ptxas lines of both builds."""
     import torch
 
     from .backends import fullorder
-    from .kernels import _build
 
     args = _sim_step_args(batch)
     n_sub = args[1].substeps
-    fullorder.substeps(*args)  # the constants on the card, by the package's library
-    cycles, clocked_ms = _clock_phases(source, "SIM_STEP_PHASE_CLOCKS", "hk_sim_step",
-                                       "hk_sim_step_phase_cycles", len(SIM_STEP_PHASE_NAMES),
-                                       lambda: fullorder.substeps(*args))
-    real_library = _build.library
-    plain = _WithEntry(_build.measurement_library(source, None, ["hk_sim_step"]),
-                       real_library(), "hk_sim_step")
-    _build.library = lambda: plain
-    try:
-        times = _sim_step_times(args)
-    finally:
-        _build.library = real_library
-    ptxas = {k: [ln.strip() for ln in v.splitlines() if "ptxas" in ln and "sim_step" in k]
-             for k, v in _build.measurement_logs.items()}
+    run = lambda: fullorder.substeps(*args)  # noqa: E731
+    run()  # the constants on the card, by the package's library
+    m = _kernel_phases(source, "SIM_STEP_PHASE_CLOCKS", "hk_sim_step", SIM_STEP_PHASE_NAMES,
+                       run, "sim_step", SIM_STEP_PROFILED_CALLS)
+    cycles = m.pop("cycles")
     return {"phase": "profile_sim_step_phases", "batch": batch, "source": source,
             "substeps": n_sub, "device": torch.cuda.get_device_name(0),
-            "cycles_per_substep": {p: c / n_sub for p, c in zip(SIM_STEP_PHASE_NAMES, cycles)},
-            "total_cycles_per_substep": sum(cycles) / n_sub, "clocked_kernel_ms": clocked_ms,
-            **times, "ptxas": {k.rsplit("/", 1)[-1]: v for k, v in ptxas.items() if v}}
+            "cycles_per_substep": {p: c / n_sub for p, c in cycles.items()},
+            "total_cycles_per_substep": m.pop("total_cycles") / n_sub, **m}
 
 
 def profile_sim_step_times():
-    """Kernel B11 as the package builds it, timed by ``_sim_step_times`` at
+    """Kernel B11 as the package builds it, timed by ``_kernel_times`` at
     B=1 and B=1024 (``_sim_step_args``).  chip_smoke runs this in a process
     of its own, whose profiler records every launch."""
     import torch
 
+    from .backends import fullorder
+
+    def times(args):
+        return _kernel_times(lambda: fullorder.substeps(*args), "sim_step",
+                             SIM_STEP_PROFILED_CALLS, "hk_sim_step")
+
     return {"phase": "profile_sim_step_times", "device": torch.cuda.get_device_name(0),
-            "batches": {str(b): _sim_step_times(_sim_step_args(b)) for b in (1, 1024)}}
+            "batches": {str(b): times(_sim_step_args(b)) for b in (1, 1024)}}
+
+
+# kernel B8a's phases (csrc/leg_ik.cu, -DLEG_IK_PHASE_CLOCKS): the base,
+# the targets and the constants; a toe evaluation's local transforms, its
+# chain and its Jacobian columns; the translation step's damped solve; the
+# rotation step's projector (local frame, N, Jang N) and its damped solve
+# with the step; the error (log3 for the rotation), the keep-if-improved
+# test; the output stores
+LEG_IK_PHASE_NAMES = ("setup", "local", "chain", "jacobian", "trans_solve", "rot_projector",
+                      "rot_solve", "error_keep", "store")
+# kernel calls under the profiler for B8a's own device time
+LEG_IK_PROFILED_CALLS = 20
+# the MPC step's shapes by the IK's sample count: (knots, horizon)
+LEG_IK_SHAPES = {6: (53, 0.8), 7: (66, 1.0)}
+
+
+def _leg_ik_args(batch: int, samples: int):
+    """``ik.leg_ik``'s arguments as the flagship's warm MPC step gives them
+    at ``batch`` (the product shape's 53 knots over 0.8 s for 6 samples,
+    the bench shape's 66 over 1.0 s for 7), captured on the card."""
+    import torch
+
+    from .entry import build_flagship
+    from .refs import ik as ik_mod
+    from .solver.mpc import Mpc
+
+    knots, horizon = LEG_IK_SHAPES[samples]
+    flag = build_flagship(knots, horizon, batch=batch)
+    mpc = Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
+    args = (flag.schedule, flag.target, 0.0, flag.x0,
+            torch.zeros(6, device=flag.x0.device), flag.default_joints)
+    _, state, _ = mpc(flag.state, *args)
+    seen, real = [], ik_mod.joint_reference_ik
+
+    def keep(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+
+    ik_mod.joint_reference_ik = keep
+    try:
+        mpc(state, *args)
+    finally:
+        ik_mod.joint_reference_ik = real
+    torch.cuda.synchronize()
+    (model, *arrays), kw = seen[-1]
+    assert arrays[0].shape[:2] == (batch, samples), arrays[0].shape
+    return (model, *(a.contiguous() for a in arrays)), kw
+
+
+def _leg_ik_times(case):
+    """Kernel B8a through its wrapper on ``case`` = (args, kw), timed by
+    ``_kernel_times`` (LEG_IK_PROFILED_CALLS calls)."""
+    from .refs import ik as ik_mod
+
+    args, kw = case
+    return _kernel_times(lambda: ik_mod.leg_ik(*args, **kw), "leg_ik", LEG_IK_PROFILED_CALLS,
+                         "hk_leg_ik")
+
+
+def profile_leg_ik_phases(batch: int = 1, samples: int = 6, source: str = "leg_ik.cu"):
+    """Kernel B8a (``csrc/<source>``, or the file at the path ``source``) on
+    ``_leg_ik_args(batch, samples)``, measured by ``_kernel_phases`` with
+    ``-DLEG_IK_PHASE_CLOCKS``: problem 0's clock64 cycles per IK step (both
+    passes' trans_it + rot_it steps) by LEG_IK_PHASE_NAMES, the kernel's
+    times with and without the clocks, and the ptxas lines of both builds."""
+    import torch
+
+    from .refs import ik as ik_mod
+
+    args, kw = _leg_ik_args(batch, samples)
+    steps = 2 * (kw["trans_it"] + kw["rot_it"])
+    run = lambda: ik_mod.leg_ik(*args, **kw)  # noqa: E731
+    run()  # the constants on the card, by the package's library
+    m = _kernel_phases(source, "LEG_IK_PHASE_CLOCKS", "hk_leg_ik", LEG_IK_PHASE_NAMES, run,
+                       "leg_ik", LEG_IK_PROFILED_CALLS)
+    cycles = m.pop("cycles")
+    return {"phase": "profile_leg_ik_phases", "batch": batch, "samples": samples,
+            "source": source, "steps": steps, "device": torch.cuda.get_device_name(0),
+            "cycles_per_step": {p: c / steps for p, c in cycles.items()},
+            "total_cycles_per_step": m["total_cycles"] / steps, **m}
+
+
+def profile_leg_ik_times(other: str | None = None):
+    """Kernel B8a as the package builds it, timed by ``_leg_ik_times`` on
+    the warm MPC step's inputs at B=1, S=6 (the product shape) and B=128,
+    S=7 (the bench shape), beside another ``leg_ik.cu`` of the same C
+    interface if given (``_compare_sources``).  chip_smoke runs this in a
+    process of its own, whose profiler records every launch."""
+    import torch
+
+    cases = {f"b{b}_s{s}": _leg_ik_args(b, s) for b, s in ((1, 6), (128, 7))}
+    order, out = _compare_sources(cases, "hk_leg_ik", other, _leg_ik_times)
+    return {"phase": "profile_leg_ik_times", "device": torch.cuda.get_device_name(0),
+            "order": order, "times": out, "ptxas": _ptxas("leg_ik")}
 
 
 def _device_by_name(run):
@@ -1240,6 +1349,12 @@ if __name__ == "__main__":
                                                  a[2] if len(a) > 2 else "sim_step.cu")))
     elif a and a[0] == "sim_step_times":
         print(json.dumps(profile_sim_step_times()))
+    elif a and a[0] == "leg_ik_phases":
+        print(json.dumps(profile_leg_ik_phases(int(a[1]) if len(a) > 1 else 1,
+                                               int(a[2]) if len(a) > 2 else 6,
+                                               a[3] if len(a) > 3 else "leg_ik.cu")))
+    elif a and a[0] == "leg_ik_times":
+        print(json.dumps(profile_leg_ik_times(a[1] if len(a) > 1 else None)))
     elif a and a[0] == "own_times":
         print(json.dumps(profile_own_times(int(a[1]) if len(a) > 1 else 10,
                                            int(a[2]) if len(a) > 2 else 2)))

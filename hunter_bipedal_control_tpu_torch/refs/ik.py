@@ -25,8 +25,8 @@ from ..ops.linalg import gj_inverse_plain, inv3
 MAX_IT = 5
 STEP = 0.7
 DAMP = 1e-6
-# one thread per (scenario, sample, leg), indexed by a C int
-MAX_THREADS = 2 ** 31 - 1
+# the (scenario, sample, leg) problems of one launch, counted by a C int
+MAX_LEGS = 2 ** 31 - 1
 
 
 def _toe_state(model: RobotModel, q):
@@ -159,17 +159,18 @@ def leg_ik(model: RobotModel, poses, warm_joints, des, R_des, trans_it: int = 3,
     leg) in one launch of ``hk_leg_ik``, as ``joint_reference_ik_plain``.
     Inputs float32, contiguous, on the card; the model's constants come from
     B1's buffer (``soa_kernel.consts_buffer``, which refuses a model of
-    another topology).  One thread per (scenario, sample, leg): raises for
-    2 B S > 2^31 - 1 (the kernel's int thread index).  ``with_decisions``
+    another topology).  Eight lanes per (scenario, sample, leg), two samples
+    a warp; raises for 2 B S > 2^31 - 1 (the C interface counts the legs in
+    an int).  ``with_decisions``
     adds a third output, every keep-if-improved test (2 passes, trans_it +
     rot_it steps, B, S, 2 legs) as bool, the masks the plain version's
     ``decisions`` list receives."""
     if poses.dim() != 3:
         raise ValueError(f"poses: expected (B, S, 6), got {tuple(poses.shape)}")
     Bn, S, nj = poses.shape[0], poses.shape[1], model.nj
-    if not 0 < 2 * Bn * S <= MAX_THREADS:
-        raise ValueError(f"leg_ik: 2 B S = {2 * Bn * S} threads, the kernel takes "
-                         f"1..{MAX_THREADS}")
+    if not 0 < 2 * Bn * S <= MAX_LEGS:
+        raise ValueError(f"leg_ik: 2 B S = {2 * Bn * S} legs, the kernel takes "
+                         f"1..{MAX_LEGS}")
     if trans_it < 0 or rot_it < 0:
         raise ValueError(f"leg_ik: iteration counts {trans_it}, {rot_it}")
     dev, f32 = poses.device, torch.float32

@@ -32,8 +32,12 @@ version's own error) of the float64 plain SoA version, on its own scale,
 on random and main-path data at B=1/N=53 and B=128/N=66.
 leg_ik (B8a): both passes' joints, each within max(1e-4, 2 x the float32
 plain version's own error) of the float64 plain version, on its own scale,
-on main-path and random data at B=1/S=6 and B=128/S=7, both plain versions
-run on the CPU.
+on main-path and random data at B=1/S=6, B=128/S=7, the ragged B=3/S=5 and
+B=256/S=6 (768 one-warp blocks), both plain versions run on the CPU; the
+keep-if-improved tests reported on request leave the joints bit for bit as
+the bare call's and flip at most 2 x the float32 plain version's legs + 2;
+a NaN in a pose, a toe target or a warm joint gives NaN where the float32
+plain version has it.
 wbc_qp (B9): each of the six QP arrays within max(1e-4, 2 x the float32
 plain version's own error) of the float64 plain version, on its own scale,
 on standing (bench.py's batch) and walking states (mixed contact flags, both
@@ -740,12 +744,18 @@ def _ik_inputs(cuda, batch, n_knots, horizon, main_path, seed=0):
     return flag.model, t(poses), t(warm), t(des), t(R_des)
 
 
+# the product shape (S=6), the bench shape (S=7), a ragged batch (B=3,
+# S=5: 15 samples, the last warp's second half idle) and a wider one
+# (B=256, S=6: 768 one-warp blocks)
+LEG_IK_SHAPES = [(1, 53, 0.8), (128, 66, 1.0), (3, 40, 0.65), (256, 53, 0.8)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("main_path", [False, True], ids=["random", "main_path"])
-@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+@pytest.mark.parametrize("batch,n_knots,horizon", LEG_IK_SHAPES)
 def test_leg_ik_kernel(cuda, batch, n_knots, horizon, main_path):
     model, *arrays = _ik_inputs(cuda, batch, n_knots, horizon, main_path)
-    assert arrays[0].shape[1] == (6 if n_knots == 53 else 7)
+    assert arrays[0].shape[1] == int(horizon / mpc_mod.JOINT_REF_STEP) + 1
     before = ik_mod.leg_ik.launches
     got = ik_mod.joint_reference_ik(model, *arrays)
     torch.cuda.synchronize()
@@ -763,7 +773,7 @@ def test_leg_ik_kernel(cuda, batch, n_knots, horizon, main_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+@pytest.mark.parametrize("batch,n_knots,horizon", LEG_IK_SHAPES)
 def test_leg_ik_decisions(cuda, batch, n_knots, horizon):
     """The kernel's keep-if-improved tests, reported on request, leave the
     joints as they are and go the other way from the float64 plain
@@ -785,6 +795,31 @@ def test_leg_ik_decisions(cuda, batch, n_knots, horizon):
         return int((d != dec[torch.float64]).any(1).any(0).sum())
 
     assert flipped_legs(kept.cpu()) <= 2 * flipped_legs(dec[torch.float32]) + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["pose", "target", "warm"])
+def test_leg_ik_kernel_nan(cuda, where):
+    """A NaN in one sample's pose, one leg's toe target or one warm joint
+    (B=3, S=5) gives NaN in both passes where the float32 plain version has
+    it (a NaN warm joint stays in its scenario's outputs; a NaN pose keeps
+    its sample's warm joints), every other output finite."""
+    model, poses, warm, des, R_des = _ik_inputs(cuda, 3, 40, 0.65, False, seed=5)
+    if where == "pose":
+        poses[1, 2, 4] = float("nan")
+    elif where == "target":
+        des[2, 4, 1, 0] = float("nan")
+    else:
+        warm[0, 7] = float("nan")
+    got = ik_mod.joint_reference_ik(model, poses, warm, des, R_des)
+    ref = ik_mod.joint_reference_ik_plain(_cast(model, "cpu", torch.float32), poses.cpu(),
+                                          warm.cpu(), des.cpu(), R_des.cpu())
+    for a, b in zip(got, ref):
+        a = a.cpu()
+        assert torch.equal(a.isnan(), b.isnan()), where
+        assert bool(a.isnan().any()) == (where == "warm")
+        if where == "pose":
+            assert torch.equal(a[1, 2], warm[1].cpu())
 
 
 @pytest.mark.cuda
