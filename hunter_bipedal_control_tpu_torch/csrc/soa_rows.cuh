@@ -1,9 +1,10 @@
-// One knot's primal rows and stage cost on the SoA model (soa.py::
-// combined_rows, ocp/problem.py's stage cost): the OCP parameters buffer's
-// layout (ocp/soa_kernel.py::params_buffer writes it), the flow, the 16
-// equality rows and their masks, the 36 soft rows and their penalties, the
-// weight-compensating input and the stage cost.  Shared by B1
-// (soa_linearize.cu) and B15 (ddp_rollout.cu).
+// One knot's primal rows on the SoA model (soa.py::combined_rows,
+// ocp/problem.py's stage cost): the OCP parameters buffer's layout
+// (ocp/soa_kernel.py::params_buffer writes it), a knot's primal quantities
+// (the flow, the 16 equality rows and their masks), the soft rows'
+// penalties and the weight-compensating input.  Shared by B1
+// (soa_linearize.cu) and B15 (ddp_rollout.cu) through soa_warp.cuh, which
+// forms the rows on a warp's lanes.
 #pragma once
 
 #include "soa_model.cuh"
@@ -24,9 +25,9 @@ constexpr int P_XY_GAIN = 0, P_Z_REF = 1, P_POS_GAIN = 2, P_MU_C = 3, P_CONE_REG
               N_PARAMS = P_VLIM + NJ;
 
 // ---------------------------------------------------------------------------
-// one knot's primal quantities (soa.py::combined_rows / flow); the state's
-// kinematics (Kin, fk_dev, base_velocity_dev) and the flow (FlowKin,
-// contact_points_dev, flow_rows_dev, flow_dev) are soa_model.cuh's
+// one knot's primal quantities (soa.py::combined_rows / flow) as B1's chain
+// leaves them (soa_linearize.cu::chain_warp); the state's kinematics (Kin)
+// and the flow (FlowKin) are soa_model.cuh's
 // ---------------------------------------------------------------------------
 
 struct Rows : FlowKin {
@@ -34,55 +35,7 @@ struct Rows : FlowKin {
   float flow[NX];
   float g[NEQ];         // equality rows before masking
   float mask[NEQ];
-  float soft[NS];
 };
-
-// soa.py::combined_rows at one knot: every primal quantity into w
-__device__ void combined_rows_dev(const float* K, const float* P, const float* x,
-                                  const float* u, const float* flags, const float* fpr,
-                                  const float* fvr, Rows* w) {
-  const float* vj = u + 3 * NC;
-  fk_dev(K, x + 6, w);
-  base_velocity_dev(K, x, vj, w);
-  velocity_pass_dev(w->vb, vj, w);
-  contact_points_dev(K, w);
-  for (int c = 0; c < NC; ++c) {
-    const int k = c_cparent[c];
-    float d[3], t[3];
-    for (int i = 0; i < 3; ++i) d[i] = w->pc[c][i] - w->p[k][i];
-    cross3(w->om[k], d, t);
-    for (int i = 0; i < 3; ++i) w->vc[c][i] = w->vo[k][i] + t[i];
-  }
-  flow_rows_dev(K, u, w, w->flow);
-
-  // equality rows (4 per foot) and masks
-  const float gxy = P[P_XY_GAIN], gn = P[P_POS_GAIN];
-  for (int c = 0; c < NC; ++c) {
-    const bool stance = flags[c] > 0.5f;
-    const float zvz = w->vc[c][2] + gxy * (w->pc[c][2] - P[P_Z_REF]);
-    const float zv[3] = {w->vc[c][0], w->vc[c][1], zvz};
-    for (int a = 0; a < 3; ++a) {
-      w->g[4 * c + a] = stance ? zv[a] : u[3 * c + a];
-      w->mask[4 * c + a] = 1.0f;
-    }
-    const float nv = (w->vc[c][2] - fvr[3 * c + 2]) + gn * (w->pc[c][2] - fpr[3 * c + 2]);
-    w->g[4 * c + 3] = stance ? 0.0f : nv;
-    w->mask[4 * c + 3] = stance ? 0.0f : 1.0f;
-  }
-  // soft rows: cone(nc), xy(2nc), qj(nj), vj(nj), fz(nc)
-  for (int c = 0; c < NC; ++c) {
-    const float f0 = u[3 * c], f1 = u[3 * c + 1];
-    const float s = sqrtf(f0 * f0 + f1 * f1 + P[P_CONE_REG]);
-    w->soft[c] = P[P_MU_C] * u[3 * c + 2] - s;
-    for (int a = 0; a < 2; ++a)
-      w->soft[4 + 2 * c + a] = (w->vc[c][a] - fvr[3 * c + a]) + gxy * (w->pc[c][a] - fpr[3 * c + a]);
-    w->soft[4 + 2 * NC + 2 * NJ + c] = u[3 * c + 2];
-  }
-  for (int j = 0; j < NJ; ++j) {
-    w->soft[4 + 2 * NC + j] = x[12 + j];
-    w->soft[4 + 2 * NC + NJ + j] = vj[j];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // soft penalties (ocp/penalties.py) per soft row: value, slope, curvature
@@ -143,33 +96,6 @@ __device__ __forceinline__ float u_nom(const float* K, const float* flags, int i
   float n = ((flags[0] + flags[1]) + flags[2]) + flags[3];
   n = fmaxf(n, 1.0f);
   return (K[K_M] * GRAVITY / n) * flags[i / 3];
-}
-
-// the stage cost 0.5 dx'Q dx + 0.5 du'R du + sum mask p at one knot, from
-// the rows combined_rows_dev left in w (x_nom xn, flags fl)
-__device__ float stage_cost_dev(const float* K, const float* P, const float* Q, const float* R,
-                                const float* x, const float* u, const float* xn,
-                                const float* fl, const Rows* w) {
-  float dx[NX], du[NU];
-  for (int i = 0; i < NX; ++i) dx[i] = x[i] - xn[i];
-  for (int i = 0; i < NU; ++i) du[i] = u[i] - u_nom(K, fl, i);
-  float cq = 0.0f, cr = 0.0f, cp = 0.0f;
-  for (int j = 0; j < NX; ++j) {
-    float s = 0.0f;
-    for (int i = 0; i < NX; ++i) s += dx[i] * Q[i * NX + j];
-    cq += s * dx[j];
-  }
-  for (int j = 0; j < NU; ++j) {
-    float s = 0.0f;
-    for (int i = 0; i < NU; ++i) s += du[i] * R[i * NU + j];
-    cr += s * du[j];
-  }
-  for (int r = 0; r < NS; ++r) {
-    float mk, p, dp, d2p;
-    soft_penalty(P, fl, r, w->soft[r], &mk, &p, &dp, &d2p);
-    cp += mk * p;
-  }
-  return (0.5f * cq + 0.5f * cr) + cp;
 }
 
 }  // namespace

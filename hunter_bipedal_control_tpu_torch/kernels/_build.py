@@ -46,8 +46,11 @@ SIGNATURES = {
     "hk_solve_qp": [_P] * 15 + [_I] * 6 + [_F] * 4 + [_P],
     # consts, params, Q, R, 6 inputs, 13 outputs, batch, n_knots, dt, stream
     "hk_soa_linearize": [_P] * 23 + [_I, _I, _F, _P],
-    # consts, params, Q, R, 6 inputs, 2 outputs, batch, n_cand, n_knots, dt, stream
-    "hk_soa_merit": [_P] * 12 + [_I, _I, _I, _F, _P],
+    # consts, params, Q, R, 6 inputs, partials, tickets, 2 outputs, batch, n_cand, n_knots,
+    # dt, stream
+    "hk_soa_merit": [_P] * 14 + [_I, _I, _I, _F, _P],
+    # n_knots -> the merit's partial sums per (scenario, candidate)
+    "hk_soa_merit_partials": [_I],
     # out buffer, capacity
     "hk_soa_topology": [_P, _I],
     # consts, lower, upper, 4 inputs, 2 outputs, decisions or NULL, batch, n_samples,
@@ -87,8 +90,10 @@ MAX_SCENARIOS = 2 ** 31 - 1
 
 _lib = None
 build_log = ""
-# the compiler's output of each measurement library, by the library's path
+# the compiler's output of each measurement library, by the library's path,
+# and the libraries loaded (one build per source and define in a process)
 measurement_logs = {}
+_measured = {}
 
 
 def _nvcc() -> str:
@@ -174,19 +179,22 @@ def measurement_library(source: str, define: str | None, names):
     """``csrc/<source>`` (or the file at the path ``source``) alone,
     compiled with ``-D<define>`` (none when define is None) into a library
     of its own in BUILD_DIR (a measurement build, beside the package's),
-    loaded, with the entry points ``names`` of SIGNATURES bound."""
+    loaded, with the entry points ``names`` of SIGNATURES bound; built once
+    a process."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(CSRC, source)
     tag = hashlib.sha256(os.path.abspath(path).encode()).hexdigest()[:8]
     so = os.path.join(BUILD_DIR, f"{os.path.splitext(os.path.basename(source))[0]}_"
                                  f"{(define or 'plain').lower()}_{tag}.so")
-    flags = [f"-D{define}"] if define else []
-    done = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-I", CSRC, "-shared", "-o", so, path],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source} with {flags}:\n{done.stdout}")
-    measurement_logs[so] = done.stdout
-    return _bind(ctypes.CDLL(so), names)
+    if so not in _measured:
+        flags = [f"-D{define}"] if define else []
+        done = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-I", CSRC, "-shared", "-o", so,
+                               path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source} with {flags}:\n{done.stdout}")
+        measurement_logs[so] = done.stdout
+        _measured[so] = ctypes.CDLL(so)
+    return _bind(_measured[so], names)
 
 
 def check(rc: int, name: str) -> None:

@@ -6,7 +6,9 @@ returns for ``lin_backend='soa'`` (the 13 per-knot outputs, dt-scaled and
 masked) in one launch of ``hk_soa_linearize``; ``soa_merit`` returns what
 ``solver.sqp.eval_merit_plain`` returns (per scenario and candidate the
 dt-scaled total cost and the constraint metric) in one launch of
-``hk_soa_merit``.  The plain versions are those two functions; the solver
+``hk_soa_merit``, which sums its knots in a fixed order (the same bits on
+every launch) through a scratch buffer and integer tickets the wrapper keeps
+per device and stream.  The plain versions are those two functions; the solver
 takes them for CPU tensors and these wrappers for CUDA tensors, which
 launch the kernel or raise.
 
@@ -27,8 +29,8 @@ from ..models import soa
 NJ, N_LINKS, NC = 10, 11, 4
 NX = NU = 12 + NJ
 N_EQ = 4 * NC
-# grid.x of both kernels is the flat (scenario, knot) or (scenario,
-# candidate) index
+# grid.x of the linearization is the flat (scenario, knot) index, of the
+# merit the flat (scenario, candidate, group of knots)
 MAX_BLOCKS = 2 ** 31 - 1
 
 _topology = None
@@ -39,6 +41,8 @@ _CHECKED: dict = {}
 CACHE_SIZE = 8
 _BY_MODEL: dict = {}
 _BY_PARAMS: dict = {}
+# the merit's tickets and partial sums per (device, stream): merit_scratch
+_MERIT_SCRATCH: dict = {}
 
 
 def _keep(cache: dict, key, value):
@@ -189,23 +193,45 @@ def soa_linearize(model, params, xs, us, x_nom, flags, fpr, fvr, dt):
 soa_linearize.launches = 0
 
 
+def merit_scratch(device, stream, n_cand_total: int, n_partials: int):
+    """The merit's scratch on ``device`` for launches on ``stream``: its
+    tickets (one int32 per (scenario, candidate), 0 between launches: each
+    launch leaves them 0, so a buffer is zeroed once, by a copy from the
+    host when it is made or grown) and its knots' partial sums (float32,
+    any contents), at least the sizes asked for."""
+    key = (str(device), stream)
+    hit = _MERIT_SCRATCH.get(key)
+    if hit is None or hit[0].numel() < n_cand_total or hit[1].numel() < n_partials:
+        n_t = max(n_cand_total, 0 if hit is None else hit[0].numel())
+        n_p = max(n_partials, 0 if hit is None else hit[1].numel())
+        hit = (torch.zeros(n_t, dtype=torch.int32).to(device),
+               torch.empty(n_p, dtype=torch.float32, device=device))
+        _MERIT_SCRATCH[key] = hit
+    return hit
+
+
 def soa_merit(model, params, xs, us, x_nom, flags, fpr, fvr, dt):
     """Kernel B1's merit: candidates xs (B, K, N+1, nx), us (B, K, N, nu),
     references as ``soa_linearize``'s -> (cost (B, K), metric (B, K)), as
-    ``sqp.eval_merit_plain``.  One block per (scenario, candidate): raises
-    for B K > 2^31 - 1 (the grid's x limit)."""
+    ``sqp.eval_merit_plain``.  A warp per (scenario, candidate, knot), the
+    sums over the knots in knot order in the same launch (``merit_scratch``):
+    raises for B K > 2^31 - 1, and the launch fails for a grid of more than
+    2^31 - 1 blocks of knots."""
     if us.dim() != 4:
         raise ValueError(f"us: expected (B, K, N, nu), got {tuple(us.shape)}")
     Bn, Kc, N = us.shape[0], us.shape[1], us.shape[2]
     if not 0 < Bn * Kc <= MAX_BLOCKS or N < 1:
-        raise ValueError(f"soa_merit: B K = {Bn * Kc} blocks (grid 1..{MAX_BLOCKS}), N = {N}")
+        raise ValueError(f"soa_merit: B K = {Bn * Kc} (1..{MAX_BLOCKS}), N = {N}")
     ins = kernel_inputs(model, params, xs, us, x_nom, flags, fpr, fvr, (Bn, Kc))
     cost = torch.empty((Bn, Kc), dtype=torch.float32, device=xs.device)
     metric = torch.empty_like(cost)
     lib = _build.library()
-    _build.check(lib.hk_soa_merit(*(t.data_ptr() for t in ins), cost.data_ptr(),
-                                  metric.data_ptr(), Bn, Kc, N, float(dt), _build.stream(xs)),
-                 "soa_merit")
+    stream = _build.stream(xs)
+    tickets, partials = merit_scratch(xs.device, stream, Bn * Kc,
+                                      Bn * Kc * lib.hk_soa_merit_partials(N))
+    _build.check(lib.hk_soa_merit(*(t.data_ptr() for t in ins), partials.data_ptr(),
+                                  tickets.data_ptr(), cost.data_ptr(), metric.data_ptr(), Bn, Kc,
+                                  N, float(dt), stream), "soa_merit")
     soa_merit.launches += 1
     return cost, metric
 

@@ -16,7 +16,9 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step wbc_qp_times [other/wbc_qp.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step backends_spread [moves] [riccati.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step ddp_rollout_phases [B] [N] [H] [RK2|ODE45] [ddp_rollout.cu]
-    python -m hunter_bipedal_control_tpu_torch.profile_step ddp_rollout_times
+    python -m hunter_bipedal_control_tpu_torch.profile_step ddp_rollout_times [other/ddp_rollout.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step soa_phases [B] [N] [soa_linearize.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step soa_times [other/soa_linearize.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_step_phases [B] [sim_step.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_step_times
     python -m hunter_bipedal_control_tpu_torch.profile_step leg_ik_phases [B] [S] [leg_ik.cu]
@@ -72,7 +74,15 @@ rollout 0's cycles per knot by DDP_ROLLOUT_PHASE_NAMES), beside the
 kernel's time and own device time, optionally for another
 ``ddp_rollout.cu`` (e.g. a parent checkout's with the same clock marks);
 ``ddp_rollout_times`` times B15 on chip_smoke's three DDP cells
-(``profile_ddp_rollout_times``).  ``sim_step_phases`` splits kernel B11 on
+(``profile_ddp_rollout_times``), beside another ``ddp_rollout.cu`` if
+given, with the two sources' outputs compared bit for bit.
+``soa_phases`` splits both entry points of kernel B1 on the warm MPC
+step's linearization and merit inputs (B=1, N=53 or B=128, N=66) the same
+way (``profile_soa_phases``: the cycles by SOA_LIN_PHASE_NAMES and
+SOA_MERIT_PHASE_NAMES), optionally for another ``soa_linearize.cu``;
+``soa_times`` times both at both shapes, beside another
+``soa_linearize.cu`` if given (``profile_soa_times``).
+``sim_step_phases`` splits kernel B11 on
 ``entry.sim_step_batch``'s tick the same way (``profile_sim_step_phases``:
 scenario 0's cycles per substep by SIM_STEP_PHASE_NAMES), beside the
 kernel's time and own device time, optionally for another ``sim_step.cu``;
@@ -905,23 +915,63 @@ def _event_ms(fn, reps: int = 15):
     return statistics.median(times)
 
 
-def profile_ddp_rollout_times():
-    """Kernel B15 on each of chip_smoke's DDP cells (DDP_ROLLOUT_CELLS, the
-    first iteration's closed-loop rollouts), timed by ``_kernel_times``
-    (DDP_ROLLOUT_PROFILED_CALLS calls).  chip_smoke runs this in a process
-    of its own, whose profiler records every launch."""
+def _outputs_apart(a, b):
+    """Per output of two runs: whether they agree bit for bit (NaN where
+    NaN) and their largest absolute difference where both are finite."""
     import torch
 
+    out = {}
+    for i, (x, y) in enumerate(zip(a, b)):
+        same = bool(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
+                                y.view(torch.int32) if y.dtype == torch.float32 else y))
+        fin = torch.isfinite(x.double()) & torch.isfinite(y.double())
+        diff = (x.double() - y.double()).abs()[fin]
+        out[str(i)] = {"bit_equal": same,
+                       "max_abs_diff": float(diff.max()) if diff.numel() else 0.0,
+                       "finite_equal": bool(torch.equal(torch.isfinite(x.double()),
+                                                        torch.isfinite(y.double())))}
+    return out
+
+
+def profile_ddp_rollout_times(other: str | None = None):
+    """Kernel B15 on each of chip_smoke's DDP cells (DDP_ROLLOUT_CELLS, the
+    first iteration's closed-loop rollouts), timed by ``_kernel_times``
+    (DDP_ROLLOUT_PROFILED_CALLS calls).  Given ``other`` (another
+    ``ddp_rollout.cu`` of the same C interface, e.g. a parent checkout's),
+    the same beside it (package, other, other, package: "times") and each
+    cell's outputs of the two compared ("outputs_vs_other").  chip_smoke
+    runs this in a process of its own, whose profiler records every launch."""
+    import torch
+
+    from .kernels import _build
     from .solver import ddp
 
-    out = {}
-    for name, batch, knots, horizon, integrator in DDP_ROLLOUT_CELLS:
-        args = _ddp_rollout_args(batch, knots, horizon, integrator)
-        out[name] = {"batch": batch, "knots": knots, "integrator": integrator,
-                     **_kernel_times(lambda: ddp.closed_rollout(*args), "ddp_rollout",
-                                     DDP_ROLLOUT_PROFILED_CALLS)}
-    return {"phase": "profile_ddp_rollout_times", "device": torch.cuda.get_device_name(0),
-            "profiled_calls": DDP_ROLLOUT_PROFILED_CALLS, "cells": out}
+    cells = {name: (batch, knots, integrator,
+                    _ddp_rollout_args(batch, knots, horizon, integrator))
+             for name, batch, knots, horizon, integrator in DDP_ROLLOUT_CELLS}
+
+    def measure(args):
+        return _kernel_times(lambda: ddp.closed_rollout(*args), "ddp_rollout",
+                             DDP_ROLLOUT_PROFILED_CALLS, "hk_ddp_rollout")
+
+    order, times = _compare_sources({n: c[3] for n, c in cells.items()}, "hk_ddp_rollout",
+                                    other, measure)
+    out = {n: {"batch": b, "knots": k, "integrator": i, **times["package"][n][0]}
+           for n, (b, k, i, _) in cells.items()}
+    res = {"phase": "profile_ddp_rollout_times", "device": torch.cuda.get_device_name(0),
+           "profiled_calls": DDP_ROLLOUT_PROFILED_CALLS, "cells": out}
+    if other is not None:
+        lib = _build.measurement_library(other, None, ["hk_ddp_rollout"])
+        apart = {}
+        for n, (_, _, _, args) in cells.items():
+            mine = [t.clone() for t in ddp.closed_rollout(*args)]
+            with _entry_from(lib, "hk_ddp_rollout"):
+                theirs = [t.clone() for t in ddp.closed_rollout(*args)]
+            torch.cuda.synchronize()
+            apart[n] = _outputs_apart(mine, theirs)
+        res.update(other=other, order=order, times=times, outputs_vs_other=apart,
+                   ptxas=_ptxas("ddp_rollout"))
+    return res
 
 
 def profile_ddp_rollout_phases(batch: int = 1, knots: int = 53, horizon: float = 0.8,
@@ -1106,6 +1156,109 @@ def profile_leg_ik_times(other: str | None = None):
     order, out = _compare_sources(cases, "hk_leg_ik", other, _leg_ik_times)
     return {"phase": "profile_leg_ik_times", "device": torch.cuda.get_device_name(0),
             "order": order, "times": out, "ptxas": _ptxas("leg_ik")}
+
+
+# kernel B1's phases (csrc/soa_linearize.cu, -DSOA_PHASE_CLOCKS).  The
+# linearization: block 0's cycles (thread 0) by the loads, the primal chain,
+# the RK2 midpoint flow (beside the per-link velocity terms), the per-link
+# whole-body sums, the columns (CMM, euler and contact Jacobian columns,
+# Vh, Vv, dvb, Jcom), H / W / dvc / dhdot, the assembly of Jx, Ju, C, D and
+# the soft rows' Jacobians, the penalties, the dense tail (A, B, the GGN
+# quadratics) and the stores with the cost.  The merit: the cycles of the
+# thread (lane) that runs scenario 0, candidate 0's first knot, summed over
+# the knots it runs, by the loads, the rows at x, the stage cost with
+# |g mask|_1, the RK2 midpoint flow, the defect and the reduction of that
+# candidate's sums.
+SOA_LIN_PHASE_NAMES = ("load", "chain", "midpoint_flow", "per_link", "columns", "h_w_dvc",
+                       "assembly", "penalties", "dense_tail", "store_cost")
+SOA_MERIT_PHASE_NAMES = ("load", "rows", "stage_cost", "midpoint_flow", "defect", "reduction")
+# kernel calls under the profiler for B1's own device time
+SOA_PROFILED_CALLS = 20
+# the MPC step's shapes: (batch, knots, horizon)
+SOA_SHAPES = ((1, 53, 0.8), (128, 66, 1.0))
+SOA_ENTRIES = {"linearize": ("hk_soa_linearize", "soa_linearize", SOA_LIN_PHASE_NAMES),
+               "merit": ("hk_soa_merit", "soa_merit", SOA_MERIT_PHASE_NAMES)}
+
+
+def _soa_args(batch: int, knots: int, horizon: float):
+    """The arguments ``sqp.knot_linearization_all`` ("linearize") and
+    ``sqp.eval_merit`` ("merit": two candidates) get on the flagship's warm
+    MPC step at (batch, knots, horizon), captured on the card."""
+    import torch
+
+    from .entry import build_flagship
+    from .solver import sqp
+    from .solver.mpc import Mpc
+
+    flag = build_flagship(knots, horizon, batch=batch)
+    mpc = Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
+    args = (flag.schedule, flag.target, 0.0, flag.x0,
+            torch.zeros(6, device=flag.x0.device), flag.default_joints)
+    _, state, _ = mpc(flag.state, *args)
+    seen, real = {}, (sqp.knot_linearization_all, sqp.eval_merit)
+
+    def keep(name, fn):
+        def run(*a):
+            seen.setdefault(name, a)
+            return fn(*a)
+        return run
+
+    sqp.knot_linearization_all, sqp.eval_merit = keep("linearize", real[0]), keep("merit", real[1])
+    try:
+        mpc(state, *args)
+    finally:
+        sqp.knot_linearization_all, sqp.eval_merit = real
+    torch.cuda.synchronize()
+    return seen
+
+
+def _soa_call(name: str, args):
+    from .solver import sqp
+
+    fn = sqp.knot_linearization_all if name == "linearize" else sqp.eval_merit
+    return lambda: fn(*args)
+
+
+def profile_soa_phases(batch: int = 1, knots: int = 53, source: str = "soa_linearize.cu"):
+    """Both entry points of kernel B1 (``csrc/<source>``, or the file at the
+    path ``source``, e.g. a parent checkout's with the same clock marks) on
+    ``_soa_args(batch, knots)``, measured by ``_kernel_phases`` with
+    ``-DSOA_PHASE_CLOCKS``: the clock64 cycles by SOA_LIN_PHASE_NAMES and
+    SOA_MERIT_PHASE_NAMES, the kernels' times with and without the clocks,
+    and the ptxas lines of both builds."""
+    import torch
+
+    horizon = dict((n, h) for _, n, h in SOA_SHAPES).get(knots, knots / 66.0)
+    cap = _soa_args(batch, knots, horizon)
+    out = {}
+    for name, (entry, kernel, names) in SOA_ENTRIES.items():
+        run = _soa_call(name, cap[name])
+        run()  # the constants on the card, by the package's library
+        out[name] = _kernel_phases(source, "SOA_PHASE_CLOCKS", entry, names, run, kernel,
+                                   SOA_PROFILED_CALLS)
+    return {"phase": "profile_soa_phases", "batch": batch, "knots": knots, "horizon": horizon,
+            "candidates": cap["merit"][-1].shape[1], "source": source,
+            "device": torch.cuda.get_device_name(0), **out}
+
+
+def profile_soa_times(other: str | None = None):
+    """Both entry points of kernel B1 as the package builds them, timed by
+    ``_kernel_times`` (SOA_PROFILED_CALLS calls) on the warm MPC step's
+    inputs at B=1, N=53 (the product shape) and B=128, N=66 (the bench
+    shape), beside another ``soa_linearize.cu`` of the same C interface if
+    given (``_compare_sources``: package, other, other, package).  chip_smoke
+    runs this in a process of its own, whose profiler records every launch."""
+    import torch
+
+    caps = {f"b{b}_n{n}": _soa_args(b, n, h) for b, n, h in SOA_SHAPES}
+    out, order = {}, None
+    for name, (entry, kernel, _) in SOA_ENTRIES.items():
+        order, out[name] = _compare_sources(
+            {case: _soa_call(name, cap[name]) for case, cap in caps.items()}, entry, other,
+            lambda run, kernel=kernel, entry=entry: _kernel_times(run, kernel, SOA_PROFILED_CALLS,
+                                                                  entry))
+    return {"phase": "profile_soa_times", "device": torch.cuda.get_device_name(0),
+            "order": order, "times": out, "ptxas": _ptxas("soa_linearize")}
 
 
 def _device_by_name(run):
@@ -1361,7 +1514,13 @@ if __name__ == "__main__":
     elif a and a[0] == "rt_factor":
         print(json.dumps(profile_rt_factor(int(a[1]) if len(a) > 1 else 40)))
     elif a and a[0] == "ddp_rollout_times":
-        print(json.dumps(profile_ddp_rollout_times()))
+        print(json.dumps(profile_ddp_rollout_times(a[1] if len(a) > 1 else None)))
+    elif a and a[0] == "soa_phases":
+        print(json.dumps(profile_soa_phases(int(a[1]) if len(a) > 1 else 1,
+                                            int(a[2]) if len(a) > 2 else 53,
+                                            a[3] if len(a) > 3 else "soa_linearize.cu")))
+    elif a and a[0] == "soa_times":
+        print(json.dumps(profile_soa_times(a[1] if len(a) > 1 else None)))
     elif a and a[0] == "ddp_rollout_phases":
         print(json.dumps(profile_ddp_rollout_phases(int(a[1]) if len(a) > 1 else 1,
                                                     int(a[2]) if len(a) > 2 else 53,

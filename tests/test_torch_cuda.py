@@ -29,7 +29,11 @@ version, on its own scale, both plain versions run on the CPU.
 soa_linearize and soa_merit (B1): each of the 13 linearization outputs and
 the merit's cost and metric within max(1e-4, 2 x the float32 plain SoA
 version's own error) of the float64 plain SoA version, on its own scale,
-on random and main-path data at B=1/N=53 and B=128/N=66.
+on random and main-path data at B=1/N=53, B=128/N=66 and B=256/N=53, the
+merit also with 1 and 3 candidates at N=53, 66 and 7; the merit gives the
+same bits on repeated launches, a NaN in one knot of one scenario's
+candidate reaches that (scenario, candidate) alone, and each entry point is
+one device kernel a call.
 leg_ik (B8a): both passes' joints, each within max(1e-4, 2 x the float32
 plain version's own error) of the float64 plain version, on its own scale,
 on main-path and random data at B=1/S=6, B=128/S=7, the ragged B=3/S=5 and
@@ -642,7 +646,7 @@ def _candidates(problem, n_cand=2, seed=1):
     g = torch.Generator(device="cpu").manual_seed(seed)
     dxs = (0.01 * torch.randn(xs.shape, generator=g)).to(xs.device)
     dus = (torch.randn(us.shape, generator=g) * 2.0).to(us.device)
-    a = torch.tensor([1.0, 0.25][:n_cand], device=xs.device)[None, :, None, None]
+    a = torch.tensor([1.0, 0.25, 0.0625][:n_cand], device=xs.device)[None, :, None, None]
     return (model, st, params, bundle, (xs[:, None] + a * dxs[:, None]).contiguous(),
             (us[:, None] + a * dus[:, None]).contiguous())
 
@@ -673,6 +677,97 @@ def test_soa_merit_kernel(cuda, batch, n_knots, horizon, main_path):
     ref32 = _plain_cpu(sqp.eval_merit_plain, problem, torch.float32)
     ref64 = _plain_cpu(sqp.eval_merit_plain, problem, torch.float64)
     _held_to_f64(got, ref32, ref64, ("cost", "metric"))
+
+
+def _device_kernels(run):
+    """The device kernels ``run()`` launches (names), recorded by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_cand", [1, 3])
+@pytest.mark.parametrize("n_knots,horizon", [(53, 0.8), (66, 1.0), (7, 0.1)])
+def test_soa_merit_kernel_candidates(cuda, n_cand, n_knots, horizon):
+    """Any number of candidates, any N (7: not a multiple of the knots a
+    block takes)."""
+    problem = _candidates(_soa_problem(cuda, 3, n_knots, horizon, False), n_cand)
+    got = sqp.eval_merit(*problem)
+    torch.cuda.synchronize()
+    assert got[0].shape == (3, n_cand)
+    ref32 = _plain_cpu(sqp.eval_merit_plain, problem, torch.float32)
+    ref64 = _plain_cpu(sqp.eval_merit_plain, problem, torch.float64)
+    _held_to_f64(got, ref32, ref64, ("cost", "metric"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("main_path", [False, True], ids=["random", "main_path"])
+def test_soa_kernels_batch_256(cuda, main_path):
+    problem = _soa_problem(cuda, 256, 53, 0.8, main_path)
+    got = sqp.knot_linearization_all(*problem)
+    torch.cuda.synchronize()
+    ref32 = _plain_cpu(sqp.knot_linearization_all_plain, problem, torch.float32)
+    ref64 = _plain_cpu(sqp.knot_linearization_all_plain, problem, torch.float64)
+    _held_to_f64(got, ref32, ref64, LIN_NAMES)
+    cand = _candidates(problem)
+    got = sqp.eval_merit(*cand)
+    torch.cuda.synchronize()
+    ref32 = _plain_cpu(sqp.eval_merit_plain, cand, torch.float32)
+    ref64 = _plain_cpu(sqp.eval_merit_plain, cand, torch.float64)
+    _held_to_f64(got, ref32, ref64, ("cost", "metric"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
+def test_soa_merit_kernel_same_bits(cuda, batch, n_knots, horizon):
+    """The knots' sums in a fixed order: two launches on the same inputs
+    give the same bits, as do other launches in between."""
+    problem = _candidates(_soa_problem(cuda, batch, n_knots, horizon, True))
+    first = [t.clone() for t in sqp.eval_merit(*problem)]
+    other = _candidates(_soa_problem(cuda, batch, 7, 0.1, False), 3)
+    sqp.eval_merit(*other)
+    second = sqp.eval_merit(*problem)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["state", "input"])
+def test_soa_merit_kernel_nan_knot(cuda, where):
+    """A NaN in one knot of one scenario's candidate makes that (scenario,
+    candidate) NaN and no other; the next launch is unaffected."""
+    model, st, params, bundle, xs, us = _candidates(_soa_problem(cuda, 4, 53, 0.8, True), 3)
+    clean = [t.clone() for t in sqp.eval_merit(model, st, params, bundle, xs, us)]
+    xs, us = xs.clone(), us.clone()
+    (xs if where == "state" else us)[2, 1, 17, 5] = float("nan")
+    cost, metric = sqp.eval_merit(model, st, params, bundle, xs, us)
+    torch.cuda.synchronize()
+    bad = torch.zeros_like(cost, dtype=torch.bool)
+    bad[2, 1] = True
+    assert torch.isnan(cost[bad]).all() and torch.isnan(metric[bad]).all()
+    assert torch.equal(cost[~bad], clean[0][~bad]) and torch.equal(metric[~bad], clean[1][~bad])
+    again = sqp.eval_merit(model, st, params, bundle, *(a.clone() for a in (xs, us)))
+    torch.cuda.synchronize()
+    assert torch.isfinite(again[0][~bad]).all()
+
+
+@pytest.mark.cuda
+def test_soa_kernels_one_launch_per_call(cuda):
+    problem = _soa_problem(cuda, 128, 66, 1.0, True)
+    cand = _candidates(problem)
+    sqp.knot_linearization_all(*problem), sqp.eval_merit(*cand)  # the buffers made
+    for fn, args, counter, kernel in (
+            (sqp.knot_linearization_all, problem, soa_kernel.soa_linearize, "soa_linearize"),
+            (sqp.eval_merit, cand, soa_kernel.soa_merit, "soa_merit")):
+        before = counter.launches
+        names = _device_kernels(lambda: fn(*args))
+        assert counter.launches == before + 1
+        assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.cuda

@@ -12,7 +12,9 @@ SoA graph takes minutes to compile on the CPU.
   the port's SoA against the port's dense forms at the same tolerances;
 - the solver's masked, dt-scaled ``knot_linearization_all_plain`` and
   ``eval_merit_plain`` (lin_backend='soa') against the same quantities
-  rebuilt from JAX's batch functions as ``sqp.solve`` builds them.
+  rebuilt from JAX's batch functions as ``sqp.solve`` builds them;
+- kernel B1's host side that runs here: the merit's scratch kept per
+  device and stream.
 """
 import jax
 import jax.numpy as jnp
@@ -220,3 +222,21 @@ def test_eval_merit_plain_matches_jax_solve(setup):
     assert soa_kernel.soa_merit.launches == before
     for a, b in zip(got, ref):
         close_rel(a, b, MERIT_REL)
+
+
+def test_soa_merit_scratch_kept_per_stream():
+    """The merit's tickets (zeroed once, when made) and partial sums are
+    kept per (device, stream), reused while large enough and grown, still
+    zero, when a launch needs more."""
+    soa_kernel._MERIT_SCRATCH.clear()
+    t1, p1 = soa_kernel.merit_scratch("cpu", 7, 6, 100)
+    assert t1.dtype == torch.int32 and p1.dtype == torch.float32
+    assert t1.numel() >= 6 and p1.numel() >= 100 and bool((t1 == 0).all())
+    t2, p2 = soa_kernel.merit_scratch("cpu", 7, 4, 50)
+    assert t2 is t1 and p2 is p1
+    t3, p3 = soa_kernel.merit_scratch("cpu", 7, 10, 50)
+    assert t3.numel() >= 10 and p3.numel() >= 100 and bool((t3 == 0).all())
+    t4, _ = soa_kernel.merit_scratch("cpu", 8, 6, 100)
+    assert t4 is not t3
+    soa_kernel._MERIT_SCRATCH.clear()
+
