@@ -10,7 +10,11 @@ Phases, each printing one JSON line:
      paths' shapes: B6 gj_inverse (IK-shaped 5x5, the use B8a absorbed,
      projection 16x16, the Kalman filter's 28x28 innovation and the
      momentum observer's 5x5 leg systems, the uses B12 and B10 absorbed),
-     B2 project_knot, B3 riccati_solve (also against the float64 exact
+     B2 project_knot (with its own device time on the warm MPC step's
+     projection inputs at B=1, N=53 and B=128, N=66 and on the DDP's at
+     B=128, N=66, measured first in a process of its own, ``profile_step
+     project_times``, and one warp's serial floor of a knot), B3
+     riccati_solve (also against the float64 exact
      plain version, within max(1e-4, 2x the float32 exact plain version's
      error), with its own device time and one SM's issue floor), B4
      solve_qp on the WBC's own QPs at B=4096, cold and warm (errors against
@@ -565,11 +569,15 @@ def gj_cost(batch, n):
 
 
 def project_cost(knots, nx=22, nu=22, m=16):
+    """Bytes (inputs read once, outputs written once) and flops of the
+    projection: the Gram, its elimination, D+, X, [Quu; B] U and the blocks
+    of T that an output reads (E' [Qe, Quu E, Qux], P' R1), qx_t's Qux' e
+    and the sums of the outputs."""
     n_in = 5 * nx * nx + 2 * m * nx + 3 * nx + 2 * m
     n_out = 7 * nx * nx + 4 * nx
     nc, nt = 1 + nx + nu, 1 + 2 * nx + nu
     flops = (2 * m * m * nu + m * (2 * m + 4 * m * (m - 1)) + 2 * nu * m * m
-             + 2 * nu * nc * m + 2 * 2 * nu * nc * nu + 2 * (nx + nu) * nt * nu
+             + 2 * nu * nc * m + 2 * 2 * nu * nc * nu + 2 * nu * (nx * (1 + 2 * nx) + nu * nt)
              + 2 * nu * nx + 6 * nx * nx)
     return knots * (n_in + n_out) * 4, knots * flops
 
@@ -1373,11 +1381,29 @@ def main():
     ref = sqp.project_knot_plain(settings, *pin)
     ref64 = sqp.project_knot_plain(settings, *as64(pin))
     names = ("A_t", "B_t", "d_t", "qx_t", "qw", "Qxx_t", "Qww", "Qwx", "E", "e", "P")
+    # B2's own device time on the warm MPC step's projection inputs at B=1,
+    # N=53 and B=128, N=66 and on the DDP's first iteration's at B=128, N=66,
+    # in a process of its own, whose profiler records every launch; one
+    # warp's serial floor of a knot (its operations at 32 a clock)
+    done = subprocess.run([sys.executable, "-m", "hunter_bipedal_control_tpu_torch.profile_step",
+                           "project_times"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600, check=True)
+    proj_times = json.loads(done.stdout.strip().splitlines()[-1])
+    proj_own = {case: runs[0] for case, runs in proj_times["times"]["package"].items()}
+    proj_floor = project_cost(1)[1] / 32 / SM_CLOCK_HZ * 1e3
+    emit({"phase": "project_own_times", "cases": proj_own,
+          "recorded": {c: f"{v['profiled_launches']} of {v['profiled_calls']}"
+                       for c, v in proj_own.items()},
+          "serial_chain_ms": proj_floor, "knot_bytes_flops": project_cost(1)})
+    own = proj_own["b128_n66"]
     record("project_knot", "cuda", "hunter_bipedal_control_tpu_torch/csrc/project_knot.cu",
            "hunter_bipedal_control_tpu/solver/sqp.py:146", errors(names, got, ref, ref64),
            TOL["project_knot"], cuda_ms(lambda: sqp.project_knot(settings, *pin)),
            cuda_ms(lambda: sqp.project_knot_plain(settings, *pin)), None, project_cost(B * N),
-           {"knots": B * N})
+           {"knots": B * N, "kernel_device_ms": own["kernel_device_ms"],
+            "profiled_launches": own["profiled_launches"],
+            "profiled_calls": own["profiled_calls"], "own_time_from": "project_own_times",
+            "serial_chain_ms": proj_floor})
 
     A_t, B_t, d_t, qx_t, qw, Qxx_t, Qww, Qwx, E, e0, P = [t.contiguous() for t in ref64]
     # the Riccati inputs: the float64 projection, rounded once to float32

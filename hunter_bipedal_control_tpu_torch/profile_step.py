@@ -23,6 +23,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step sim_step_times
     python -m hunter_bipedal_control_tpu_torch.profile_step leg_ik_phases [B] [S] [leg_ik.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step leg_ik_times [other/leg_ik.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step project_phases [B] [N] [project_knot.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step project_times [other/project_knot.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step own_times [solves] [periods]
     python -m hunter_bipedal_control_tpu_torch.profile_step rt_factor [periods]
 
@@ -95,6 +97,13 @@ LEG_IK_PHASE_NAMES), beside the kernel's time and own device time,
 optionally for another ``leg_ik.cu``; ``leg_ik_times`` times the
 package's B8a at both shapes, beside another ``leg_ik.cu`` if given
 (``profile_leg_ik_times``);
+``project_phases`` splits kernel B2 on the warm MPC step's projection
+inputs and the DDP's first iteration's (B=1, N=53 or B=128, N=66) the
+same way (``profile_project_phases``: block 0's cycles per knot by
+PROJ_PHASE_NAMES), optionally for another ``project_knot.cu``;
+``project_times`` times the package's B2 on those inputs at B=1, N=53 and
+B=128, N=66 and on the DDP's at B=128, N=66, beside another
+``project_knot.cu`` if given (``profile_project_times``);
 ``own_times`` reads the own device time at B=1 of B5, B8b2, B16 and B11
 on the chained solve and the full-order loop (``profile_own_times``);
 ``rt_factor`` times the full-order loop without the profiler
@@ -1261,6 +1270,126 @@ def profile_soa_times(other: str | None = None):
             "order": order, "times": out, "ptxas": _ptxas("soa_linearize")}
 
 
+# kernel B2's phases (csrc/project_knot.cu, -DPROJ_PHASE_CLOCKS): block 0's
+# cycles (thread 0) summed over the knots it runs, by the wait for the
+# inputs, the Gram, its elimination, D+, X and U, YQ and BU, T, and the
+# stores left at the end; the last counter is the knots block 0 ran
+PROJ_PHASE_NAMES = ("load", "gram", "elimination", "dplus", "x_u", "yq_bu", "t", "stores")
+# kernel calls under the profiler for B2's own device time
+PROJ_PROFILED_CALLS = 20
+# the MPC step's and the DDP's shapes: (batch, knots, horizon)
+PROJ_SHAPES = {(1, 53): 0.8, (128, 66): 1.0}
+
+
+def _project_args(batch: int, knots: int, horizon: float):
+    """The arguments ``sqp.project_knot`` gets on the flagship's warm MPC
+    step ("mpc") and on the first iteration of ``ddp.solve`` (RK2, from
+    ``entry.ddp_solve``'s warm start: "ddp") at (batch, knots, horizon),
+    captured on the card."""
+    import torch
+
+    from .entry import build_flagship, ddp_solve
+    from .solver import ddp, sqp
+    from .solver.mpc import Mpc
+
+    flag = build_flagship(knots, horizon, batch=batch)
+    mpc = Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
+    args = (flag.schedule, flag.target, 0.0, flag.x0,
+            torch.zeros(6, device=flag.x0.device), flag.default_joints)
+    _, state, _ = mpc(flag.state, *args)
+    dset = ddp.DdpSettings(n_intervals=knots, horizon=horizon, integrator="RK2",
+                           n_iterations=2)
+    run = ddp_solve(flag, dset)
+    seen, real = [], sqp.project_knot
+
+    def keep(*a):
+        seen.append(a)
+        return real(*a)
+
+    keep.launches = 0  # the wrapper counts on the name it is called by
+    sqp.project_knot = keep
+    try:
+        mpc(state, *args)
+        n_mpc = len(seen)
+        ddp.solve(flag.model, dset, flag.params, run.refs, flag.x0, run.warm.states,
+                  run.warm.inputs[:, :-1])
+    finally:
+        sqp.project_knot = real
+    torch.cuda.synchronize()
+    return {"mpc": seen[0], "ddp": seen[n_mpc]}
+
+
+def _project_call(args):
+    from .solver import sqp
+
+    return lambda: sqp.project_knot(*args)
+
+
+def profile_project_phases(batch: int = 1, knots: int = 53, source: str = "project_knot.cu"):
+    """Kernel B2 (``csrc/<source>``, or the file at the path ``source``, e.g.
+    a parent checkout's with the same clock marks) on ``_project_args(batch,
+    knots)``: the warm MPC step's projection and the DDP's first one,
+    measured by ``_kernel_phases`` with ``-DPROJ_PHASE_CLOCKS``: block 0's
+    clock64 cycles per knot by PROJ_PHASE_NAMES, the kernel's times with
+    and without the clocks, and the ptxas lines of both builds."""
+    import torch
+
+    horizon = PROJ_SHAPES.get((batch, knots), knots / 66.0)
+    cap = _project_args(batch, knots, horizon)
+    out = {}
+    for name, args in cap.items():
+        m = _kernel_phases(source, "PROJ_PHASE_CLOCKS", "hk_project_knot",
+                           PROJ_PHASE_NAMES + ("knots",), _project_call(args), "project_knot",
+                           PROJ_PROFILED_CALLS)
+        cycles = m.pop("cycles")
+        ran = max(cycles.pop("knots"), 1)
+        m.pop("total_cycles")
+        out[name] = {"pivot": args[0].proj_pivot, "block0_knots": ran,
+                     "inputs_mod16": [t.data_ptr() % 16 for t in args[1:]],
+                     "cycles_per_knot": {p: c / ran for p, c in cycles.items()},
+                     "total_cycles_per_knot": sum(cycles.values()) / ran, **m}
+    return {"phase": "profile_project_phases", "batch": batch, "knots": knots,
+            "horizon": horizon, "source": source, "device": torch.cuda.get_device_name(0),
+            **out}
+
+
+def profile_project_times(other: str | None = None):
+    """Kernel B2 as the package builds it, timed by ``_kernel_times``
+    (PROJ_PROFILED_CALLS calls) on the warm MPC step's projection inputs at
+    B=1, N=53 (the product shape) and B=128, N=66 (the bench shape) and on
+    the DDP's first iteration's at B=128, N=66, beside another
+    ``project_knot.cu`` of the same C interface if given
+    (``_compare_sources``: package, other, other, package; and each case's
+    outputs of the two compared).  chip_smoke runs this in a process of its
+    own, whose profiler records every launch."""
+    import torch
+
+    from .kernels import _build
+    from .solver import sqp
+
+    caps = {(b, n): _project_args(b, n, h) for (b, n), h in PROJ_SHAPES.items()}
+    cases = {"b1_n53": caps[1, 53]["mpc"], "b128_n66": caps[128, 66]["mpc"],
+             "ddp_b128_n66": caps[128, 66]["ddp"]}
+    order, out = _compare_sources(
+        cases, "hk_project_knot", other,
+        lambda args: _kernel_times(_project_call(args), "project_knot", PROJ_PROFILED_CALLS,
+                                   "hk_project_knot"))
+    res = {"phase": "profile_project_times", "device": torch.cuda.get_device_name(0),
+           "profiled_calls": PROJ_PROFILED_CALLS, "order": order, "times": out}
+    if other is not None:
+        lib = _build.measurement_library(other, None, ["hk_project_knot"])
+        apart = {}
+        for n, args in cases.items():
+            mine = [t.clone() for t in sqp.project_knot(*args)]
+            with _entry_from(lib, "hk_project_knot"):
+                theirs = [t.clone() for t in sqp.project_knot(*args)]
+            torch.cuda.synchronize()
+            apart[n] = _outputs_apart(mine, theirs)
+        res["outputs_vs_other"] = apart
+    res["ptxas"] = _ptxas("project_knot")
+    return res
+
+
 def _device_by_name(run):
     """``run()`` (which ends synchronized) under the profiler: per device
     kernel name, (its device ms summed, its recorded launches)."""
@@ -1521,6 +1650,12 @@ if __name__ == "__main__":
                                             a[3] if len(a) > 3 else "soa_linearize.cu")))
     elif a and a[0] == "soa_times":
         print(json.dumps(profile_soa_times(a[1] if len(a) > 1 else None)))
+    elif a and a[0] == "project_phases":
+        print(json.dumps(profile_project_phases(int(a[1]) if len(a) > 1 else 1,
+                                                int(a[2]) if len(a) > 2 else 53,
+                                                a[3] if len(a) > 3 else "project_knot.cu")))
+    elif a and a[0] == "project_times":
+        print(json.dumps(profile_project_times(a[1] if len(a) > 1 else None)))
     elif a and a[0] == "ddp_rollout_phases":
         print(json.dumps(profile_ddp_rollout_phases(int(a[1]) if len(a) > 1 else 1,
                                                     int(a[2]) if len(a) > 2 else 53,

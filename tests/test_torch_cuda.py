@@ -164,18 +164,27 @@ def spd(rng, batch, n):
     return X @ np.swapaxes(X, -1, -2) / n + 0.5 * np.eye(n)
 
 
-def knot_data(rng, shape, device):
-    """Projection inputs shaped like the SQP's (masked rows, SPD Quu)."""
+def knot_data(rng, shape, device, masked=None, asym=False):
+    """Projection inputs shaped like the SQP's (masked rows, SPD Quu);
+    ``masked`` True / False masks every row / no row, ``asym`` adds an
+    asymmetric part to Qxx and Quu."""
     def spd_(n, shift):
         X = rng.standard_normal((*shape, n, n))
         return X @ np.swapaxes(X, -1, -2) / n + shift * np.eye(n)
 
     mask = (rng.random((*shape, M)) > 0.25).astype(np.float64)
-    arrays = (np.eye(NX) + 0.05 * rng.standard_normal((*shape, NX, NX)),
-              0.05 * rng.standard_normal((*shape, NX, NU)),
-              0.01 * rng.standard_normal((*shape, NX)), rng.standard_normal((*shape, NX)),
-              rng.standard_normal((*shape, NU)), spd_(NX, 1.0), spd_(NU, 0.5),
-              0.1 * rng.standard_normal((*shape, NU, NX)), rng.standard_normal((*shape, M)),
+    if masked is not None:
+        mask = np.full_like(mask, 0.0 if masked else 1.0)
+    A = np.eye(NX) + 0.05 * rng.standard_normal((*shape, NX, NX))
+    B = 0.05 * rng.standard_normal((*shape, NX, NU))
+    d, qx, qu = (0.01 * rng.standard_normal((*shape, NX)), rng.standard_normal((*shape, NX)),
+                 rng.standard_normal((*shape, NU)))
+    Qxx, Quu = spd_(NX, 1.0), spd_(NU, 0.5)
+    if asym:
+        Qxx = Qxx + 0.3 * rng.standard_normal(Qxx.shape)
+        Quu = Quu + 0.3 * rng.standard_normal(Quu.shape)
+    arrays = (A, B, d, qx, qu, Qxx, Quu, 0.1 * rng.standard_normal((*shape, NU, NX)),
+              rng.standard_normal((*shape, M)),
               rng.standard_normal((*shape, M, NX)) * mask[..., None],
               rng.standard_normal((*shape, M, NU)) * mask[..., None], mask)
     return [torch.tensor(a, dtype=torch.float32, device=device) for a in arrays]
@@ -213,6 +222,89 @@ def test_project_knot_kernel(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert rel_err(a, b) < 1e-4
+
+
+def _project_against_plain(settings, args):
+    """One launch of B2 on ``args``, each output within 1e-4 of the plain
+    version's on the card (max |a - b| / max(1, max |b|))."""
+    before = sqp.project_knot.launches
+    got = sqp.project_knot(settings, *args)
+    ref = sqp.project_knot_plain(settings, *args)
+    torch.cuda.synchronize()
+    assert sqp.project_knot.launches == before + 1
+    for name, a, b in zip(("A_t", "B_t", "d_t", "qx_t", "qw", "Qxx_t", "Qww", "Qwx", "E", "e",
+                           "P"), got, ref):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        assert rel_err(a, b) < 1e-4, (name, rel_err(a, b))
+    return got
+
+
+# (batch, knots): the product and bench shapes, and knot counts that leave a
+# partial tail of the persistent grid (each block runs one or two knots)
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n_knots", [(1, 53), (128, 66), (5, 131), (1, 1)])
+@pytest.mark.parametrize("case", ["random", "asym", "all_masked", "none_masked"])
+def test_project_knot_kernel_cases(cuda, batch, n_knots, case):
+    kw = {"asym": {"asym": True}, "all_masked": {"masked": True},
+          "none_masked": {"masked": False}}.get(case, {})
+    args = knot_data(np.random.default_rng(batch * 1000 + n_knots), (batch, n_knots), cuda, **kw)
+    got = _project_against_plain(sqp.SqpSettings(), args)
+    if case == "all_masked":
+        eye = torch.eye(NU, device=cuda).expand(batch, n_knots, NU, NU)
+        assert rel_err(got[10], eye) == 0.0 and float(got[8].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_project_knot_kernel_ddp_shapes(cuda):
+    """The DDP's use: d = 0, hess_reg 1e-5, the Gram's pivot +1e-30."""
+    args = knot_data(np.random.default_rng(21), (128, 66), cuda)
+    args[2] = torch.zeros_like(args[2])
+    _project_against_plain(sqp.SqpSettings(proj_pivot=True, hess_reg=1e-5), args)
+
+
+@pytest.mark.cuda
+def test_project_knot_kernel_nan_knot(cuda):
+    """A NaN in one knot's D is NaN in that knot's outputs, as in the plain
+    version, and in no other knot's: with more knots than the grid holds, a
+    block runs the NaN knot and then another one from the same buffers."""
+    args = knot_data(np.random.default_rng(24), (16, 66), cuda)
+    args[10][0, 5, 3, 7] = float("nan")
+    got = sqp.project_knot(sqp.SqpSettings(), *args)
+    ref = sqp.project_knot_plain(sqp.SqpSettings(), *args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        fin = torch.isfinite(b)
+        assert bool(torch.isnan(a[0, 5]).any()) and int((~fin).flatten(2).any(-1).sum()) == 1
+        assert float((a[fin] - b[fin]).abs().max() / b[fin].abs().max().clamp(min=1)) < 1e-4
+
+
+@pytest.mark.cuda
+def test_project_knot_kernel_unaligned_inputs(cuda):
+    """Inputs 4 bytes off an 8-byte boundary take the kernel's 4-byte copies;
+    the outputs equal the aligned inputs' bit for bit."""
+    args = knot_data(np.random.default_rng(22), (3, 53), cuda)
+    moved = []
+    for t in args:
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        buf[1:] = t.flatten()
+        moved.append(buf[1:].view(t.shape))
+    assert all(t.data_ptr() % 8 == 4 for t in moved)
+    got = _project_against_plain(sqp.SqpSettings(), moved)
+    for a, b in zip(got, sqp.project_knot(sqp.SqpSettings(), *args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_project_knot_kernel_refuses_bad_input(cuda):
+    args = knot_data(np.random.default_rng(23), (1, 4), cuda)
+    with pytest.raises(TypeError):
+        sqp.project_knot(sqp.SqpSettings(), *[t.double() for t in args])
+    with pytest.raises(ValueError):
+        sqp.project_knot(sqp.SqpSettings(), *args[:9], args[9][..., :15, :], args[10][..., :15, :],
+                         args[11][..., :15])
+    with pytest.raises(ValueError):
+        sqp.project_knot(sqp.SqpSettings(), args[0].transpose(-1, -2), *args[1:])
 
 
 @pytest.mark.cuda

@@ -32,16 +32,23 @@ def spd(rng, shape, n, shift):
     return X @ np.swapaxes(X, -1, -2) / n + shift * np.eye(n)
 
 
-def knot_data(rng, shape):
+def knot_data(rng, shape, masked=None, asym=False):
     """Projection inputs shaped like the SQP's: masked equality rows, SPD
-    Quu, stance/swing masks."""
+    Quu, stance/swing masks.  ``masked`` True / False masks every row / no
+    row; ``asym`` adds an asymmetric part to Qxx and Quu."""
     A = np.eye(NX) + 0.05 * rng.standard_normal((*shape, NX, NX))
     B = 0.05 * rng.standard_normal((*shape, NX, NU))
     mask = (rng.random((*shape, M)) > 0.25).astype(np.float64)
+    if masked is not None:
+        mask = np.full_like(mask, 0.0 if masked else 1.0)
     C = rng.standard_normal((*shape, M, NX)) * mask[..., None]
     D = rng.standard_normal((*shape, M, NU)) * mask[..., None]
+    Qxx, Quu = spd(rng, shape, NX, 1.0), spd(rng, shape, NU, 0.5)
+    if asym:
+        Qxx = Qxx + 0.3 * rng.standard_normal(Qxx.shape)
+        Quu = Quu + 0.3 * rng.standard_normal(Quu.shape)
     return (A, B, 0.01 * rng.standard_normal((*shape, NX)), rng.standard_normal((*shape, NX)),
-            rng.standard_normal((*shape, NU)), spd(rng, shape, NX, 1.0), spd(rng, shape, NU, 0.5),
+            rng.standard_normal((*shape, NU)), Qxx, Quu,
             0.1 * rng.standard_normal((*shape, NU, NX)), rng.standard_normal((*shape, M)),
             C, D, mask)
 
@@ -84,6 +91,38 @@ def test_project_knot_plain(pivot):
     assert len(got) == len(ref) == 11
     for a, b in zip(got, ref):
         close(a, b)
+
+
+PROJ_CASES = {"asym": {"asym": True}, "all_masked": {"masked": True},
+              "none_masked": {"masked": False}}
+
+
+@pytest.fixture(scope="module")
+def proj_cases():
+    """Each case's inputs (two knots: asymmetric Quu, Qxx and Qux; every row
+    masked; no row masked) and JAX's projection of them, from one vmapped
+    call over all of them."""
+    rng = np.random.default_rng(3)
+    data = {case: knot_data(rng, (2,), **kw) for case, kw in PROJ_CASES.items()}
+    args = [np.concatenate(parts) for parts in zip(*data.values())]
+    settings = jsqp.SqpSettings()
+    ref = jax.vmap(lambda *a: jsqp.project_knot(settings, *a))(*args)
+    return {case: (data[case], [np.asarray(r)[2 * i:2 * i + 2] for r in ref])
+            for i, case in enumerate(PROJ_CASES)}
+
+
+@pytest.mark.parametrize("case", list(PROJ_CASES))
+def test_project_knot_plain_cases(proj_cases, case):
+    """The plain projection against JAX's on inputs the SQP's data does not
+    always show: asymmetric Quu / Qxx / Qux (the kernel assumes no symmetry),
+    every equality row masked (G = (1 + proj_reg) I, P = I), none masked."""
+    args, ref = proj_cases[case]
+    got = tsqp.project_knot(tsqp.SqpSettings(), *map(torch.tensor, args))
+    assert len(got) == len(ref) == 11
+    for a, b in zip(got, ref):
+        close(a, b)
+    if case == "all_masked":
+        close(got[10], np.broadcast_to(np.eye(NU), (2, NU, NU)))
 
 
 def _jax_forward(Ks, kffs, E, P, e, A_t, B_t, d_t, dx0):
