@@ -156,7 +156,11 @@ Phases, each printing one JSON line:
      position and velocity against the float64 plain version within
      max(tol, 2x the float32 plain version's error), bfloat16 landing above
      the limit; kernel and plain times, at B=1 each kernel's own device
-     time, the bounds (``observer_cost``, ``kalman_cost``);
+     time, the bounds (``observer_cost``, ``kalman_cost``); B12's own device
+     time at B=1 (a walking update of the loop) and B=4096 in a process of
+     its own (``profile_step kalman_times``, ``kalman_own_times``: the
+     launches recorded of those profiled) beside one warp's serial floor of
+     an update (``kalman_floor_ms``);
   4j. B13a (synth_imu), B13b (rbd_to_centroidal), B14a (dummy_step) and
      B14b (state_input_to_v) on every call's inputs of 4g's and 4f's loops
      (B=1: 240 sensings, 200 ticks) and on a seeded walking batch
@@ -817,6 +821,12 @@ def kalman_cost(batch, ns=18, nm=28, nc=4, nj=10, contact_link=(5, 10, 5, 10)):
     solve = nm ** 3 // 3 + (1 + ns) * 2 * nm * nm
     update = ns * nm * 2 + (ns * (ns + 1) // 2) * 2 * nm + ns * ns + 10
     return (n_in + n_out) * 4, batch * (chain + contacts + small + forms + solve + update)
+
+
+def kalman_floor_ms():
+    """One warp's serial floor of one filter update: ``kalman_cost``'s
+    operations at 32 a clock (a warp's lanes) at SM_CLOCK_HZ, in ms."""
+    return kalman_cost(1)[1] / 32 / SM_CLOCK_HZ * 1e3
 
 
 def _kin_ops(nj=10, links=11, nc=4):
@@ -2821,12 +2831,27 @@ def main():
                                             for i in range(len(a0[2])))),
                 *(torch.cat([c[i] for c in cases]) for i in range(3, len(a0) - 1)), a0[-1])
 
-    def est_case(name, label, cases, row):
+    # B12's own device time at B=1 (a walking update of the full-order loop)
+    # and B=4096 (estimator_batch), in a process of its own, whose profiler
+    # records every launch (this one's recorded 11 of 20); one warp's serial
+    # floor of an update
+    done = subprocess.run([sys.executable, "-m", "hunter_bipedal_control_tpu_torch.profile_step",
+                           "kalman_times"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600, check=True)
+    kf_own = {case: runs[0] for case, runs in
+              json.loads(done.stdout.strip().splitlines()[-1])["times"]["package"].items()}
+    emit({"phase": "kalman_own_times", "cases": kf_own,
+          "recorded": {c: f"{v['profiled_launches']} of {v['profiled_calls']}"
+                       for c, v in kf_own.items()},
+          "serial_chain_ms": kalman_floor_ms(), "update_bytes_flops": kalman_cost(1)})
+
+    def est_case(name, label, cases, row, own=None):
         """The estimator kernel ``name`` on each argument tuple of ``cases``
         (one launch each) against its plain versions in float32, float64 and
         bfloat16 on the card (all cases at once), the errors taken over all
         of them; times on the last case.  ``row``: these fill the kernels
-        line's row, else a kernel_extra line."""
+        line's row, else a kernel_extra line.  ``own``: B12's own device
+        time on such inputs from ``kalman_own_times``."""
         names, run, plain, cost_fn, source, replaces = est[name]
         tol = TOL[name]
         got = [run(a) for a in cases]
@@ -2855,10 +2880,17 @@ def main():
             # the launches the kernel takes away from each update
             info["plain_device_launches_per_update"] = _profiled(plain_update, 1, 1)[
                 "device_launches"]
+        if row and own is None:
             own_ms, own_n = own_device_time(lambda: run(last), EST_PROFILED_CALLS,
                                             f"{name}_kernel")
             info.update(kernel_device_ms=own_ms, profiled_launches=own_n,
                         profiled_calls=EST_PROFILED_CALLS)
+        elif own is not None:
+            info.update(kernel_device_ms=own["kernel_device_ms"],
+                        profiled_launches=own["profiled_launches"],
+                        profiled_calls=own["profiled_calls"], own_time_from="kalman_own_times",
+                        serial_chain_ms=kalman_floor_ms())
+        if row:
             record(name, "cuda", source, replaces, err, tol, times[0], times[1], None,
                    cost_fn(Bn), info)
         else:
@@ -2876,7 +2908,8 @@ def main():
         raise AssertionError(f"sim_loop: {len(obs_inputs)} observer and {len(kf_inputs)} "
                              f"filter updates captured")
     est_case("momentum_observer", "every update of the sim loop, B=1", obs_inputs, True)
-    est_case("kalman_update", "every update of the sim loop, B=1", kf_inputs, True)
+    est_case("kalman_update", "every update of the sim loop, B=1", kf_inputs, True,
+             kf_own["b1_sim_loop"])
     eb = estimator_batch(EST_BATCH, dev, seed=0)
     est_case("momentum_observer", f"seeded walking batch, B={EST_BATCH}",
              [(eb.model, eb.observer_params, eb.observer, eb.rbd, eb.cmd_torque, TICK_DT)], False)
@@ -2884,7 +2917,7 @@ def main():
              [(eb.model, eb.kalman_params, eb.kalman,
                *(eb.sensors[k] for k in ("zyx", "joint_pos", "joint_vel", "omega_world",
                                          "quat_xyzw", "linear_accel_local", "contact_flags")),
-               TICK_DT)], False)
+               TICK_DT)], False, kf_own["b4096_estimator_batch"])
     del obs_inputs, kf_inputs, eb
 
     # ---- 4j. B13a, B13b, B14a, B14b on every call's inputs of the loops (B=1), and at B=4096 ----

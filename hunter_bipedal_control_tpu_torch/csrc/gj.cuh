@@ -1,9 +1,9 @@
 // Gauss-Jordan elimination on an [A | I] tableau, shared by the B6
 // gj_inverse kernels (n <= 16: one thread per matrix, tableau in its
 // registers/local memory; n <= 32: one block per matrix, tableau in shared
-// memory), the B12 Kalman update (the block's threads splitting each step)
-// and the B10 observer's leg systems (a thread each).  B2 (project_knot.cu)
-// eliminates its Gram on one warp by shuffles, with these semantics.
+// memory) and the B10 observer's leg systems (a thread each).  B2
+// (project_knot.cu) eliminates its Gram and B12 (kalman_update.cu) its
+// [Ssy | ey | C] on one warp by shuffles, with these semantics.
 //
 // Semantics of hunter_bipedal_control_tpu/ops/linalg.py::gj_inverse:
 // pivots in the natural order 0..n-1 (the JAX pivot search scores every

@@ -1,7 +1,7 @@
 // One state's rigid-body dynamics on the compiled model, shared by B9
 // (wbc_qp.cu, which also takes point_column_kin for a state kept apart from
-// a State), B10 (momentum_observer.cu), B11 (sim_step.cu) and B12
-// (kalman_update.cu): the kinematic chain of soa_model.cuh,
+// a State), B10 (momentum_observer.cu), B11 (sim_step.cu) and B13
+// (sensing.cu): the kinematic chain of soa_model.cuh,
 // every link CoM's and contact point's 16 Jacobian columns (v[3:6] are ZYX
 // Euler rates, so the base columns carry E(theta)) with their time
 // derivatives along v, and the mass matrix and nonlinear effects summed

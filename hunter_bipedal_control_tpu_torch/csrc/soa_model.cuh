@@ -4,10 +4,10 @@
 // models/soa.py::build_consts, the 3-vector / 3x3 helpers, and one state's
 // kinematics (FK, world inertias, the CoM and the momentum about it, the
 // base velocity from the centroidal momentum, the velocity pass) and its
-// centroidal flow.  Shared by B1 (soa_linearize.cu), B8a (leg_ik.cu), B13
-// (sensing.cu), B14 (centroidal_flow.cu) and, through rbd_dynamics.cuh,
-// B9-B12; soa_kernel.py::check_topology refuses a model whose topology
-// differs from this one.
+// centroidal flow.  Shared by B1 (soa_linearize.cu), B8a (leg_ik.cu), B12
+// (kalman_update.cu), B13 (sensing.cu), B14 (centroidal_flow.cu) and,
+// through rbd_dynamics.cuh, B9-B11; soa_kernel.py::check_topology refuses a
+// model whose topology differs from this one.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -30,8 +30,9 @@ NS = 18
 NM = 28
 NUM_FEET = 4
 NJ = 10
-# one block per scenario: grid.x
-MAX_BLOCKS = 2 ** 31 - 1
+# a warp per scenario, four a block (grid.x = ceil(B / 4)); the C
+# interface takes B as an int
+MAX_BATCH = 2 ** 31 - 1
 
 
 class KalmanParams(NamedTuple):
@@ -180,9 +181,9 @@ def kalman_update(model: RobotModel, params: KalmanParams, state: KalmanState,
                   linear_accel_local, contact_flags, dt):
     """Kernel B12: one filter tick for B scenarios.
 
-    CPU: ``kalman_update_plain``.  CUDA: one launch of ``hk_kalman_update``,
-    one block per scenario, or an error: the sensors zyx, omega_world,
-    linear_accel_local (B, 3), joint_pos, joint_vel (B, 10), quat_xyzw,
+    CPU: ``kalman_update_plain``.  CUDA: one launch of ``hk_kalman_update``
+    (a warp per scenario, four a block), or an error: the sensors zyx,
+    omega_world, linear_accel_local (B, 3), joint_pos, joint_vel (B, 10), quat_xyzw,
     contact_flags (B, 4) and the state's x_hat (B, 18), P (B, 18, 18),
     feet_heights (B, 4) float32 on the card (made contiguous here); the
     model's constants from B1's buffer (``soa_kernel.consts_buffer``, which
@@ -194,8 +195,8 @@ def kalman_update(model: RobotModel, params: KalmanParams, state: KalmanState,
     if state.x_hat.dim() != 2:
         raise ValueError(f"x_hat: expected (B, 18), got {tuple(state.x_hat.shape)}")
     Bn, dev, f32 = state.x_hat.shape[0], state.x_hat.device, torch.float32
-    if not 0 < Bn <= MAX_BLOCKS:
-        raise ValueError(f"kalman_update: B = {Bn} blocks, the grid takes 1..{MAX_BLOCKS}")
+    if not 0 < Bn <= MAX_BATCH:
+        raise ValueError(f"kalman_update: B = {Bn} scenarios, the kernel takes 1..{MAX_BATCH}")
     ins = [t.contiguous() for t in (zyx, joint_pos, joint_vel, omega_world, quat_xyzw,
                                     linear_accel_local, contact_flags, state.x_hat, state.P,
                                     state.feet_heights)]

@@ -25,6 +25,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step leg_ik_times [other/leg_ik.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step project_phases [B] [N] [project_knot.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step project_times [other/project_knot.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step kalman_phases [B] [kalman_update.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step kalman_times [other/kalman_update.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step own_times [solves] [periods]
     python -m hunter_bipedal_control_tpu_torch.profile_step rt_factor [periods]
 
@@ -104,6 +106,12 @@ PROJ_PHASE_NAMES), optionally for another ``project_knot.cu``;
 ``project_times`` times the package's B2 on those inputs at B=1, N=53 and
 B=128, N=66 and on the DDP's at B=128, N=66, beside another
 ``project_knot.cu`` if given (``profile_project_times``);
+``kalman_phases`` splits kernel B12 on a walking update of the full-order
+loop (B=1) or on ``entry.estimator_batch(4096)`` the same way
+(``profile_kalman_phases``: block 0's cycles per update by
+KF_PHASE_NAMES), optionally for another ``kalman_update.cu``;
+``kalman_times`` times B12 on both beside another ``kalman_update.cu`` if
+given (``profile_kalman_times``);
 ``own_times`` reads the own device time at B=1 of B5, B8b2, B16 and B11
 on the chained solve and the full-order loop (``profile_own_times``);
 ``rt_factor`` times the full-order loop without the profiler
@@ -1390,6 +1398,109 @@ def profile_project_times(other: str | None = None):
     return res
 
 
+# kernel B12's phases (csrc/kalman_update.cu, -DKF_PHASE_CLOCKS): block 0's
+# cycles (thread 0) by the loads, the chain at a zero base (with the world
+# acceleration and the gates), the contact points and their J v, Pm and
+# x_pred, ey / Ssy / Pm C', the elimination, x_new (and G), P_new, the
+# symmetrization, conditioning and stores
+KF_PHASE_NAMES = ("load", "chain", "contacts_jv", "pm_xpred", "innovation", "elimination",
+                  "xnew_g", "pnew", "stores")
+# kernel calls under the profiler for B12's own device time
+KF_PROFILED_CALLS = 20
+# walking periods of the full-order loop whose filter updates are captured
+KF_WALK_PERIODS = 2
+
+
+def _kalman_args(batch: int):
+    """``kalman.kalman_update``'s arguments on the card: at B=1 the last
+    of the full-order loop's filter updates over KF_WALK_PERIODS walking
+    periods (past ``_walking_sim_loop``'s gait switch, captured as
+    chip_smoke 4i captures them), else ``entry.estimator_batch(batch,
+    seed=0)``."""
+    import torch
+
+    from .entry import TICK_DT, estimator_batch, run_sim_loop
+    from .runtime import sim_loop as sim_loop_mod
+
+    if batch > 1:
+        eb = estimator_batch(batch, torch.device("cuda"), seed=0)
+        return (eb.model, eb.kalman_params, eb.kalman,
+                *(eb.sensors[k] for k in ("zyx", "joint_pos", "joint_vel", "omega_world",
+                                          "quat_xyzw", "linear_accel_local", "contact_flags")),
+                TICK_DT)
+    setup = _walking_sim_loop(False, "soa")
+    seen, real = [], sim_loop_mod.kalman_update
+
+    def keep(*a):
+        seen.append(a)
+        return real(*a)
+
+    sim_loop_mod.kalman_update = keep
+    try:
+        run_sim_loop(setup, [WALK] * KF_WALK_PERIODS)
+    finally:
+        sim_loop_mod.kalman_update = real
+    torch.cuda.synchronize()
+    return seen[-1]
+
+
+def _kalman_call(args):
+    from .estim import kalman
+
+    return lambda: kalman.kalman_update(*args)
+
+
+def profile_kalman_phases(batch: int = 1, source: str = "kalman_update.cu"):
+    """Kernel B12 (``csrc/<source>``, or the file at the path ``source``,
+    e.g. a parent checkout's with the same clock marks) on
+    ``_kalman_args(batch)``, measured by ``_kernel_phases`` with
+    ``-DKF_PHASE_CLOCKS``: block 0's clock64 cycles per update by
+    KF_PHASE_NAMES, the kernel's times with and without the clocks, and the
+    ptxas lines of both builds."""
+    import torch
+
+    run = _kalman_call(_kalman_args(batch))
+    run()  # the constants on the card, by the package's library
+    m = _kernel_phases(source, "KF_PHASE_CLOCKS", "hk_kalman_update", KF_PHASE_NAMES, run,
+                       "kalman_update", KF_PROFILED_CALLS)
+    return {"phase": "profile_kalman_phases", "batch": batch, "source": source,
+            "device": torch.cuda.get_device_name(0), **m}
+
+
+def profile_kalman_times(other: str | None = None):
+    """Kernel B12 as the package builds it, timed by ``_kernel_times``
+    (KF_PROFILED_CALLS calls) at B=1 (a walking update of the full-order
+    loop) and B=4096 (``entry.estimator_batch``), beside another
+    ``kalman_update.cu`` of the same C interface if given
+    (``_compare_sources``: package, other, other, package; and each case's
+    outputs of the two compared).  chip_smoke runs this in a process of its
+    own, whose profiler records every launch."""
+    import torch
+
+    from .estim import kalman
+    from .kernels import _build
+
+    cases = {"b1_sim_loop": _kalman_args(1), "b4096_estimator_batch": _kalman_args(4096)}
+    order, out = _compare_sources(
+        cases, "hk_kalman_update", other,
+        lambda args: _kernel_times(_kalman_call(args), "kalman_update", KF_PROFILED_CALLS,
+                                   "hk_kalman_update"))
+    res = {"phase": "profile_kalman_times", "device": torch.cuda.get_device_name(0),
+           "profiled_calls": KF_PROFILED_CALLS, "order": order, "times": out}
+    if other is not None:
+        lib = _build.measurement_library(other, None, ["hk_kalman_update"])
+        apart = {}
+        for n, args in cases.items():
+            mine = [t.clone() for t in kalman.kalman_update(*args)[0][:2]]
+            with _entry_from(lib, "hk_kalman_update"):
+                theirs = [t.clone() for t in kalman.kalman_update(*args)[0][:2]]
+            torch.cuda.synchronize()
+            apart[n] = _outputs_apart(mine, theirs)
+        res["outputs_vs_other"] = apart
+    res["ptxas"] = _ptxas("kalman_update")
+    return res
+
+
 def _device_by_name(run):
     """``run()`` (which ends synchronized) under the profiler: per device
     kernel name, (its device ms summed, its recorded launches)."""
@@ -1656,6 +1767,11 @@ if __name__ == "__main__":
                                                 a[3] if len(a) > 3 else "project_knot.cu")))
     elif a and a[0] == "project_times":
         print(json.dumps(profile_project_times(a[1] if len(a) > 1 else None)))
+    elif a and a[0] == "kalman_phases":
+        print(json.dumps(profile_kalman_phases(int(a[1]) if len(a) > 1 else 1,
+                                               a[2] if len(a) > 2 else "kalman_update.cu")))
+    elif a and a[0] == "kalman_times":
+        print(json.dumps(profile_kalman_times(a[1] if len(a) > 1 else None)))
     elif a and a[0] == "ddp_rollout_phases":
         print(json.dumps(profile_ddp_rollout_phases(int(a[1]) if len(a) > 1 else 1,
                                                     int(a[2]) if len(a) > 2 else 53,

@@ -64,8 +64,10 @@ momentum_observer (B10) and kalman_update (B12): each output (the observer's
 p_scg_z, est_forces and tau_dist; the filter's x_hat and P) within
 max(1e-4, 2 x the float32 plain version's own error) of the float64 plain
 version, on its own scale, on seeded walking inputs
-(``entry.estimator_batch``) at B=1 and B=4096, one launch each and no B6
-launch; a NaN measurement gives NaN where the plain version has it.
+(``entry.estimator_batch``) at B=1 and B=4096, the filter also at B=1027
+(a partial block), from a loop's first tick (P = 100 I) and with every foot
+in swing or in stance, one launch each and no B6 launch; a NaN measurement
+gives NaN where the plain version has it.
 synth_imu (B13a), rbd_state_to_centroidal (B13b), dummy_step (B14a) and
 state_input_to_v (B14b): each output (the IMU's quaternion, local angular
 velocity, specific force and world angular velocity; the centroidal state;
@@ -1387,10 +1389,28 @@ def test_momentum_observer_kernel(cuda, batch):
         assert _own_scale_err(a, c) <= max(EST_TOL, 2.0 * _own_scale_err(b, c)), name
 
 
+def _kalman_case(eb, case):
+    """``entry.estimator_batch``'s inputs as they are ("walking"), from the
+    first tick of a loop (``init_kalman_state``: x = 0, P = 100 I), or with
+    every foot in swing (flags 0: every gate at high_suspect_number) or in
+    stance (flags 1)."""
+    if case == "first_tick":
+        return eb._replace(kalman=kalman.init_kalman_state(eb.kalman.x_hat.shape[0],
+                                                           eb.rbd.device, eb.rbd.dtype))
+    if case in ("swing", "stance"):
+        flags = eb.sensors["contact_flags"]
+        fill = torch.zeros_like if case == "swing" else torch.ones_like
+        return eb._replace(sensors={**eb.sensors, "contact_flags": fill(flags)})
+    return eb
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 4096])
-def test_kalman_update_kernel(cuda, batch):
-    eb = estimator_batch(batch, cuda, seed=batch + 1)
+@pytest.mark.parametrize("batch, case", [(1, "walking"), (4096, "walking"), (1027, "walking"),
+                                         (256, "first_tick"), (256, "swing"),
+                                         (256, "stance")])
+def test_kalman_update_kernel(cuda, batch, case):
+    """B=1027 leaves a partial block (four scenarios a block)."""
+    eb = _kalman_case(estimator_batch(batch, cuda, seed=batch + 1), case)
     args, kw = _kalman_args(eb, torch.float32)
     before = (kalman.kalman_update.launches, linalg.gj_inverse.launches)
     st, pos, vel = kalman.kalman_update(*args, **kw)
@@ -1410,7 +1430,7 @@ def test_kalman_update_kernel(cuda, batch):
     # the xy conditioning as the float64 plain version decided it
     cond = (st.P[:, 0:2, 2:] == 0).flatten(1).all(-1)
     assert torch.equal(cond, (ref64.P[:, 0:2, 2:] == 0).flatten(1).all(-1))
-    if batch > 1:
+    if batch > 1 and case == "walking":
         assert cond.any() and (~cond).any()
 
 

@@ -14,7 +14,9 @@ the CPU in float64: B10 (``estim/contact.py::momentum_observer_update``,
 - ``momentum_observer_plain`` and ``kalman_update_plain`` against the JAX
   updates under ``vmap`` over three chained updates on walking states
   (``entry.estimator_batch``: fractional contact flags, moving joints),
-  each output and carried state within 1e-9 of its own scale.
+  each output and carried state within 1e-9 of its own scale; the filter
+  also from a loop's first tick (P = 100 I) and with every foot in swing or
+  in stance.
 - On CPU tensors the wrappers are the plain versions bit for bit and launch
   no kernel.
 """
@@ -110,23 +112,39 @@ def test_momentum_observer_plain_matches_jax(models):
             assert scaled_err(a, b) < TOL
 
 
-def test_kalman_update_plain_matches_jax(models):
-    jm, tm = models
+@pytest.fixture(scope="module")
+def kalman_step(models):
+    """JAX's update under vmap, jitted once for every case (B scenarios)."""
+    jm, _ = models
     jp = jkf.default_kalman_params(jnp.float64)
+    return jp, jax.jit(jax.vmap(lambda st, s: jkf.kalman_update(jm, jp, st, **s, dt=DT)))
+
+
+@pytest.mark.parametrize("case", ["walking", "first_tick", "swing", "stance"])
+def test_kalman_update_plain_matches_jax(models, kalman_step, case):
+    """Three chained updates on ``entry.estimator_batch``'s walking inputs,
+    from a loop's first tick (``init_kalman_state``: P = 100 I), and with
+    every foot in swing (flags 0) or in stance (flags 1)."""
+    _, tm = models
+    jp, step = kalman_step
     tp = convert.from_numpy(to_np(jp), "cpu", F64)
-    ts = estimator_batch(B, "cpu", F64, seed=20).kalman
+    ts = (tkf.init_kalman_state(B, "cpu", F64) if case == "first_tick"
+          else estimator_batch(B, "cpu", F64, seed=20).kalman)
     js = jkf.KalmanState(*np_state(ts))
-    step = jax.jit(jax.vmap(lambda st, s: jkf.kalman_update(jm, jp, st, **s, dt=DT)))
     fractional = False
     for k in range(3):
         sensors = estimator_batch(B, "cpu", F64, seed=21 + k).sensors
+        if case in ("swing", "stance"):
+            flags = sensors["contact_flags"]
+            sensors["contact_flags"] = (torch.zeros_like if case == "swing"
+                                        else torch.ones_like)(flags)
         flags = sensors["contact_flags"]
         fractional |= bool(((flags > 0) & (flags < 1)).any())
         js, jpos, jvel = step(js, {n: t.numpy() for n, t in sensors.items()})
         ts, tpos, tvel = tkf.kalman_update_plain(tm, tp, ts, **sensors, dt=DT)
         for a, b in zip((*ts, tpos, tvel), (*js, jpos, jvel)):
             assert scaled_err(a, b) < TOL
-    assert fractional
+    assert fractional == (case in ("walking", "first_tick"))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, F64], ids=["f32", "f64"])
