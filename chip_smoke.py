@@ -73,9 +73,16 @@ Phases, each printing one JSON line:
      the kernels' decisions (phases, segments, the windows' tests) equal
      the float32 plain version's; bfloat16 landing above the limit on the
      outputs that are not exact in every precision; kernel and plain
-     times, the bounds (``swing_plan_cost``, ``knot_refs_cost``); the
-     launch calls of one whole ``prepare_references`` (at most
-     PREP_MAX_LAUNCH_CALLS);
+     times, the bounds (``swing_plan_cost``, ``knot_refs_cost``); B8b1's
+     own device time at B=1, S=6 and B=128, S=7 and the wrapper's host time
+     by part, measured first in a process of its own (``profile_step
+     swing_plan_times``, ``swing_plan_own_times``), beside one lane's
+     serial floor (``swing_plan_floor_ms``); the launch calls of one whole
+     ``prepare_references`` (at most PREP_MAX_LAUNCH_CALLS); B8b1 again on
+     the schedules at the swing planner's edges (``entry.
+     swing_plan_edge_batch``: all stance, a single swing, the padded tail,
+     no real event, init times on and an ulp before an event time), its
+     decisions equal to the float32 plain version's;
   4b. the tick path: TICKS (50) chained 500 Hz ticks (``entry.tick_chain``: Kalman
      update, momentum observer, WBC, gains) on the product shape's cold
      policy, launch counts read around it, every tick's command and WBC
@@ -994,6 +1001,27 @@ def _rows_read(t):
     return t[0].numel() if t.shape[0] > 1 and t.stride(0) == 0 else t.numel()
 
 
+# B8b1's operations: per (leg, phase) the window scans' marks and bounds,
+# the next phase's search, the tail test, the mid time, the target's
+# interpolation, the rotation, the rotated bias, the candidate, the fresh
+# test and the spline nodes; per leg the four prefix scans of its 57 phases
+# (the window bounds both ways, the running maximum, the fresh phases' last
+# index) and the last event; per scenario the head (the target at init_time,
+# the command's rotation, the Raibert terms); per sample the time, the
+# target's search, its 44 interpolated components and two toe splines
+SP_PHASE_OPS = 8 + 6 + 4 + 6 + 18 + 6 + 16 + 15 + 14 + 4 + 3 * 12
+SP_LEG_OPS = 4 * 2 * 57 + 56
+SP_HEAD_OPS = 120
+SP_SAMPLE_OPS = 2 + 5 + 3 * 44 + 6 + 2 * 3 * (40 + 3 * 12)
+
+
+def swing_plan_floor_ms():
+    """One lane's serial floor of B8b1: the head, a (leg, phase)'s chain,
+    its leg's scans at log2(64) shuffle steps each and one toe spline, at
+    one operation a clock."""
+    return (SP_HEAD_OPS + SP_PHASE_OPS + 4 * 6 + 40 + 3 * 12) / SM_CLOCK_HZ * 1e3
+
+
 def swing_plan_cost(args, p1=57, nodes=4):
     """Bytes and operations of B8b1 on ``swing_plan``'s arguments: in, each
     input once (an input shared by the batch once: x_init, init time, the
@@ -1001,12 +1029,9 @@ def swing_plan_cost(args, p1=57, nodes=4):
     default joints, the planner state, the swing configuration, the FK's
     constants of 10 joints and 4 contacts); out, the planner state, the
     three node arrays, the windows, the samples' times, states, inputs,
-    poses and toe targets, R_des and the warm joints.  Operations per
-    (leg, phase): the window scans, the next phase's search, the target's
-    interpolation, the rotation, the candidate, the fresh-window scans over
-    the phases before it, and the spline nodes; per scenario the FK of
-    x_init and the command's rotation; per sample the interpolation and
-    two toe splines."""
+    poses and toe targets, R_des and the warm joints.  Operations: per
+    (leg, phase) SP_PHASE_OPS, per leg SP_LEG_OPS, per scenario the FK of
+    x_init and SP_HEAD_OPS, per sample SP_SAMPLE_OPS."""
     model, cfg, ps, sch, tgt, init, x, cmd, dj, _, S = args
     Bn, nj, T = x.shape[0], dj.shape[-1], tgt.times.shape[-1]
     n_in = (x.numel() + _rows_read(init) + _rows_read(sch.event_times)
@@ -1015,11 +1040,9 @@ def swing_plan_cost(args, p1=57, nodes=4):
             + 17 + nj * 33 + 4 * 3)
     n_out = Bn * (12 + 3 * 4 * p1 * 3 * nodes + 3 * 4 * p1 + S * (1 + 22 + 22 + 6 + 6)
                   + 9 + nj)
-    per_phase = 2 * p1 + 6 + 4 + 6 + 18 + 6 + 16 + 15 + 14 + 4 + 3 * 12
-    scans = 4 * 2 * (p1 * (p1 - 1) // 2)
     fk = nj * (45 + 15 + 3 + 15 + 2 + 36 + 45 + 3) + 4 * 18
-    per_sample = 2 + 5 + 3 * 44 + 6 + 2 * 3 * (40 + 3 * 12)
-    ops = Bn * (4 * p1 * per_phase + scans + fk + 120 + S * per_sample + 22)
+    ops = Bn * (4 * p1 * SP_PHASE_OPS + 4 * SP_LEG_OPS + fk + SP_HEAD_OPS
+                + S * SP_SAMPLE_OPS + 22)
     return (n_in + n_out) * 4, ops
 
 
@@ -1222,8 +1245,9 @@ def main():
                                                         contact_class_batch,
                                                         estimator_batch, projected_lq, qp_batch,
                                                         ddp_solve, mpc_chain, run_loop,
-                                                        run_sim_loop,
+                                                        run_sim_loop, SWING_EDGE_CASES,
                                                         sim_step_batch, standing_sensors,
+                                                        swing_plan_edge_batch,
                                                         walking_wbc_batch, wbc_chain)
     from hunter_bipedal_control_tpu_torch.estim import contact, kalman
     from hunter_bipedal_control_tpu_torch.kernels import _build
@@ -2109,73 +2133,99 @@ def main():
     def knot_outputs(out):
         return (*out[0], out[1].states)
 
+    # B8b1's own device time at both shapes, in a process of its own, whose
+    # profiler records every launch (this one's may record none), with the
+    # wrapper's host time by part
+    done = subprocess.run([sys.executable, "-m", "hunter_bipedal_control_tpu_torch.profile_step",
+                           "swing_plan_times"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600, check=True)
+    sp_times = json.loads(done.stdout.strip().splitlines()[-1])
+    sp_own = {case: runs[0] for case, runs in sp_times["times"]["package"].items()}
+    emit({"phase": "swing_plan_own_times", "cases": sp_own, "host_ms": sp_times["host_ms"],
+          "serial_chain_ms": swing_plan_floor_ms()})
+
+    def prep_kernel(name, a, row, label=""):
+        """B8b1 or B8b2 on ``a``, its arguments, against the float64 plain
+        version, its decisions against the float32 plain version's;
+        ``row``: this case fills the kernels line's row, else a kernel_extra
+        line.  Returns the kernel's time."""
+        names, plain_fn, kernel_fn, outputs, to = (
+            (PREP_PLAN_NAMES, mpc_mod.swing_plan_plain, mpc_mod.swing_plan, plan_outputs,
+             plan_args) if name == "swing_plan" else
+            (PREP_KNOT_NAMES, mpc_mod.knot_refs_plain, mpc_mod.knot_refs, knot_outputs,
+             knot_args))
+        *got, dec_k = kernel_fn(*a, with_decisions=True)
+        bare = kernel_fn(*a)
+        contig = kernel_fn(*to(a, None))
+        torch.cuda.synchronize()
+        got = outputs(got[0] if name == "swing_plan" else got)
+        bare, contig = outputs(bare), outputs(contig)
+        same = {n: bool(torch.equal(g, b) and torch.equal(g, c))
+                for n, g, b, c in zip(names, got, bare, contig)}
+        if not all(same.values()):
+            raise AssertionError(f"{name}: outputs differ with the decisions written or "
+                                 f"with contiguous inputs: {same}")
+        d32, d64 = {}, {}
+        p32 = outputs(plain_fn(*to(a, f32), decisions=d32))
+        p64 = outputs(plain_fn(*to(a, f64), decisions=d64))
+        pbf = outputs(plain_fn(*to(a, bf16)))
+        if name == "swing_plan":
+            live = p64[names.index("window_stop")] > p64[names.index("window_start")]
+            names, (got, p32, p64, pbf) = split_empty_windows(names, live, got, p32, p64, pbf)
+        err, e_bf16, flips = prep_compare(names, got, p32, p64, pbf, dec_k, d32, d64)
+        tol = TOL[name]
+        limits = {n: max(tol, TOL_FACTOR * p64e[1]) for n, (_, _, p64e) in err.items()}
+        Bn = got[0].shape[0]
+        cost = (swing_plan_cost(a) if name == "swing_plan"
+                else knot_refs_cost(a, dec_k["knot_phase"]))
+        times = (cuda_ms(lambda: kernel_fn(*a)), cuda_ms(lambda: plain_fn(*a), reps=3))
+        shared = [n for n, t in zip(("init_time", "event_times", "target.times",
+                                     "body_vel_cmd", "default_joints"),
+                                    (a[5], a[3][0], a[4][0], a[7], a[8])
+                                    if name == "swing_plan" else (a[2], a[0][0]))
+                  if t.shape[0] > 1 and t.stride(0) == 0]
+        info = {"scenarios": Bn, "decisions": flips, "plain_bf16_rel_err_vs_f64": e_bf16,
+                "shared_inputs_read_at_stride_0": shared, "bit_equal_contiguous": True}
+        if label:
+            info["cases"] = label
+        if name == "swing_plan" and row:
+            # the kernel's own device time on these inputs (swing_plan_own_times)
+            own = sp_own[f"b{Bn}_s{a[-1]}"]
+            info.update(kernel_device_ms=own["kernel_device_ms"],
+                        profiled_launches=own["profiled_launches"],
+                        profiled_calls=own["profiled_calls"],
+                        own_time_from="swing_plan_own_times",
+                        serial_chain_ms=swing_plan_floor_ms())
+        label = f"{name} B={Bn}" + (f" {label}" if label else "")
+        if row:
+            record(name, "cuda", "hunter_bipedal_control_tpu_torch/csrc/reference_prep.cu",
+                   ("hunter_bipedal_control_tpu/refs/swing_planner.py:202"
+                    if name == "swing_plan"
+                    else "hunter_bipedal_control_tpu/solver/mpc.py:112"),
+                   err, tol, times[0], times[1], None, cost, info)
+        else:
+            b_ms, b_by = bound(*cost)
+            emit({"phase": "kernel_extra", "name": name, "tol": tol,
+                  "outputs": per_output(err, tol), "kernel_ms": times[0],
+                  "plain_ms": times[1], "library_ms": None, "bound_ms": b_ms,
+                  "bound_by": b_by, **info})
+            check(label, err, tol)
+        if any(flips["kernel_vs_plain_f32"].values()):
+            raise AssertionError(f"{label}: decisions off the float32 plain version's: "
+                                 f"{flips}")
+        low = {n: e for n, e in e_bf16.items()
+               if n not in PREP_EXACT and not n.endswith("_empty") and e <= limits[n]}
+        if low:
+            raise AssertionError(f"{label}: the bfloat16 plain version is within the limit "
+                                 f"on {low} (limits {limits})")
+        return times[0]
+
     def prep_case(cap, row):
         """B8b1 and B8b2 on the captured main-path inputs of ``swing_plan``
-        and ``knot_refs`` against their float64 plain versions; the launch
-        calls of one whole ``prepare_references`` on the same step's inputs;
-        ``row``: this shape fills the kernels line's rows, else kernel_extra
-        lines."""
-        out = {}
-        for name, a, names, plain_fn, kernel_fn, outputs, to in (
-                ("swing_plan", cap["swing_plan"][0], PREP_PLAN_NAMES, mpc_mod.swing_plan_plain,
-                 mpc_mod.swing_plan, plan_outputs, plan_args),
-                ("knot_refs", cap["knot_refs"][0], PREP_KNOT_NAMES, mpc_mod.knot_refs_plain,
-                 mpc_mod.knot_refs, knot_outputs, knot_args)):
-            *got, dec_k = kernel_fn(*a, with_decisions=True)
-            bare = kernel_fn(*a)
-            contig = kernel_fn(*to(a, None))
-            torch.cuda.synchronize()
-            got = outputs(got[0] if name == "swing_plan" else got)
-            bare, contig = outputs(bare), outputs(contig)
-            same = {n: bool(torch.equal(g, b) and torch.equal(g, c))
-                    for n, g, b, c in zip(names, got, bare, contig)}
-            if not all(same.values()):
-                raise AssertionError(f"{name}: outputs differ with the decisions written or "
-                                     f"with contiguous inputs: {same}")
-            d32, d64 = {}, {}
-            p32 = outputs(plain_fn(*to(a, f32), decisions=d32))
-            p64 = outputs(plain_fn(*to(a, f64), decisions=d64))
-            pbf = outputs(plain_fn(*to(a, bf16)))
-            if name == "swing_plan":
-                live = p64[names.index("window_stop")] > p64[names.index("window_start")]
-                names, (got, p32, p64, pbf) = split_empty_windows(names, live, got, p32, p64, pbf)
-            err, e_bf16, flips = prep_compare(names, got, p32, p64, pbf, dec_k, d32, d64)
-            tol = TOL[name]
-            limits = {n: max(tol, TOL_FACTOR * p64e[1]) for n, (_, _, p64e) in err.items()}
-            Bn = got[0].shape[0]
-            cost = (swing_plan_cost(a) if name == "swing_plan"
-                    else knot_refs_cost(a, dec_k["knot_phase"]))
-            times = (cuda_ms(lambda: kernel_fn(*a)), cuda_ms(lambda: plain_fn(*a), reps=3))
-            shared = [n for n, t in zip(("init_time", "event_times", "target.times",
-                                         "body_vel_cmd", "default_joints"),
-                                        (a[5], a[3][0], a[4][0], a[7], a[8])
-                                        if name == "swing_plan" else (a[2], a[0][0]))
-                      if t.shape[0] > 1 and t.stride(0) == 0]
-            info = {"scenarios": Bn, "decisions": flips, "plain_bf16_rel_err_vs_f64": e_bf16,
-                    "shared_inputs_read_at_stride_0": shared, "bit_equal_contiguous": True}
-            label = f"{name} B={Bn}"
-            if row:
-                record(name, "cuda", "hunter_bipedal_control_tpu_torch/csrc/reference_prep.cu",
-                       ("hunter_bipedal_control_tpu/refs/swing_planner.py:202"
-                        if name == "swing_plan"
-                        else "hunter_bipedal_control_tpu/solver/mpc.py:112"),
-                       err, tol, times[0], times[1], None, cost, info)
-            else:
-                b_ms, b_by = bound(*cost)
-                emit({"phase": "kernel_extra", "name": name, "tol": tol,
-                      "outputs": per_output(err, tol), "kernel_ms": times[0],
-                      "plain_ms": times[1], "library_ms": None, "bound_ms": b_ms,
-                      "bound_by": b_by, **info})
-                check(label, err, tol)
-            if any(flips["kernel_vs_plain_f32"].values()):
-                raise AssertionError(f"{label}: decisions off the float32 plain version's: "
-                                     f"{flips}")
-            low = {n: e for n, e in e_bf16.items()
-                   if n not in PREP_EXACT and not n.endswith("_empty") and e <= limits[n]}
-            if low:
-                raise AssertionError(f"{label}: the bfloat16 plain version is within the limit "
-                                     f"on {low} (limits {limits})")
-            out[name] = times[0]
+        and ``knot_refs`` (``prep_kernel``); the launch calls of one whole
+        ``prepare_references`` on the same step's inputs."""
+        out = {name: prep_kernel(name, cap[name][0], row)
+               for name in ("swing_plan", "knot_refs")}
         # one whole prepare_references: its launch calls
         pa, pk = cap["prepare_references"]
         mpc_mod.prepare_references(*pa, **pk)
@@ -2193,6 +2243,8 @@ def main():
 
     for cap, row in ((bench_cap, True), (product_cap, False)):
         prep_case(cap, row)
+    # B8b1 on the schedules at the swing planner's edges
+    prep_kernel("swing_plan", swing_plan_edge_batch(dev), False, "+".join(SWING_EDGE_CASES))
     del bench_cap, product_cap, captured
 
     # ---- 4b. the tick path: TICKS chained ticks on the product shape's cold policy ----

@@ -31,8 +31,11 @@
 // jitted scan: gait/mode_schedule.py::swing_windows :209 over the period's
 // span, phase_index_at_time :205, estim/contact.py::classify_contact :103
 // and early_late_contact_flags :123), a thread per (scenario, leg); its
-// plain version is estim/contact.py::contact_class_plain.  It shares
-// B8b1's window search (contact_window), so the two cannot drift apart.
+// plain version is estim/contact.py::contact_class_plain.  Its window
+// search (contact_window) walks the phases; B8b1 finds the same bounds by
+// prefix scans, and tests/test_torch_prep.py holds both to swing_windows
+// (and the card's decisions to the float32 plain version's), so the two
+// cannot drift apart.
 // It reads ~0.7 KB of schedule per scenario and writes 12 bytes: bytes
 // bound, a few µs of launch at any batch.
 //
@@ -44,7 +47,9 @@
 // gait event flips a phase if one rounding differs (the float32 ulp at
 // t = 16-32 s is 1.9e-6, above the 1e-6 offset).  So every time is
 // computed here with __fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn in
-// torch's order (nvcc would contract a*b + c into an FMA), with each
+// torch's order (nvcc would contract a*b + c into an FMA; B8b1 forms a
+// quotient of two tensors' values from a correctly rounded reciprocal and
+// one FMA correction, quot_rn, which rounds as IEEE division), with each
 // Python constant rounded to float32 from its double as torch rounds it,
 // and the searches are torch's binary search: the decisions equal the
 // float32 plain version's on the card bit for bit.  torch on CUDA divides a
@@ -57,20 +62,26 @@
 // the MPC step's far-from-nominal scenarios are ill-conditioned
 // (chip_smoke.py's main-path check).  The values (positions, velocities,
 // rotations) use the same operations as
-// torch; the FK (soa_model.cuh, contracted), cosf/sinf and the order of the
-// 3x3 products' sums may differ from torch's.
+// torch; the FK (soa_model.cuh's fk_dev operations, contracted), cosf/sinf
+// and the order of the 3x3 products' sums may differ from torch's.
 //
 // Bound on the card: B8b1 writes ~37 KB per scenario (the three swing
-// node arrays are 33 KB of it) and does ~0.1 MFLOP; B8b2 writes ~0.2 KB per
+// node arrays are 33 KB of it) and does ~0.05 MFLOP; B8b2 writes ~0.2 KB per
 // knot (chip_smoke.py::swing_plan_cost, knot_refs_cost): a few µs at
 // B=128, bytes bound.  The work is a few hundred dependent operations per
-// thread, so both kernels are latency bound far above that; B8b1 runs one
-// 256-thread block per scenario (a thread per (leg, phase), 228 of 256,
-// with the schedule, target, windows and candidates in shared memory, one
-// thread for the FK of x_init), B8b2 128-thread blocks over (scenario,
-// knot).  Shared inputs (a schedule, target, command or default joints
-// broadcast over the batch by expand) are read by a batch stride, 0 for
-// those, so the step spends no copy on them.
+// thread, so both kernels are latency bound far above that.  B8b1 runs one
+// block of eight warps per scenario, with every input it reads and its
+// node arrays staged in shared memory: a warp per leg (two phases a lane;
+// the windows, the fresh test and the fresh phases' indices as prefix
+// scans by shuffles, with no walk over the phases), update_planner's head
+// on a warp's lanes, the FK of x_init on a warp of its own (the legs'
+// chains side by side, fk_dev's operations), the samples on two warps
+// ((sample, component) and (sample, leg, axis) lanes); the legs wait for
+// the head and the FK only where they read them, and each leg's part of
+// a node array goes out as one float4 run.  B8b2 runs 128-thread blocks
+// over (scenario, knot).  Shared inputs (a schedule, target, command or
+// default joints broadcast over the batch by expand) are read by a batch
+// stride, 0 for those, so the step spends no copy on them.
 //
 // Model constants: B1's buffer (ocp/soa_kernel.py::consts_buffer, which
 // checks the topology).  True float32: no fast math.  Mode numbers outside
@@ -97,7 +108,6 @@ constexpr int CLASS_THREADS = 128;
 constexpr int N_PLAN_DEC_FIXED = 1 + 4 * NLEG * P1;  // + 8 per sample
 constexpr int N_KNOT_DEC = 2 + NLEG * NAX;
 static_assert(NC == NLEG, "reference_prep: the swing planner plans the 4 contacts");
-static_assert(NLEG * P1 <= PLAN_THREADS, "reference_prep: a thread per (leg, phase)");
 
 // torch's rounding of each Python constant: the double, then float32
 constexpr float BIG = static_cast<float>(1e9);
@@ -124,11 +134,6 @@ constexpr float Z_L2 = static_cast<float>(0.570), Z_L2C = static_cast<float>(1 -
 constexpr float Z_K2L2 = static_cast<float>(1.633 * 0.570);
 constexpr float Z_K3L2 = static_cast<float>(0.000 * 0.570);
 
-// MODE_CONTACTS: FLY, R, L, STANCE over [L_toe, R_toe, L_heel, R_heel]
-__constant__ float kModeContacts[4][NLEG] = {
-    {0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f, 1.0f},
-    {1.0f, 0.0f, 1.0f, 0.0f}, {1.0f, 1.0f, 1.0f, 1.0f}};
-
 // one rounding per operation, as torch's separate operations round
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
@@ -146,8 +151,12 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return (a != a || b != b) ? a + b : fminf(a, b);
 }
 
+// MODE_CONTACTS (FLY, R, L, STANCE over [L_toe, R_toe, L_heel, R_heel]) of a
+// mode: the right (odd) legs touch in R and STANCE (the mode's bit 0), the
+// left (even) ones in L and STANCE (bit 1); NaN outside 0..3
 __device__ __forceinline__ float mode_contact(long long mode, int leg) {
-  return (mode >= 0 && mode < 4) ? kModeContacts[mode][leg] : __int_as_float(0x7fc00000);
+  return (mode >= 0 && mode < 4) ? static_cast<float>((mode >> ((leg & 1) ? 0 : 1)) & 1)
+                                 : __int_as_float(0x7fc00000);
 }
 
 // torch.searchsorted(a[0:n], v, right=True): the first i with a[i] > v
@@ -177,8 +186,10 @@ __device__ __forceinline__ float lerp_rn(float v0, float v1, float w) {
 
 // models/spatial.py::rotation_zyx in torch's order
 __device__ void rotation_zyx_rn(float z, float y, float x, float* R) {
-  const float cz = cosf(z), sz = sinf(z), cy = cosf(y), sy = sinf(y);
-  const float cx = cosf(x), sx = sinf(x);
+  float cz, sz, cy, sy, cx, sx;  // sincosf: sinf's and cosf's bits, one reduction
+  sincosf(z, &sz, &cz);
+  sincosf(y, &sy, &cy);
+  sincosf(x, &sx, &cx);
   R[0] = mul_rn(cz, cy);
   R[1] = sub_rn(mul_rn(mul_rn(cz, sy), sx), mul_rn(sz, cx));
   R[2] = add_rn(mul_rn(mul_rn(cz, sy), cx), mul_rn(sz, sx));
@@ -216,85 +227,11 @@ __device__ void eval_spline(const float* tn, const float* pn, const float* vn, f
   *seg = i;
 }
 
-// one scenario's planner state in shared memory
-struct Plan {
-  float ev[MAX_PHASES];
-  long long mode[P1];
-  float tt[MAX_T];
-  float ts[MAX_T][NXS];
-  float tu[MAX_T][NUS];
-  float init, final_t, h_start, h_end, last_real;
-  float swing_height, swing_time_scale, next_z, yaw_lead;
-  float pose[6];                       // the target's pose at init_time
-  float vl[3], half_lin[3], sym_k[3], pcent[3];
-  float latest[NLEG][3];
-  float start[NLEG][P1], stop[NLEG][P1], mid[NLEG][P1], e_el[NLEG][P1];
-  unsigned char elig[NLEG][P1], fresh[NLEG][P1];
-  int idx1[NLEG][P1], idx2[NLEG][P1];
-  float cand[NLEG][P1][3];
-  FlowKin kin;                         // FK of x_init (one thread)
-};
-
-// the 3 axes' 4-node splines of (leg, phase p), axis `a`: _swing_nodes for a
-// swing phase, _stance_nodes for a stance phase (the swing planner's refs)
-__device__ void leg_nodes(const Plan& P, int leg, int p, int a, float* tn, float* pn,
-                          float* vn) {
-  const float s = P.start[leg][p], e = P.stop[leg][p];
-  const int i1 = P.idx1[leg][p], i2 = P.idx2[leg][p];
-  const float* next = i1 >= 0 ? P.cand[leg][i1] : P.latest[leg];
-  if (mode_contact(P.mode[p], leg) < 0.5f) {
-    const float* last = i2 >= 0 ? P.cand[leg][i2] : P.latest[leg];
-    const float dt = sub_rn(e, s);
-    if (a < 2) {
-      const float p0 = last[a], p1 = next[a];
-      tn[0] = s;
-      tn[1] = add_rn(mul_rn(XY_A1C, s), mul_rn(XY_A1, e));
-      tn[2] = e;
-      tn[3] = e;
-      pn[0] = p0;
-      pn[1] = add_rn(mul_rn(XY_L1C, p0), mul_rn(XY_L1, p1));
-      pn[2] = p1;
-      pn[3] = p1;
-      vn[0] = 0.0f;
-      vn[1] = div_rn(mul_rn(XY_K1, sub_rn(p1, p0)), clamp_min(dt, DT_MIN));
-      vn[2] = 0.0f;
-      vn[3] = 0.0f;
-    } else {
-      const float z0 = last[2], z1 = next[2];
-      const float scaling = clamp_max(div_rn(dt, P.swing_time_scale), 1.0f);
-      const float max_z = add_rn(max_nan(z0, z1), mul_rn(scaling, P.swing_height));
-      const float den2 = clamp_min(mul_rn(Z_A2C, dt), DT_MIN);
-      tn[0] = s;
-      tn[1] = add_rn(mul_rn(Z_A1C, s), mul_rn(Z_A1, e));
-      tn[2] = add_rn(mul_rn(Z_A2C, s), mul_rn(Z_A2, e));
-      tn[3] = e;
-      pn[0] = z0;
-      pn[1] = mul_rn(Z_L1, max_z);
-      pn[2] = add_rn(mul_rn(Z_L2, max_z), mul_rn(Z_L2C, z1));
-      pn[3] = z1;
-      vn[0] = 0.0f;
-      vn[1] = div_rn(mul_rn(Z_K1, mul_rn(Z_L1, sub_rn(max_z, z0))),
-                     clamp_min(mul_rn(Z_A1, dt), DT_MIN));
-      vn[2] = div_rn(mul_rn(Z_K2L2, sub_rn(z1, max_z)), den2);
-      vn[3] = div_rn(mul_rn(Z_K3L2, sub_rn(z1, max_z)), den2);
-    }
-  } else {
-    tn[0] = s;
-    tn[1] = mul_rn(add_rn(mul_rn(2.0f, s), e), INV_3);
-    tn[2] = mul_rn(add_rn(s, mul_rn(2.0f, e)), INV_3);
-    tn[3] = e;
-#pragma unroll
-    for (int n = 0; n < NNODE; ++n) {
-      pn[n] = next[a];
-      vn[n] = 0.0f;
-    }
-  }
-}
-
 // gait/mode_schedule.py::swing_windows for one (leg, phase p): the start
 // and stop of the contiguous run of phases around p in which the leg's
 // contact flag stays the same, the first phase starting at h_start and the
-// stops clipped to h_end (B8b1 and B16 share it)
+// stops clipped to h_end, by walking the phases (B16; B8b1 finds the same
+// bounds by its scans, and the tests hold both to swing_windows)
 __device__ __forceinline__ void contact_window(const float* ev, const long long* mode, int leg,
                                                int p, float h_start, float h_end, float* start,
                                                float* stop) {
@@ -306,8 +243,255 @@ __device__ __forceinline__ void contact_window(const float* ev, const long long*
   *stop = min_nan(qb < MAX_PHASES ? ev[qb] : BIG, h_end);
 }
 
+// ---- B8b1: one block of eight warps per scenario ----
+//
+// Every input the block reads is loaded at once (each thread's loads
+// issued before its stores) into shared memory.  Warps 0-3 each own a
+// leg's 57 phases, two a lane (lane l: phases 2l and 2l + 1; phase 57 on
+// and lanes 29-31 are phantoms that write nothing): the windows, the
+// candidates, the fresh test and the fresh phases' indices are scans over
+// the leg's phases by shuffles, each lane's swing nodes are staged in
+// shared memory and the leg's part of each node array goes out as one
+// float4 run.  Warp 4 runs update_planner's head over its lanes, warp 5 the
+// FK of x_init (the joints' sines on ten lanes, the two legs' chains on a
+// lane each), warps 6-7 the samples; the legs meet the head and the FK
+// only where they read them, and the samples' toe targets meet legs 0
+// and 1 (named barriers; no block barrier).
+constexpr int WARP = 32;
+constexpr unsigned ALL = 0xffffffffu;
+constexpr int W_HEAD = NLEG, W_FK = NLEG + 1, W_SAMPLE = NLEG + 2;  // warps
+constexpr int SAMPLE_THREADS = PLAN_THREADS - W_SAMPLE * WARP;      // warps 6 and 7
+constexpr int MAX_S = PLAN_THREADS - 1 - NJ;  // the C interface's limit on samples
+constexpr int NODE_FLOATS = NLEG * P1 * NODE_STRIDE;  // one node array, one scenario
+constexpr int N_KFK = K_RKK + 9 * NJ;         // the FK's joint constants (B1's buffer head)
+constexpr int BAR_HEAD = 1, BAR_FK = 2, BAR_SAMPLE = 3, BAR_DES = 4;  // named barriers
+constexpr int LEG_HEAD_THREADS = (NLEG + 1) * WARP;      // the legs and one warp
+constexpr int DES_THREADS = 2 * WARP + SAMPLE_THREADS;   // legs 0 and 1, the samples
+constexpr int LEG_F4 = P1 * NODE_STRIDE / 4;             // a leg's part of a node array
+static_assert(PLAN_THREADS == 8 * WARP && 2 * WARP >= P1, "eight warps, two phases a lane");
+// the load's ranges of threads: an event time, a target time, x_init, the
+// command, the latest stance positions, the feet's bias, the contact
+// offsets, the six scalars (init time, swing configuration)
+constexpr int M_TT = MAX_PHASES, M_X = M_TT + MAX_T, M_CMD = M_X + NXS, M_PREV = M_CMD + 6,
+              M_BIAS = M_PREV + NLEG * 3, M_CPOS = M_BIAS + NLEG * 3, M_SC = M_CPOS + NC * 3,
+              M_END = M_SC + 6;
+static_assert(M_END <= PLAN_THREADS && N_KFK <= 2 * PLAN_THREADS && N_KFK >= PLAN_THREADS &&
+              MAX_T * NXS <= 2 * PLAN_THREADS, "the load's ranges");
+static_assert(NODE_FLOATS % 4 == 0 && NODE_STRIDE % 4 == 0, "float4 node rows");
+static_assert(NJ == 2 * LEG_JOINTS && NC == 4, "two legs of five joints, contacts g and g + 2");
+
+// a named barrier: bar_sync waits for `n` threads, bar_arrive counts this
+// warp's without waiting (a producer's release of what it wrote before)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// num / den as IEEE division rounds it (torch's tensor / tensor), from the
+// correctly rounded reciprocal y of den: q = num y, then one correction by
+// the exact residual num - den q (Markstein, as B12's pivot_quotient).  A
+// zero numerator, a reciprocal of zero (den infinite) and a q that is not
+// finite take q as it is: IEEE's signed zero, NaN or infinity.  No lane
+// takes a division's slow path, and one y serves every quotient by den.
+__device__ __forceinline__ float quot_y(float num, float den, float y) {
+  const float q = __fmul_rn(num, y);
+  const float r = __fmaf_rn(-den, q, num);
+  return (num == 0.0f || y == 0.0f || !(fabsf(q) <= 3.402823466e38f)) ? q
+                                                                       : __fmaf_rn(r, y, q);
+}
+__device__ __forceinline__ float quot_rn(float num, float den) {
+  return quot_y(num, den, __frcp_rn(den));
+}
+
+// targets.py::_interp's weight at t in segment i (the quotient by quot_rn)
+__device__ __forceinline__ float weight_q(const float* times, int i, float t) {
+  const float den = clamp_min(sub_rn(times[i + 1], times[i]), INTERP_EPS);
+  return clamp01(quot_rn(sub_rn(t, times[i]), den));
+}
+
+// one scenario's inputs and staged outputs in shared memory
+struct __align__(16) Plan {
+  float node[3][NODE_FLOATS];  // times, positions, velocities: (leg, phase, axis, node)
+  float ts[MAX_T][NXS], tu[MAX_T][NUS];
+  float kfk[N_KFK], cpos[NC * 3];
+  float jc[NJ], js[NJ];          // the joints' cosines and sines at x_init
+  float ev[MAX_PHASES], tt[MAX_T];
+  long long mode[P1];
+  float x[NXS], cmd[6], prev[NLEG * 3], bias[NLEG * 3];
+  float init, swing_height, swing_time_scale, next_z, yaw_lead, vel_fb;
+  float head[10];                // pose, half_lin, vl, sym_k, pcent: x and y
+  float latest[NLEG][3];
+  float stop[NLEG][P1];
+  float2 cand[NLEG][P1];         // the Raibert candidates' x and y (z is next_z)
+  float st[MAX_S], sw[MAX_S];    // the samples' times and target weights
+  int si[MAX_S], sph[MAX_S];     // and segments and phases
+};
+enum { H_POSE, H_HALF = 2, H_VL = 4, H_SYM = 6, H_PCENT = 8 };
+
+// inclusive prefix max (suffix min) over the warp's lanes by shuffles
+__device__ __forceinline__ int scan_max(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < WARP; o <<= 1) {
+    const int u = __shfl_up_sync(ALL, v, o);
+    if (lane >= o) v = max(v, u);
+  }
+  return v;
+}
+__device__ __forceinline__ int scan_min_back(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < WARP; o <<= 1) {
+    const int u = __shfl_down_sync(ALL, v, o);
+    if (lane + o < WARP) v = min(v, u);
+  }
+  return v;
+}
+// the same for max_nan over floats (associative: a NaN anywhere gives NaN)
+__device__ __forceinline__ float scan_max_nan(float v, int lane) {
+#pragma unroll
+  for (int o = 1; o < WARP; o <<= 1) {
+    const float u = __shfl_up_sync(ALL, v, o);
+    if (lane >= o) v = max_nan(u, v);
+  }
+  return v;
+}
+
+// the swing nodes of (leg, phase) from its window [s, e], its fresh
+// phases' candidates (i1, i2; -1: the latest stance position) and the
+// leg's latest stance position, staged at `o` in the three node arrays:
+// _swing_nodes for a swing phase, _stance_nodes for a stance phase, in
+// torch's order with one rounding per operation (the quotients by quot_y,
+// one reciprocal a divisor)
+__device__ __forceinline__ void phase_nodes(Plan& P, int leg, float c, float s, float e, int i1,
+                                            int i2, int o) {
+  float tn[NAX][NNODE], pn[NAX][NNODE], vn[NAX][NNODE];
+  const float* lat = P.latest[leg];
+  const float2 cn = P.cand[leg][i1 < 0 ? 0 : i1];
+  const float next[3] = {i1 >= 0 ? cn.x : lat[0], i1 >= 0 ? cn.y : lat[1],
+                         i1 >= 0 ? P.next_z : lat[2]};
+  if (c < 0.5f) {
+    const float2 cl = P.cand[leg][i2 < 0 ? 0 : i2];
+    const float last[3] = {i2 >= 0 ? cl.x : lat[0], i2 >= 0 ? cl.y : lat[1],
+                           i2 >= 0 ? P.next_z : lat[2]};
+    const float dt = sub_rn(e, s);
+    const float dxy = clamp_min(dt, DT_MIN), yxy = __frcp_rn(dxy);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const float p0 = last[a], p1 = next[a];
+      tn[a][0] = s;
+      tn[a][1] = add_rn(mul_rn(XY_A1C, s), mul_rn(XY_A1, e));
+      tn[a][2] = e;
+      tn[a][3] = e;
+      pn[a][0] = p0;
+      pn[a][1] = add_rn(mul_rn(XY_L1C, p0), mul_rn(XY_L1, p1));
+      pn[a][2] = p1;
+      pn[a][3] = p1;
+      vn[a][0] = 0.0f;
+      vn[a][1] = quot_y(mul_rn(XY_K1, sub_rn(p1, p0)), dxy, yxy);
+      vn[a][2] = 0.0f;
+      vn[a][3] = 0.0f;
+    }
+    const float z0 = last[2], z1 = next[2];
+    const float scaling = clamp_max(quot_rn(dt, P.swing_time_scale), 1.0f);
+    const float max_z = add_rn(max_nan(z0, z1), mul_rn(scaling, P.swing_height));
+    const float den1 = clamp_min(mul_rn(Z_A1, dt), DT_MIN);
+    const float den2 = clamp_min(mul_rn(Z_A2C, dt), DT_MIN), y2 = __frcp_rn(den2);
+    tn[2][0] = s;
+    tn[2][1] = add_rn(mul_rn(Z_A1C, s), mul_rn(Z_A1, e));
+    tn[2][2] = add_rn(mul_rn(Z_A2C, s), mul_rn(Z_A2, e));
+    tn[2][3] = e;
+    pn[2][0] = z0;
+    pn[2][1] = mul_rn(Z_L1, max_z);
+    pn[2][2] = add_rn(mul_rn(Z_L2, max_z), mul_rn(Z_L2C, z1));
+    pn[2][3] = z1;
+    vn[2][0] = 0.0f;
+    vn[2][1] = quot_rn(mul_rn(Z_K1, mul_rn(Z_L1, sub_rn(max_z, z0))), den1);
+    vn[2][2] = quot_y(mul_rn(Z_K2L2, sub_rn(z1, max_z)), den2, y2);
+    // Z_K3L2 is 0: a signed zero (or NaN) over den2, as IEEE divides it
+    vn[2][3] = quot_y(mul_rn(Z_K3L2, sub_rn(z1, max_z)), den2, y2);
+  } else {
+    const float t1 = mul_rn(add_rn(mul_rn(2.0f, s), e), INV_3);
+    const float t2 = mul_rn(add_rn(s, mul_rn(2.0f, e)), INV_3);
+#pragma unroll
+    for (int a = 0; a < NAX; ++a) {
+      tn[a][0] = s;
+      tn[a][1] = t1;
+      tn[a][2] = t2;
+      tn[a][3] = e;
+#pragma unroll
+      for (int n = 0; n < NNODE; ++n) {
+        pn[a][n] = next[a];
+        vn[a][n] = 0.0f;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < NAX; ++a) {
+    *reinterpret_cast<float4*>(&P.node[0][o + a * NNODE]) =
+        make_float4(tn[a][0], tn[a][1], tn[a][2], tn[a][3]);
+    *reinterpret_cast<float4*>(&P.node[1][o + a * NNODE]) =
+        make_float4(pn[a][0], pn[a][1], pn[a][2], pn[a][3]);
+    *reinterpret_cast<float4*>(&P.node[2][o + a * NNODE]) =
+        make_float4(vn[a][0], vn[a][1], vn[a][2], vn[a][3]);
+  }
+}
+
+// Measurement build only (profile_step swing_plan_phases): -DSP_PHASE_CLOCKS
+// sums block 0's clock64 cycles by phase in registers, added to the device
+// sums once at the end: on thread 0 (leg 0's lane 0) the loads, the
+// windows, the candidates, the wait for the head, the fresh test with the
+// candidates' last terms, the fresh phases' indices, the wait for the FK,
+// the nodes, the leg's stores and, after a closing barrier of this build,
+// the wait for the other warps ("samples"): the block's time; and the FK's
+// and the head's own cycles on their warps' lane 0 from the loads' end.
+enum { PH_LOAD, PH_FK, PH_HEAD, PH_WINDOWS, PH_CAND, PH_FRESH, PH_IDX, PH_NODES, PH_SAMPLES,
+       PH_STORES, PH_FK_OWN, PH_HEAD_OWN, SP_PHASES };
+#ifdef SP_PHASE_CLOCKS
+__device__ unsigned long long sp_phase_cycles[SP_PHASES];
+#define SP_PHASE(p)                              \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {     \
+    const long long now = clock64();             \
+    sp_acc[p] += now - t_phase;                  \
+    t_phase = now;                               \
+  }
+#define SP_OWN(p) \
+  if (blockIdx.x == 0 && lane == 0) sp_acc[p] += clock64() - t_phase;
+#define SP_END() __syncthreads()
+#define SP_FLUSH()                                                               \
+  if (blockIdx.x == 0)                                                           \
+    for (int q = 0; q < SP_PHASES; ++q)                                          \
+      if (sp_acc[q]) atomicAdd(&sp_phase_cycles[q], static_cast<unsigned long long>(sp_acc[q]));
+#else
+#define SP_PHASE(p)
+#define SP_OWN(p)
+#define SP_END()
+#define SP_FLUSH()
+#endif
+
+// torch.searchsorted(a[0:n], v, right=True) on a sorted a (n < 2^K): the
+// count of leading entries not above v, in K fixed halving steps with no
+// branch, so that a lane's searches overlap (upper_bound's result on any
+// sorted a without NaN)
+template <int K>
+__device__ __forceinline__ int upper_bound_steps(const float* a, int n, float v) {
+  int lo = 0;
+#pragma unroll
+  for (int s = 1 << (K - 1); s > 0; s >>= 1) {
+    const int i = lo + s - 1;
+    lo = (i < n && !(a[min(i, n - 1)] > v)) ? lo + s : lo;
+  }
+  return lo;
+}
+// targets.py::_interp's segment of the staged target times (T <= 16)
+__device__ __forceinline__ int segment_steps(const float* times, int n, float t) {
+  const int i = upper_bound_steps<5>(times, n, t) - 1;
+  return i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
+}
+static_assert(MAX_T < 32 && MAX_PHASES < 64, "the searches' steps");
+
 __device__ __forceinline__ int phase_of(const float* ev, float t) {
-  const int p = upper_bound(ev, MAX_PHASES, t);
+  const int p = upper_bound_steps<6>(ev, MAX_PHASES, t);
   return p > P1 - 1 ? P1 - 1 : p;
 }
 
@@ -337,216 +521,367 @@ swing_plan_kernel(const float* __restrict__ K, const float* __restrict__ gx, int
                   float* __restrict__ o_Rdes, float* __restrict__ o_warm,
                   int* __restrict__ o_dec) {
   __shared__ Plan P;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid / WARP, lane = tid % WARP;
   const long long b = blockIdx.x;
-  const float* x = gx + b * sx;
-  const float* ev_g = gev + b * sev;
-  const long long* mode_g = gmode + b * smode;
-  const float* cmd = gcmd + b * scmd;
   int* dec = o_dec ? o_dec + b * (N_PLAN_DEC_FIXED + 8 * S) : nullptr;
+#ifdef SP_PHASE_CLOCKS
+  long long t_phase = clock64();
+  long long sp_acc[SP_PHASES] = {};
+#endif
 
-  // ---- stage the schedule and the target; one thread runs the FK ----
-  for (int i = tid; i < MAX_PHASES; i += PLAN_THREADS) P.ev[i] = ev_g[i];
-  for (int i = tid; i < P1; i += PLAN_THREADS) P.mode[i] = mode_g[i];
-  for (int i = tid; i < T; i += PLAN_THREADS) P.tt[i] = gtt[b * stt + i];
-  for (int i = tid; i < T * NXS; i += PLAN_THREADS)
-    P.ts[i / NXS][i % NXS] = gts[b * sts + i];
-  for (int i = tid; i < T * NUS; i += PLAN_THREADS)
-    P.tu[i / NUS][i % NUS] = gtu[b * stu + i];
-  if (tid == 0) {
-    fk_dev(K, x + 6, &P.kin);
-    contact_points_dev(K, &P.kin);
+  // ---- 1. every input the block reads, staged in shared memory ----
+  // each thread issues its loads (at most seven) before it stores any:
+  // the target's states and inputs, the FK's constants, a mode, and one
+  // more value: an event time, a target time, x_init, the command, a
+  // latest stance position, a foot's bias, a contact offset or a scalar
+  const int tn = T * NXS, t2 = tid + PLAN_THREADS;
+  const float vs0 = tid < tn ? gts[b * sts + tid] : 0.0f;
+  const float vs1 = t2 < tn ? gts[b * sts + t2] : 0.0f;
+  const float vu0 = tid < tn ? gtu[b * stu + tid] : 0.0f;
+  const float vu1 = t2 < tn ? gtu[b * stu + t2] : 0.0f;
+  const float vk0 = K[tid], vk1 = t2 < N_KFK ? K[t2] : 0.0f;
+  const long long vm = tid < P1 ? gmode[b * smode + tid] : 0;
+  const float* src = nullptr;
+  float* dst = nullptr;
+  if (tid < M_TT) {
+    src = gev + b * sev + tid, dst = &P.ev[tid];
+  } else if (tid < M_TT + T) {
+    src = gtt + b * stt + tid - M_TT, dst = &P.tt[tid - M_TT];
+  } else if (tid >= M_X && tid < M_CMD) {
+    src = gx + b * sx + tid - M_X, dst = &P.x[tid - M_X];
+  } else if (tid >= M_CMD && tid < M_PREV) {
+    src = gcmd + b * scmd + tid - M_CMD, dst = &P.cmd[tid - M_CMD];
+  } else if (tid >= M_PREV && tid < M_BIAS) {
+    src = glat + b * slat + tid - M_PREV, dst = &P.prev[tid - M_PREV];
+  } else if (tid >= M_BIAS && tid < M_CPOS) {
+    src = cfg_feet_bias + tid - M_BIAS, dst = &P.bias[tid - M_BIAS];
+  } else if (tid >= M_CPOS && tid < M_SC) {
+    src = K + K_CPOS + tid - M_CPOS, dst = &P.cpos[tid - M_CPOS];
+  } else if (tid >= M_SC && tid < M_END) {
+    const int k = tid - M_SC;
+    src = k == 0 ? ginit + b * sinit
+          : k == 1 ? cfg_swing_height
+          : k == 2 ? cfg_swing_time_scale
+          : k == 3 ? cfg_next_z
+          : k == 4 ? cfg_yaw_lead
+                   : cfg_vel_fb;
+    dst = k == 0 ? &P.init
+          : k == 1 ? &P.swing_height
+          : k == 2 ? &P.swing_time_scale
+          : k == 3 ? &P.next_z
+          : k == 4 ? &P.yaw_lead
+                   : &P.vel_fb;
   }
+  const float vo = src ? *src : 0.0f;
+  if (tid < tn) {
+    (&P.ts[0][0])[tid] = vs0;
+    (&P.tu[0][0])[tid] = vu0;
+  }
+  if (t2 < tn) {
+    (&P.ts[0][0])[t2] = vs1;
+    (&P.tu[0][0])[t2] = vu1;
+  }
+  P.kfk[tid] = vk0;
+  if (t2 < N_KFK) P.kfk[t2] = vk1;
+  if (tid < P1) P.mode[tid] = vm;
+  if (dst) *dst = vo;
   __syncthreads();
+  SP_PHASE(PH_LOAD);
+  const float init = P.init;
+  const float final_t = add_rn(init, horizon);
+  const float hz = sub_rn(final_t, init);
+  const float h_start = sub_rn(init, hz), h_end = add_rn(final_t, hz);
 
-  // ---- the scenario's scalars (update_planner's head) ----
-  if (tid == 0) {
-    const float init = ginit[b * sinit];
-    const float final_t = add_rn(init, horizon);
-    const float hz = sub_rn(final_t, init);
-    P.init = init;
-    P.final_t = final_t;
-    P.h_start = sub_rn(init, hz);
-    P.h_end = add_rn(final_t, hz);
-    float last = -BIG;
-    for (int i = 0; i < MAX_PHASES; ++i) last = max_nan(last, P.ev[i] < HALF_BIG ? P.ev[i] : -BIG);
-    P.last_real = last;
-    P.swing_height = *cfg_swing_height;
-    P.swing_time_scale = *cfg_swing_time_scale;
-    P.next_z = *cfg_next_z;
-    P.yaw_lead = *cfg_yaw_lead;
-    // the commanded contacts just after init_time, the latest stance positions
-    const int cmd_phase = upper_bound(P.ev, MAX_PHASES, add_rn(init, CMD_DT));
-    const float* prev = glat + b * slat;
-    for (int l = 0; l < NLEG; ++l) {
-      const bool stance = mode_contact(P.mode[cmd_phase], l) > 0.5f;
-      for (int k = 0; k < 2; ++k) {
-        P.latest[l][k] = stance ? P.kin.pc[l][k] : prev[3 * l + k];
-        o_latest[(b * NLEG + l) * 3 + k] = P.latest[l][k];
+  if (warp < NLEG) {
+    // ---- 2. swing_windows: the last contact change at or before each
+    // phase (prefix max) and the first at or after it (suffix min) ----
+    const int g = warp, pa = 2 * lane, pb = pa + 1;
+    const bool va = pa < P1, vb = pb < P1;
+    const float ca = va ? mode_contact(P.mode[pa], g) : 0.0f;
+    const float cb = vb ? mode_contact(P.mode[pb], g) : 0.0f;
+    const float c_before = __shfl_up_sync(ALL, cb, 1);   // phase pa - 1
+    const float c_after = __shfl_down_sync(ALL, ca, 1);  // phase pb + 1
+    const int fa = (pa == 0 || ca != c_before) ? pa : -1;
+    const int fb = ca != cb ? pb : fa;
+    int f_ex = __shfl_up_sync(ALL, scan_max(fb, lane), 1);
+    f_ex = lane == 0 ? -1 : f_ex;
+    const int qfa = max(f_ex, fa), qfb = max(f_ex, fb);
+    const bool ba = pa == P1 - 1 || ca != cb;
+    const bool bb = vb && (pb == P1 - 1 || cb != c_after);
+    const int bb_mark = bb ? pb : P1;
+    const int b_lane = !va ? P1 : (ba ? pa : bb_mark);
+    int b_ex = __shfl_down_sync(ALL, scan_min_back(b_lane, lane), 1);
+    b_ex = lane == WARP - 1 ? P1 : b_ex;
+    const int qba = ba ? pa : min(b_ex, bb_mark), qbb = min(b_ex, bb_mark);
+    // phantoms take the init time (read nothing out of range, write nothing)
+    const float sa = !va ? init : (qfa == 0 ? h_start : P.ev[qfa - 1]);
+    const float sb = !vb ? init : (qfb == 0 ? h_start : P.ev[qfb - 1]);
+    const float ea = !va ? init : min_nan(qba < MAX_PHASES ? P.ev[qba] : BIG, h_end);
+    const float eb = !vb ? init : min_nan(qbb < MAX_PHASES ? P.ev[qbb] : BIG, h_end);
+    const long long o = (b * NLEG + g) * P1;
+    if (va) {
+      P.stop[g][pa] = ea;
+      o_start[o + pa] = sa;
+      o_stop[o + pa] = ea;
+      o_cs[o + pa] = ca;
+    }
+    if (vb) {
+      P.stop[g][pb] = eb;
+      o_start[o + pb] = sb;
+      o_stop[o + pb] = eb;
+      o_cs[o + pb] = cb;
+    }
+    // the last real event, a warp reduction
+    float last = max_nan(pa < MAX_PHASES && P.ev[pa] < HALF_BIG ? P.ev[pa] : -BIG,
+                         pb < MAX_PHASES && P.ev[pb] < HALF_BIG ? P.ev[pb] : -BIG);
+#pragma unroll
+    for (int m = WARP / 2; m > 0; m >>= 1) last = max_nan(last, __shfl_xor_sync(ALL, last, m));
+    __syncwarp();
+    SP_PHASE(PH_WINDOWS);
+
+    // ---- 3. the next middle time and the Raibert candidate's terms that
+    // need no head: the target's rotation there and the rotated bias ----
+    const float* bias = P.bias + 3 * g;
+    float e2[2] = {ea, eb}, mid[2], rb[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float e = e2[h];
+      const int nxt = phase_of(P.ev, add_rn(e, NEXT_EPS));
+      const bool tail = e >= sub_rn(last, TAIL_EPS);
+      mid[h] = tail ? e : mul_rn(0.5f, add_rn(e, P.stop[g][nxt]));
+      const float q_t = add_rn(mid[h], P.yaw_lead);
+      const int i = segment_steps(P.tt, T, q_t);
+      const float w = weight_q(P.tt, i, q_t);
+      float R[9];
+      rotation_zyx_rn(lerp_rn(P.ts[i][9], P.ts[i + 1][9], w),
+                      lerp_rn(P.ts[i][10], P.ts[i + 1][10], w),
+                      lerp_rn(P.ts[i][11], P.ts[i + 1][11], w), R);
+      rb[h][0] = dot3_rn(R, bias);
+      rb[h][1] = dot3_rn(R + 3, bias);
+      const int p = pa + h;
+      if (dec && p < P1) {
+        const int od = 1 + g * P1 + p;
+        dec[od] = nxt;
+        dec[od + NLEG * P1] = tail;
+        dec[od + 2 * NLEG * P1] = i;
       }
-      P.latest[l][2] = P.next_z;
-      o_latest[(b * NLEG + l) * 3 + 2] = P.next_z;
     }
-    if (dec) dec[0] = cmd_phase;
-    // the target at init_time, the measured velocity feedback, the command
-    const int i = segment(P.tt, T, init);
-    const float w = weight(P.tt, i, init);
-    float cv[3];
-    for (int j = 0; j < 6; ++j) P.pose[j] = lerp_rn(P.ts[i][6 + j], P.ts[i + 1][6 + j], w);
-    const float fb = *cfg_vel_fb;
-    for (int j = 0; j < 3; ++j) {
-      const float c = lerp_rn(P.ts[i][j], P.ts[i + 1][j], w);
-      cv[j] = add_rn(c, mul_rn(fb, sub_rn(x[j], c)));
-    }
-    float R[9], vcl[3], vca[3];
-    rotation_zyx_rn(P.pose[3], P.pose[4], P.pose[5], R);
-    for (int j = 0; j < 3; ++j) {
-      vcl[j] = dot3_rn(R + 3 * j, cmd);
-      vca[j] = dot3_rn(R + 3 * j, cmd + 3);
-    }
-    const float vl[3] = {cv[0], cv[1], 0.0f};
-    const float cr[3] = {sub_rn(mul_rn(vl[1], vca[2]), mul_rn(vl[2], vca[1])),
-                         sub_rn(mul_rn(vl[2], vca[0]), mul_rn(vl[0], vca[2])),
-                         sub_rn(mul_rn(vl[0], vca[1]), mul_rn(vl[1], vca[0]))};
-    const float cf = mul_rn(0.5f, sqrtf(mul_rn(fabsf(P.pose[2]), INV_G)));
-    for (int j = 0; j < 3; ++j) {
-      P.vl[j] = vl[j];
-      P.half_lin[j] = add_rn(mul_rn(0.5f, vl[j]), mul_rn(0.5f, vcl[j]));
-      P.sym_k[j] = mul_rn(RAIBERT_K, sub_rn(vl[j], vcl[j]));
-      P.pcent[j] = mul_rn(cf, cr[j]);
-    }
-  }
-  __syncthreads();
+    SP_PHASE(PH_CAND);
+    bar_sync(BAR_HEAD, LEG_HEAD_THREADS);
+    SP_PHASE(PH_HEAD);
 
-  const bool lane = tid < NLEG * P1;
-  const int leg = tid / P1, p = tid % P1;
-
-  // ---- swing_windows: the contact window around each (leg, phase) ----
-  if (lane) {
-    const float c = mode_contact(P.mode[p], leg);
-    contact_window(P.ev, P.mode, leg, p, P.h_start, P.h_end, &P.start[leg][p], &P.stop[leg][p]);
-    const long long o = (b * NLEG + leg) * P1 + p;
-    o_start[o] = P.start[leg][p];
-    o_stop[o] = P.stop[leg][p];
-    o_cs[o] = c;
-  }
-  __syncthreads();
-
-  // ---- the next middle time and the Raibert candidate of each (leg, phase) ----
-  if (lane) {
-    const float e = P.stop[leg][p];
-    const int nxt = phase_of(P.ev, add_rn(e, NEXT_EPS));
-    const bool tail = e >= sub_rn(P.last_real, TAIL_EPS);
-    const float mid_t = tail ? e : mul_rn(0.5f, add_rn(e, P.stop[leg][nxt]));
-    const float q_t = add_rn(mid_t, P.yaw_lead);
-    const int i = segment(P.tt, T, q_t);
-    const float w = weight(P.tt, i, q_t);
-    float ang[3], R[9], rb[3];
-    for (int j = 0; j < 3; ++j) ang[j] = lerp_rn(P.ts[i][9 + j], P.ts[i + 1][9 + j], w);
-    rotation_zyx_rn(ang[0], ang[1], ang[2], R);
-    const float* bias = cfg_feet_bias + 3 * leg;
-    for (int j = 0; j < 3; ++j) rb[j] = dot3_rn(R + 3 * j, bias);
-    const float dt_sh = sub_rn(e, P.init), dt_sym = sub_rn(mid_t, e);
-    for (int j = 0; j < 2; ++j) {
-      const float sh = add_rn(mul_rn(dt_sh, P.half_lin[j]), rb[j]);
-      const float sym = add_rn(mul_rn(dt_sym, P.vl[j]), P.sym_k[j]);
-      P.cand[leg][p][j] = add_rn(add_rn(add_rn(P.pose[j], sh), sym), P.pcent[j]);
+    // ---- 4. the candidates; the fresh swing windows ahead of init_time
+    // (an exclusive prefix max of the eligible stops) ----
+    const float* H = P.head;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float e = e2[h];
+      const float dt_sh = sub_rn(e, init), dt_sym = sub_rn(mid[h], e);
+      float cd[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float sh = add_rn(mul_rn(dt_sh, H[H_HALF + j]), rb[h][j]);
+        const float sym = add_rn(mul_rn(dt_sym, H[H_VL + j]), H[H_SYM + j]);
+        cd[j] = add_rn(add_rn(add_rn(H[H_POSE + j], sh), sym), H[H_PCENT + j]);
+      }
+      if (pa + h < P1) P.cand[g][pa + h] = make_float2(cd[0], cd[1]);
     }
-    P.cand[leg][p][2] = P.next_z;
-    const bool elig = mode_contact(P.mode[p], leg) < 0.5f && P.init < e;
-    P.elig[leg][p] = elig;
-    P.e_el[leg][p] = elig ? e : -BIG;
-    P.mid[leg][p] = mid_t;
+    const bool ela = va && ca < 0.5f && init < ea, elb = vb && cb < 0.5f && init < eb;
+    const float ma = ela ? ea : -BIG, mb = elb ? eb : -BIG;
+    float m_ex = __shfl_up_sync(ALL, scan_max_nan(max_nan(ma, mb), lane), 1);
+    m_ex = lane == 0 ? -BIG : max_nan(-BIG, m_ex);
+    const bool fra = ela && ea > add_rn(m_ex, TAIL_EPS);
+    const bool frb = elb && eb > add_rn(max_nan(m_ex, ma), TAIL_EPS);
     if (dec) {
-      const int o = 1 + leg * P1 + p;
-      dec[o] = nxt;
-      dec[o + NLEG * P1] = tail;
-      dec[o + 2 * NLEG * P1] = i;
+      const int od = 1 + 3 * NLEG * P1 + g * P1;
+      if (va) dec[od + pa] = fra;
+      if (vb) dec[od + pb] = frb;
     }
-  }
-  __syncthreads();
+    SP_PHASE(PH_FRESH);
 
-  // ---- the fresh swing windows ahead of init_time (cummax scans) ----
-  if (lane) {
-    float m_prev = -BIG;
-    for (int q = 0; q < p; ++q) m_prev = max_nan(m_prev, P.e_el[leg][q]);
-    const float e = P.stop[leg][p];
-    const bool fresh = P.elig[leg][p] && e > add_rn(m_prev, TAIL_EPS);
-    P.fresh[leg][p] = fresh;
-    if (dec) dec[1 + 3 * NLEG * P1 + leg * P1 + p] = fresh;
-  }
-  __syncthreads();
-  if (lane) {
-    int i1 = -1;
-    for (int q = p; q >= 0 && i1 < 0; --q)
-      if (P.fresh[leg][q]) i1 = q;
-    int i2 = -1;
-    for (int q = i1 - 1; q >= 0 && i2 < 0; --q)
-      if (P.fresh[leg][q]) i2 = q;
-    P.idx1[leg][p] = i1;
-    P.idx2[leg][p] = i1 >= 0 ? i2 : -1;
-  }
-  __syncthreads();
+    // ---- 5. i1, i2: the last and second-to-last fresh phase <= p ----
+    const int ka = fra ? pa : -1, kb = frb ? pb : ka;
+    int k_ex = __shfl_up_sync(ALL, scan_max(kb, lane), 1);
+    k_ex = lane == 0 ? -1 : k_ex;
+    const int i1a = max(k_ex, ka), i1b = max(k_ex, kb);
+    // the last fresh phase before q: lane q/2's exclusive prefix (q even)
+    // or its phase pa's inclusive one (q odd)
+    const int sra = __shfl_sync(ALL, k_ex, max(i1a, 0) >> 1);
+    const int s1a = __shfl_sync(ALL, i1a, max(i1a, 0) >> 1);
+    const int srb = __shfl_sync(ALL, k_ex, max(i1b, 0) >> 1);
+    const int s1b = __shfl_sync(ALL, i1a, max(i1b, 0) >> 1);
+    const int i2a = i1a < 0 ? -1 : ((i1a & 1) ? s1a : sra);
+    const int i2b = i1b < 0 ? -1 : ((i1b & 1) ? s1b : srb);
+    __syncwarp();  // the candidates
+    SP_PHASE(PH_IDX);
+    bar_sync(BAR_FK, LEG_HEAD_THREADS);
+    SP_PHASE(PH_FK);
 
-  // ---- the swing node arrays (SwingRefs) ----
-  if (lane) {
-    const long long o = ((b * NLEG + leg) * P1 + p) * NODE_STRIDE;
-    for (int a = 0; a < NAX; ++a) {
-      float tn[NNODE], pn[NNODE], vn[NNODE];
-      leg_nodes(P, leg, p, a, tn, pn, vn);
-      for (int n = 0; n < NNODE; ++n) {
-        o_ntimes[o + a * NNODE + n] = tn[n];
-        o_npos[o + a * NNODE + n] = pn[n];
-        o_nvel[o + a * NNODE + n] = vn[n];
-      }
+    // ---- 6. the swing node arrays (SwingRefs): staged, then the leg's
+    // part of each array out as one contiguous float4 run ----
+    if (va) phase_nodes(P, g, ca, sa, ea, i1a, i2a, (g * P1 + pa) * NODE_STRIDE);
+    if (vb) phase_nodes(P, g, cb, sb, eb, i1b, i2b, (g * P1 + pb) * NODE_STRIDE);
+    __syncwarp();
+    if (g < 2) bar_arrive(BAR_DES, DES_THREADS);  // legs 0 and 1: the toe targets' nodes
+    SP_PHASE(PH_NODES);
+#pragma unroll 4
+    for (int k = lane; k < 3 * LEG_F4; k += WARP) {
+      const int a = k / LEG_F4, q = g * LEG_F4 + k - a * LEG_F4;
+      float* const out = a == 0 ? o_ntimes : (a == 1 ? o_npos : o_nvel);
+      reinterpret_cast<float4*>(out + b * NODE_FLOATS)[q] =
+          reinterpret_cast<const float4*>(P.node[a])[q];
     }
-  }
-
-  // ---- the IK's inputs: the sample times, the target there, toe targets ----
-  if (tid < S) {
-    const int s = tid;
-    float t;
-    if (s == S - 1) {
-      t = P.final_t;
-    } else {
-      const float inv = div_rn(1.0f, static_cast<float>(S - 1));
-      const float step = mul_rn(static_cast<float>(s), inv);
-      t = add_rn(mul_rn(P.init, sub_rn(1.0f, step)), mul_rn(P.final_t, step));
-    }
-    o_Ts[b * S + s] = t;
-    const int i = segment(P.tt, T, t);
-    const float w = weight(P.tt, i, t);
-    const long long row = b * S + s;
-    for (int j = 0; j < NXS; ++j) {
-      const float v = lerp_rn(P.ts[i][j], P.ts[i + 1][j], w);
-      o_states[row * NXS + j] = v;
-      if (j >= 6 && j < 12) o_poses[row * 6 + j - 6] = v;
-    }
-    for (int j = 0; j < NUS; ++j) o_inputs[row * NUS + j] = lerp_rn(P.tu[i][j], P.tu[i + 1][j], w);
-    const int ph = phase_of(P.ev, t);
-    if (dec) {
-      dec[N_PLAN_DEC_FIXED + s] = i;
-      dec[N_PLAN_DEC_FIXED + S + s] = ph;
-    }
-    for (int l = 0; l < 2; ++l)
-      for (int a = 0; a < NAX; ++a) {
-        float tn[NNODE], pn[NNODE], vn[NNODE], pos, vel;
-        int seg;
-        leg_nodes(P, l, ph, a, tn, pn, vn);
-        eval_spline(tn, pn, vn, t, &pos, &vel, &seg);
-        o_des[(row * 2 + l) * 3 + a] = pos;
-        if (dec) dec[N_PLAN_DEC_FIXED + 2 * S + (s * 2 + l) * NAX + a] = seg;
-      }
-  }
-  if (tid == PLAN_THREADS - 1) {
+    SP_PHASE(PH_STORES);
+  } else if (warp == W_HEAD) {
+    // ---- update_planner's head: the target at init_time (a lerp a lane),
+    // the command's rotation (a row a lane), the Raibert terms ----
+#ifdef SP_PHASE_CLOCKS
+    t_phase = clock64();
+#endif
+    const int i = segment_steps(P.tt, T, init);
+    const float w = weight_q(P.tt, i, init);
+    const int j = lane < 6 ? 6 + lane : lane - 6;  // pose (lanes 0-5), velocity (6-8)
+    float v = lerp_rn(P.ts[i][j < NXS ? j : 0], P.ts[i + 1][j < NXS ? j : 0], w);
+    if (lane >= 6 && lane < 9) v = add_rn(v, mul_rn(P.vel_fb, sub_rn(P.x[j], v)));
+    const float yaw = __shfl_sync(ALL, v, 3), pitch = __shfl_sync(ALL, v, 4);
+    const float roll = __shfl_sync(ALL, v, 5), pz = __shfl_sync(ALL, v, 2);
     float R[9];
-    rotation_zyx_rn(x[9], x[10], x[11], R);
-    for (int e = 0; e < 9; ++e) o_Rdes[b * 9 + e] = R[e];
+    rotation_zyx_rn(yaw, pitch, roll, R);
+    // row `lane` of R (lanes 0-2), selected without local memory
+    const float row[3] = {lane == 1 ? R[3] : (lane == 2 ? R[6] : R[0]),
+                          lane == 1 ? R[4] : (lane == 2 ? R[7] : R[1]),
+                          lane == 1 ? R[5] : (lane == 2 ? R[8] : R[2])};
+    const float vcl = dot3_rn(row, P.cmd), vca = dot3_rn(row, P.cmd + 3);
+    const float vcl_j = __shfl_sync(ALL, vcl, lane & 1);
+    const float vca0 = __shfl_sync(ALL, vca, 0), vca1 = __shfl_sync(ALL, vca, 1);
+    const float vca2 = __shfl_sync(ALL, vca, 2);
+    const float vl0 = __shfl_sync(ALL, v, 6), vl1 = __shfl_sync(ALL, v, 7), vl2 = 0.0f;
+    if (lane < 2) {
+      const float vl = lane ? vl1 : vl0;
+      const float cr = lane ? sub_rn(mul_rn(vl2, vca0), mul_rn(vl0, vca2))
+                            : sub_rn(mul_rn(vl1, vca2), mul_rn(vl2, vca1));
+      const float cf = mul_rn(0.5f, sqrtf(mul_rn(fabsf(pz), INV_G)));
+      P.head[H_POSE + lane] = v;
+      P.head[H_HALF + lane] = add_rn(mul_rn(0.5f, vl), mul_rn(0.5f, vcl_j));
+      P.head[H_VL + lane] = vl;
+      P.head[H_SYM + lane] = mul_rn(RAIBERT_K, sub_rn(vl, vcl_j));
+      P.head[H_PCENT + lane] = mul_rn(cf, cr);
+    }
+    __syncwarp();
+    SP_OWN(PH_HEAD_OWN);
+    bar_arrive(BAR_HEAD, LEG_HEAD_THREADS);
+  } else if (warp == W_FK) {
+    // ---- the FK of x_init: the joints' sines on ten lanes, each leg's
+    // chain on a lane (fk_dev's operations in its order, the legs apart),
+    // the contact points g and g + 2 of leg g; the latest stance positions
+    // at the commanded contacts just after init_time ----
+#ifdef SP_PHASE_CLOCKS
+    t_phase = clock64();
+#endif
+    if (lane < NJ) {
+      P.jc[lane] = cosf(P.x[12 + lane]);
+      P.js[lane] = sinf(P.x[12 + lane]);
+    }
+    __syncwarp();
+    if (lane < 2) {
+      const int g = lane;
+      float trig[4], R[9], p[3];
+      base_pose_dev(P.x + 6, trig, R, p);
+#pragma unroll
+      for (int n = 0; n < LEG_JOINTS; ++n) {
+        const int jj = LEG_JOINTS * g + n;
+        float Ror[9], t[3], rod[9];
+        mm3(R, P.kfk + K_OROT + 9 * jj, Ror);
+        mv3(R, P.kfk + K_OPOS + 3 * jj, t);
+        const float cj = P.jc[jj], sj = P.js[jj];
+        const float u = 1.0f - cj;
+        for (int e = 0; e < 9; ++e)
+          rod[e] = ((e % 4 == 0) ? 1.0f : 0.0f) + sj * P.kfk[K_RK + 9 * jj + e] +
+                   u * P.kfk[K_RKK + 9 * jj + e];
+        mm3(Ror, rod, R);
+        for (int i = 0; i < 3; ++i) p[i] = p[i] + t[i];
+      }
+      const int cmd_phase = upper_bound_steps<6>(P.ev, MAX_PHASES, add_rn(init, CMD_DT));
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = g + 2 * k;
+        float t[3];
+        mv3(R, P.cpos + 3 * c, t);
+        const bool stance = mode_contact(P.mode[cmd_phase], c) > 0.5f;
+        const float lat[3] = {stance ? p[0] + t[0] : P.prev[3 * c],
+                              stance ? p[1] + t[1] : P.prev[3 * c + 1], P.next_z};
+        for (int i = 0; i < 3; ++i) {
+          P.latest[c][i] = lat[i];
+          o_latest[(b * NLEG + c) * 3 + i] = lat[i];
+        }
+      }
+      if (dec && g == 0) dec[0] = cmd_phase;
+    }
+    __syncwarp();
+    SP_OWN(PH_FK_OWN);
+    bar_arrive(BAR_FK, LEG_HEAD_THREADS);
+  } else {
+    // ---- the IK's inputs: the sample times, their segments, weights and
+    // phases (warp 6); R_des and the warm joints (warp 7); then the
+    // target's states and inputs there on (sample, component) lanes ----
+    const int u = tid - W_SAMPLE * WARP;
+    if (warp == W_SAMPLE) {
+      for (int s = lane; s < S; s += WARP) {
+        float t;
+        if (s == S - 1) {
+          t = final_t;
+        } else {
+          const float inv = div_rn(1.0f, static_cast<float>(S - 1));
+          const float step = mul_rn(static_cast<float>(s), inv);
+          t = add_rn(mul_rn(init, sub_rn(1.0f, step)), mul_rn(final_t, step));
+        }
+        const int i = segment_steps(P.tt, T, t);
+        const int ph = phase_of(P.ev, t);
+        P.st[s] = t;
+        P.si[s] = i;
+        P.sw[s] = weight_q(P.tt, i, t);
+        P.sph[s] = ph;
+        o_Ts[b * S + s] = t;
+        if (dec) {
+          dec[N_PLAN_DEC_FIXED + s] = i;
+          dec[N_PLAN_DEC_FIXED + S + s] = ph;
+        }
+      }
+    } else if (lane < 9) {
+      float R[9];
+      rotation_zyx_rn(P.x[9], P.x[10], P.x[11], R);
+      float r = R[0];
+#pragma unroll
+      for (int e = 1; e < 9; ++e) r = lane == e ? R[e] : r;
+      o_Rdes[b * 9 + lane] = r;
+    } else if (lane < 9 + NJ) {
+      o_warm[b * NJ + lane - 9] = gdj[b * sdj + lane - 9];
+    }
+    bar_sync(BAR_SAMPLE, SAMPLE_THREADS);
+    const int n = S * NXS;
+    for (int k = u; k < 2 * n; k += SAMPLE_THREADS) {
+      const bool in = k >= n;
+      const int r = in ? k - n : k, s = r / NXS, j = r % NXS, i = P.si[s];
+      const float* src = in ? &P.tu[0][0] : &P.ts[0][0];
+      const float v = lerp_rn(src[i * NXS + j], src[(i + 1) * NXS + j], P.sw[s]);
+      (in ? o_inputs : o_states)[b * n + r] = v;
+      if (!in && j >= 6 && j < 12) o_poses[(b * S + s) * 6 + j - 6] = v;
+    }
+    // ---- the toe targets of legs 0 and 1 on (sample, leg, axis) lanes ----
+    bar_sync(BAR_DES, DES_THREADS);
+    for (int v = u; v < 6 * S; v += SAMPLE_THREADS) {
+      const int s = v / 6, l = (v % 6) / NAX, a = v % NAX;
+      const int o = (l * P1 + P.sph[s]) * NODE_STRIDE + a * NNODE;
+      float pos, vel;
+      int seg;
+      eval_spline(&P.node[0][o], &P.node[1][o], &P.node[2][o], P.st[s], &pos, &vel, &seg);
+      o_des[b * 6 * S + v] = pos;
+      if (dec) dec[N_PLAN_DEC_FIXED + 2 * S + v] = seg;
+    }
   }
-  if (tid >= PLAN_THREADS - 1 - NJ && tid < PLAN_THREADS - 1) {
-    const int j = tid - (PLAN_THREADS - 1 - NJ);
-    o_warm[b * NJ + j] = gdj[b * sdj + j];
-  }
+  SP_END();
+  SP_PHASE(PH_SAMPLES);
+  SP_FLUSH();
 }
 
 __global__ void __launch_bounds__(KNOT_THREADS)
@@ -672,9 +1007,14 @@ extern "C" int hk_swing_plan(const float* consts, const float* x, const float* i
                              float* o_Rdes, float* o_warm, int* o_dec, int sx, int sinit,
                              int sev, int smode, int stt, int sts, int stu, int scmd, int sdj,
                              int slat, int batch, int T, int S, float horizon, void* stream) {
-  if (batch < 1 || batch > 2147483647 || T < 2 || T > MAX_T || S < 2 ||
-      S > PLAN_THREADS - 1 - NJ)
+  if (batch < 1 || batch > 2147483647 || T < 2 || T > MAX_T || S < 2 || S > MAX_S)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the node arrays are written as float4 runs
+  const unsigned long long nodes = reinterpret_cast<unsigned long long>(o_ntimes) |
+                                   reinterpret_cast<unsigned long long>(o_npos) |
+                                   reinterpret_cast<unsigned long long>(o_nvel);
+  if (nodes % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   swing_plan_kernel<<<batch, PLAN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       consts, x, sx, init, sinit, ev, sev, modes, smode, tt, stt, ts, sts, tu, stu, T, cmd,
       scmd, dj, sdj, latest, slat, swing_height, swing_time_scale, feet_bias, next_z, yaw_lead,
@@ -682,6 +1022,16 @@ extern "C" int hk_swing_plan(const float* consts, const float* x, const float* i
       o_states, o_inputs, o_poses, o_des, o_Rdes, o_warm, o_dec);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef SP_PHASE_CLOCKS
+// The phase sums since the last call (SP_PHASES of them), then zeroed.
+extern "C" int hk_swing_plan_phase_cycles(unsigned long long* out) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, sp_phase_cycles, sizeof(sp_phase_cycles));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long zero[SP_PHASES] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(sp_phase_cycles, zero, sizeof(zero)));
+}
+#endif
 
 extern "C" int hk_knot_refs(const float* init, const float* ev, const long long* modes,
                             const float* ntimes, const float* npos, const float* nvel,

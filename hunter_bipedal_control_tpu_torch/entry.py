@@ -20,7 +20,8 @@ batch of walking robots (mixed contacts, both stance modes) from a seed,
 ``centroidal_batch`` those of the loops' sensing, plant and conversion,
 ``qp_batch`` seeded QPs of the WBC's and the hierarchical WBC's shapes,
 ``contact_class_batch`` seeded inputs of the full-order loop's contact
-classification.
+classification, ``swing_plan_edge_batch`` the reference prep's swing
+planner on the schedules at its edges.
 
 ``ddp_solve`` runs the SLQ/DDP solver (``solver/ddp.py``) on the
 flagship's first problem, warm-started from SQP solves.
@@ -703,6 +704,80 @@ def contact_class_batch(batch: int = 4096, device=None, dtype=torch.float32,
     return ContactClassBatch(obs_mod.default_contact_params(dev, dtype), t(est), t(cmd),
                              ms.ModeSchedule(event_times=t(ev), modes=modes.to(dev)),
                              t(t_period), t(tt), 0.8)
+
+
+# swing_plan_edge_batch's scenarios, in order
+SWING_EDGE_CASES = ("all_stance", "single_swing", "single_swing_at_init", "padded_tail",
+                    "padded_tail_cycling", "no_real_event", "trot_on_event",
+                    "trot_ulp_before_event", "flying_trot_t20_on_event")
+
+
+def swing_plan_edge_batch(device=None, horizon: float = 0.8):
+    """``mpc.swing_plan``'s arguments (model, swing config, planner state,
+    schedule, target, init time, x_init, command, default joints, horizon,
+    samples), float32, on the schedules at the swing planner's edges, one
+    scenario each (SWING_EDGE_CASES): every phase in stance; a single swing
+    phase inside the horizon, and one starting at the init time; the padded
+    tail (two real events, the init time past the last, the modes constant
+    or cycling beyond them); no real event; a trot with the init time on an
+    event time and one float32 ulp before it; a flying trot near t = 20 s
+    with the init time on an event.  The product shape's 0.8 s horizon and
+    6 samples, or ``horizon`` and its samples; per scenario a cmd_vel
+    target made at its init time, x_init, the command and the latest stance
+    positions drawn from a fixed seed around the standing robot, the yaw
+    lead and velocity feedback on."""
+    dev = resolve_device(device)
+    f32, P, big, H = torch.float32, ms.MAX_PHASES, ms.BIG_TIME, horizon
+
+    def sched(events, modes):
+        ev = torch.full((P,), big, dtype=f32)
+        ev[:len(events)] = torch.tensor(events, dtype=f32)
+        md = torch.full((P + 1,), modes[-1], dtype=torch.int64)
+        md[:len(modes)] = torch.tensor(modes)
+        return ev, md
+
+    def tiled(tmpl, t0, t1):
+        s = ms.tile_template(tmpl("cpu"), t0, t1)
+        return s.event_times, s.modes
+
+    trot = tiled(ms.TROT_GAIT, -H, 4 * H)
+    on_trot = float(trot[0][trot[0] > 0.1][0])
+    fly = tiled(ms.FLYING_TROT_GAIT, 20.0 - H, 20.0 + 4 * H)
+    on_fly = float(fly[0][fly[0] > 20.1][0])
+    cycling = tiled(ms.TROT_GAIT, 0.1, 0.4)
+    cases = {
+        "all_stance": (tiled(ms.STANCE_GAIT, -H, 4 * H), 0.37),
+        "single_swing": (sched([0.2, 0.5], [3, 1, 3]), 0.1),
+        "single_swing_at_init": (sched([0.3, 0.6], [3, 2, 3]), 0.3),
+        "padded_tail": (sched([0.1, 0.4], [1, 2, 1]), 0.55),
+        "padded_tail_cycling": (cycling, 0.55),
+        "no_real_event": (sched([], [3]), 0.2),
+        "trot_on_event": (trot, on_trot),
+        "trot_ulp_before_event": (trot, float(torch.nextafter(torch.tensor(on_trot, dtype=f32),
+                                                              torch.tensor(-math.inf)))),
+        "flying_trot_t20_on_event": (fly, on_fly),
+    }
+    assert tuple(cases) == SWING_EDGE_CASES
+    B = len(cases)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    ev = torch.stack([c[0][0] for c in cases.values()])
+    modes = torch.stack([c[0][1] for c in cases.values()])
+    t0 = torch.tensor([c[1] for c in cases.values()], dtype=f32)
+    qnom = nominal_q(0.63, "cpu", f32)
+    x = torch.cat([torch.zeros(6), qnom]) + 0.02 * torch.randn(B, 22, generator=g)
+    cmd_vel = torch.tensor([0.25, 0.1, 0.0, 0.3]) + 0.05 * torch.randn(B, 4, generator=g)
+    target = tg.cmd_vel_to_target(cmd_vel, x, t0, H, tg.default_cmd_vel_config(nj=10,
+                                                                              device="cpu"))
+    latest = 0.1 * torch.randn(B, 4, 3, generator=g)
+    cmd = 0.2 * torch.randn(B, 6, generator=g)
+    m = load_model(device=dev)
+    cfg = swp.default_swing_config(dev)._replace(foothold_yaw_lead=torch.tensor(0.1, device=dev),
+                                                 foothold_vel_fb=torch.tensor(0.3, device=dev))
+    t = lambda a: a.to(dev).contiguous()  # noqa: E731
+    return (m, cfg, swp.PlannerState(t(latest)),
+            ms.ModeSchedule(t(ev), modes.to(dev)), tg.TargetTrajectories(*map(t, target)),
+            t(t0), t(x), t(cmd), t(qnom[6:]).expand(B, -1), H,
+            int(H / mpc_mod.JOINT_REF_STEP) + 1)
 
 
 class CentroidalBatch(NamedTuple):

@@ -220,6 +220,19 @@ def rows(t: torch.Tensor, name: str, width: int):
     return flat, t.shape[:-1]
 
 
+def _entries_contiguous(t: torch.Tensor) -> bool:
+    """``t[0].is_contiguous()`` read from the strides, without the view:
+    every dim after the first of size > 1 at the contiguous stride."""
+    want = 1
+    for size, stride in zip(reversed(t.shape[1:]), reversed(t.stride()[1:])):
+        if size == 0:
+            return True
+        if size != 1 and stride != want:
+            return False
+        want *= size
+    return True
+
+
 def require(t: torch.Tensor, name: str, dtype, shape, device=None, strided_rows=False,
             batch_stride=False) -> None:
     """Check what a kernel takes: a contiguous CUDA tensor of this dtype/shape
@@ -238,7 +251,7 @@ def require(t: torch.Tensor, name: str, dtype, shape, device=None, strided_rows=
         if t.stride(-1) != 1 or t.stride(0) < t.shape[-1]:
             raise ValueError(f"{name}: kernel takes rows of contiguous entries")
     elif batch_stride:
-        if t.dim() == 0 or t.shape[0] == 0 or not t[0].is_contiguous():
+        if t.dim() == 0 or t.shape[0] == 0 or not _entries_contiguous(t):
             raise ValueError(f"{name}: kernel takes contiguous entries at any batch stride")
     elif not t.is_contiguous():
         raise ValueError(f"{name}: kernel takes a contiguous tensor")

@@ -27,6 +27,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step project_times [other/project_knot.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step kalman_phases [B] [kalman_update.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step kalman_times [other/kalman_update.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step swing_plan_phases [B] [S] [reference_prep.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step swing_plan_times [other/reference_prep.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step own_times [solves] [periods]
     python -m hunter_bipedal_control_tpu_torch.profile_step rt_factor [periods]
 
@@ -112,6 +114,13 @@ loop (B=1) or on ``entry.estimator_batch(4096)`` the same way
 KF_PHASE_NAMES), optionally for another ``kalman_update.cu``;
 ``kalman_times`` times B12 on both beside another ``kalman_update.cu`` if
 given (``profile_kalman_times``);
+``swing_plan_phases`` splits kernel B8b1 on the warm MPC step's inputs
+(B=1 with 6 samples, the product shape, or B=128 with 7, the bench shape)
+the same way (``profile_swing_plan_phases``: block 0's cycles by
+SP_PHASE_NAMES), optionally for another ``reference_prep.cu``;
+``swing_plan_times`` times B8b1 at both shapes beside another
+``reference_prep.cu`` if given, compares the two sources' outputs and
+decisions, and splits the wrapper's host time (``profile_swing_plan_times``);
 ``own_times`` reads the own device time at B=1 of B5, B8b2, B16 and B11
 on the chained solve and the full-order loop (``profile_own_times``);
 ``rt_factor`` times the full-order loop without the profiler
@@ -1501,6 +1510,162 @@ def profile_kalman_times(other: str | None = None):
     return res
 
 
+# kernel B8b1's phases (csrc/reference_prep.cu, -DSP_PHASE_CLOCKS): block 0's
+# cycles on thread 0 (leg 0's lane 0) by the loads, the waits for the FK of
+# x_init and for update_planner's head, the windows, the candidates, the
+# fresh test, the fresh phases' indices, the swing nodes, the wait for the
+# other warps (the samples) and the leg's stores (the first SP_CRITICAL sum
+# to the block's time); then the FK's and the head's own cycles
+SP_PHASE_NAMES = ("load", "fk", "head", "windows", "candidates", "fresh", "fresh_idx",
+                  "nodes", "samples", "stores", "fk_own", "head_own")
+SP_CRITICAL = 10
+# kernel calls under the profiler for B8b1's own device time
+SP_PROFILED_CALLS = 20
+# the warm MPC step's shapes by samples: (knots, horizon) and the batch
+SWING_PLAN_SHAPES = {6: (53, 0.8, 1), 7: (66, 1.0, 128)}
+# B8b1's outputs in the wrapper's order (``SwingPlan``), then its decisions
+SWING_PLAN_OUTPUTS = ("latest", "node_times", "node_pos", "node_vel", "window_start",
+                      "window_stop", "contact_seq", "times", "states", "inputs", "poses", "des",
+                      "R_des", "warm")
+
+
+def _swing_plan_args(samples: int, batch: int | None = None):
+    """``swing_plan``'s arguments as the flagship's warm MPC step gives them
+    (the product shape's 53 knots over 0.8 s for 6 samples at B=1, the
+    bench shape's 66 over 1.0 s for 7 at B=128, or ``batch``), captured on
+    the card."""
+    import torch
+
+    from .entry import build_flagship
+    from .solver import mpc as mpc_mod
+
+    knots, horizon, b = SWING_PLAN_SHAPES[samples]
+    flag = build_flagship(knots, horizon, batch=batch or b)
+    mpc = mpc_mod.Mpc(flag.model, flag.settings, flag.params, flag.planner_cfg)
+    args = (flag.schedule, flag.target, 0.0, flag.x0,
+            torch.zeros(6, device=flag.x0.device), flag.default_joints)
+    _, state, _ = mpc(flag.state, *args)
+    seen, real = [], mpc_mod.swing_plan
+
+    def keep(*a, **k):
+        seen.append(a)
+        return real(*a, **k)
+
+    mpc_mod.swing_plan = keep
+    try:
+        mpc(state, *args)
+    finally:
+        mpc_mod.swing_plan = real
+    torch.cuda.synchronize()
+    assert seen[-1][-1] == samples, seen[-1][-1]
+    return seen[-1]
+
+
+def _swing_plan_outputs(args):
+    """B8b1's outputs on ``args`` with its decisions, as one list
+    (SWING_PLAN_OUTPUTS, then the decisions by name) and their names."""
+    from .solver import reference_prep as rp
+
+    plan, dec = rp.swing_plan(*args, with_decisions=True)
+    outs = [plan.planner.latest_stance_position, *plan.refs[:3], *plan.refs[4:], *plan[2:]]
+    return ([t.clone() for t in outs] + [dec[n].clone() for n in sorted(dec)],
+            list(SWING_PLAN_OUTPUTS) + sorted(dec))
+
+
+def _swing_plan_host(args, calls: int = 200):
+    """The host time of one ``swing_plan`` call, the calls enqueued back to
+    back, and of its parts alone: the checks (``plan_strides``), the
+    constants' lookup (``soa_kernel.consts_buffer``), the output
+    allocations (``plan_buffers``), the whole wrapper with its C call
+    stubbed out; the C call is the wrapper less the stubbed wrapper."""
+    import torch
+
+    from .ocp import soa_kernel
+    from .solver import reference_prep as rp
+
+    model, cfg, ps, sch, tgt, init, x, cmd, dj, _, S = args
+    Bn, nx = x.shape
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        ms = (time.perf_counter() - t) * 1e3 / calls
+        torch.cuda.synchronize()
+        return ms
+
+    out = {"wrapper": per_call(lambda: rp.swing_plan(*args)),
+           "checks": per_call(lambda: rp.plan_strides(model, cfg, ps, sch, tgt, init, x, cmd,
+                                                      dj, S)),
+           "consts_buffer": per_call(lambda: soa_kernel.consts_buffer(model, x.device)),
+           "outputs": per_call(lambda: rp.plan_buffers(Bn, S, nx, model.nj, x.device, False))}
+    with _entry_from(_Stub(), "hk_swing_plan"):
+        out["wrapper_without_launch"] = per_call(lambda: rp.swing_plan(*args))
+    out["c_call"] = out["wrapper"] - out["wrapper_without_launch"]
+    out["calls"] = calls
+    return out
+
+
+def profile_swing_plan_phases(batch: int = 1, samples: int = 6,
+                              source: str = "reference_prep.cu"):
+    """Kernel B8b1 (``csrc/<source>``, or the file at the path ``source``,
+    e.g. a parent checkout's with the same clock marks) on the warm MPC
+    step's inputs (``_swing_plan_args``), measured by ``_kernel_phases``
+    with ``-DSP_PHASE_CLOCKS``: block 0's clock64 cycles by SP_PHASE_NAMES
+    (the first SP_CRITICAL sum to ``total_cycles``), the kernel's times
+    with and without the clocks, and the ptxas lines of both builds."""
+    import torch
+
+    from .solver import reference_prep as rp
+
+    args = _swing_plan_args(samples, batch)
+    run = lambda: rp.swing_plan(*args)  # noqa: E731
+    run()  # the constants on the card, by the package's library
+    m = _kernel_phases(source, "SP_PHASE_CLOCKS", "hk_swing_plan", SP_PHASE_NAMES, run,
+                       "swing_plan", SP_PROFILED_CALLS)
+    m["total_cycles"] = sum(list(m["cycles"].values())[:SP_CRITICAL])
+    m["ptxas"] = _ptxas("reference_prep")
+    return {"phase": "profile_swing_plan_phases", "batch": batch, "samples": samples,
+            "source": source, "device": torch.cuda.get_device_name(0), **m}
+
+
+def profile_swing_plan_times(other: str | None = None):
+    """Kernel B8b1 as the package builds it, timed by ``_kernel_times``
+    (SP_PROFILED_CALLS calls) on the warm MPC step's inputs at B=1, N=53,
+    S=6 and B=128, N=66, S=7, beside another ``reference_prep.cu`` of the
+    same C interface if given (``_compare_sources``: package, other, other,
+    package; and each case's outputs and decisions of the two compared);
+    the wrapper's host time by part (``_swing_plan_host``).  chip_smoke runs
+    this in a process of its own, whose profiler records every launch."""
+    import torch
+
+    from .kernels import _build
+    from .solver import reference_prep as rp
+
+    cases = {f"b{SWING_PLAN_SHAPES[s][2]}_s{s}": _swing_plan_args(s) for s in (6, 7)}
+    order, out = _compare_sources(
+        cases, "hk_swing_plan", other,
+        lambda args: _kernel_times(lambda: rp.swing_plan(*args), "swing_plan",
+                                   SP_PROFILED_CALLS, "hk_swing_plan"))
+    res = {"phase": "profile_swing_plan_times", "device": torch.cuda.get_device_name(0),
+           "profiled_calls": SP_PROFILED_CALLS, "order": order, "times": out,
+           "host_ms": {n: _swing_plan_host(a) for n, a in cases.items()}}
+    if other is not None:
+        lib = _build.measurement_library(other, None, ["hk_swing_plan"])
+        apart = {}
+        for n, args in cases.items():
+            mine, names = _swing_plan_outputs(args)
+            with _entry_from(lib, "hk_swing_plan"):
+                theirs, _ = _swing_plan_outputs(args)
+            torch.cuda.synchronize()
+            apart[n] = {names[int(k)]: v for k, v in _outputs_apart(mine, theirs).items()}
+        res["outputs_vs_other"] = apart
+    res["ptxas"] = _ptxas("reference_prep")
+    return res
+
+
 def _device_by_name(run):
     """``run()`` (which ends synchronized) under the profiler: per device
     kernel name, (its device ms summed, its recorded launches)."""
@@ -1770,6 +1935,12 @@ if __name__ == "__main__":
     elif a and a[0] == "kalman_phases":
         print(json.dumps(profile_kalman_phases(int(a[1]) if len(a) > 1 else 1,
                                                a[2] if len(a) > 2 else "kalman_update.cu")))
+    elif a and a[0] == "swing_plan_phases":
+        print(json.dumps(profile_swing_plan_phases(int(a[1]) if len(a) > 1 else 1,
+                                                   int(a[2]) if len(a) > 2 else 6,
+                                                   a[3] if len(a) > 3 else "reference_prep.cu")))
+    elif a and a[0] == "swing_plan_times":
+        print(json.dumps(profile_swing_plan_times(a[1] if len(a) > 1 else None)))
     elif a and a[0] == "kalman_times":
         print(json.dumps(profile_kalman_times(a[1] if len(a) > 1 else None)))
     elif a and a[0] == "ddp_rollout_phases":

@@ -17,6 +17,8 @@ prepare_references`` dispatches between the two.
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -152,18 +154,11 @@ def _batch_stride(t, name, dtype, shape, dev):
     return t.stride(0)
 
 
-def swing_plan(model: RobotModel, cfg: swp.SwingConfig, planner_state: swp.PlannerState,
-               schedule: ModeSchedule, target: tg.TargetTrajectories, init_time, x_init,
-               body_vel_cmd, default_joints, horizon: float, n_samples: int,
-               with_decisions: bool = False):
-    """Kernel B8b1 on the card (``csrc/reference_prep.cu``, ``hk_swing_plan``):
-    ``swing_plan_plain`` in one launch, one block per scenario.  float32 on
-    the card; each batched input (B, ...) contiguous within a scenario at
-    any batch stride (0 for one shared by ``expand``: read, not copied);
-    the swing configuration's fields are tensors.  The model's constants
-    come from B1's buffer (``soa_kernel.consts_buffer``, which refuses a
-    model of another topology).  ``with_decisions`` adds a dict of the
-    kernel's discrete choices, as ``swing_plan_plain``'s ``decisions``."""
+def plan_strides(model: RobotModel, cfg: swp.SwingConfig, planner_state: swp.PlannerState,
+                 schedule: ModeSchedule, target: tg.TargetTrajectories, init_time, x_init,
+                 body_vel_cmd, default_joints, n_samples: int):
+    """``swing_plan``'s checks of its inputs: each batched one's batch
+    stride (in the C interface's order), or an error."""
     if x_init.dim() != 2:
         raise ValueError(f"x_init: expected (B, nx), got {tuple(x_init.shape)}")
     Bn, nx, nj = x_init.shape[0], x_init.shape[1], model.nj
@@ -191,19 +186,61 @@ def swing_plan(model: RobotModel, cfg: swp.SwingConfig, planner_state: swp.Plann
                  "foothold_vel_fb"):
         _build.require(getattr(cfg, name), name, f32, (), dev)
     _build.require(cfg.feet_bias, "feet_bias", f32, (swp.NUM_FEET, 3), dev)
+    return strides
+
+
+@functools.lru_cache(maxsize=64)
+def _plan_layout(Bn: int, S: int, nx: int, nj: int):
+    """``plan_buffers``' layout: the floats of the buffer and each output's
+    (shape, strides, offset), the node arrays first, every output 16-byte
+    aligned; the decisions after them."""
+    P1, L, N = swp.P1, swp.NUM_FEET, swp.N_NODES
+    shapes = ((L, 3),) + ((L, P1, 3, N),) * 3 + ((L, P1),) * 3 + (
+        (S,), (S, nx), (S, nx), (S, 6), (S, 2, 3), (3, 3), (nj,))
+    views, o = [None] * len(shapes), 0
+    for k in (1, 2, 3, 0, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13):
+        shape = (Bn, *shapes[k])
+        strides = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        views[k] = (shape, strides, o)
+        o += -(-math.prod(shape) // 4) * 4
+    return o, tuple(views)
+
+
+def plan_buffers(Bn: int, n_samples: int, nx: int, nj: int, dev, with_decisions: bool):
+    """``swing_plan``'s outputs, new on every call (the planner state goes
+    on as the next step's input): the planner state, the three node arrays,
+    the three windows, the sample times, states, inputs, poses and toe
+    targets, R_des, the warm joints, and the decisions (int32) or None.
+    One allocation, carved by ``_plan_layout`` into contiguous views that
+    start 16 bytes apart (the kernel writes the node arrays as float4 runs)."""
+    n, layout = _plan_layout(Bn, n_samples, nx, nj)
+    n_dec = sum(k for _, k, _ in _plan_decision_layout(n_samples)) if with_decisions else 0
+    buf = torch.empty(n + Bn * n_dec, dtype=torch.float32, device=dev)
+    latest, *rest = (buf.as_strided(*v) for v in layout)
+    dec = buf[n:].view(torch.int32).view(Bn, n_dec) if with_decisions else None
+    return (latest, rest[0:3], rest[3:6], *rest[6:], dec)
+
+
+def swing_plan(model: RobotModel, cfg: swp.SwingConfig, planner_state: swp.PlannerState,
+               schedule: ModeSchedule, target: tg.TargetTrajectories, init_time, x_init,
+               body_vel_cmd, default_joints, horizon: float, n_samples: int,
+               with_decisions: bool = False):
+    """Kernel B8b1 on the card (``csrc/reference_prep.cu``, ``hk_swing_plan``):
+    ``swing_plan_plain`` in one launch, one block per scenario.  float32 on
+    the card; each batched input (B, ...) contiguous within a scenario at
+    any batch stride (0 for one shared by ``expand``: read, not copied);
+    the swing configuration's fields are tensors (``plan_strides`` checks
+    them all).  The model's constants come from B1's buffer
+    (``soa_kernel.consts_buffer``, which refuses a model of another
+    topology).  ``with_decisions`` adds a dict of the kernel's discrete
+    choices, as ``swing_plan_plain``'s ``decisions``."""
+    strides = plan_strides(model, cfg, planner_state, schedule, target, init_time, x_init,
+                           body_vel_cmd, default_joints, n_samples)
+    Bn, nx = x_init.shape
+    T, S, dev = target.times.shape[-1], n_samples, x_init.device
     K = soa_kernel.consts_buffer(model, dev)
-
-    def out(*shape):
-        return torch.empty((Bn, *shape), dtype=f32, device=dev)
-
-    latest = out(swp.NUM_FEET, 3)
-    nodes = [out(swp.NUM_FEET, P1, 3, swp.N_NODES) for _ in range(3)]
-    windows = [out(swp.NUM_FEET, P1) for _ in range(3)]
-    Ts, states, inputs = out(S), out(S, nx), out(S, nx)
-    poses, des, R_des, warm = out(S, 6), out(S, 2, 3), out(3, 3), out(nj)
-    layout = _plan_decision_layout(S)
-    dec = (torch.empty((Bn, sum(n for _, n, _ in layout)), dtype=torch.int32, device=dev)
-           if with_decisions else None)
+    latest, nodes, windows, Ts, states, inputs, poses, des, R_des, warm, dec = plan_buffers(
+        Bn, S, nx, model.nj, dev, with_decisions)
     lib = _build.library()
     _build.check(lib.hk_swing_plan(
         K.data_ptr(), x_init.data_ptr(), init_time.data_ptr(), schedule.event_times.data_ptr(),
@@ -221,7 +258,7 @@ def swing_plan(model: RobotModel, cfg: swp.SwingConfig, planner_state: swp.Plann
     refs = swp.SwingRefs(*nodes, schedule.event_times, *windows)
     plan = SwingPlan(refs=refs, planner=swp.PlannerState(latest), times=Ts, states=states,
                      inputs=inputs, poses=poses, des=des, R_des=R_des, warm=warm)
-    return plan if dec is None else (plan, _split_decisions(dec, layout))
+    return plan if dec is None else (plan, _split_decisions(dec, _plan_decision_layout(S)))
 
 
 swing_plan.launches = 0

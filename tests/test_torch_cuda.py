@@ -86,7 +86,9 @@ a phase or window test of the float32 plain version went the other way
 from the float64 one's; every decision (phases, segments, the windows'
 tests) equal to the float32 plain version's; on the flagship's main-path
 inputs and on seeded schedules of four gaits around t = 0 and t = 20 s at
-B=1 and B=128; the float32 plain version runs on the card (torch divides
+B=1 and B=128, and on the schedules at the swing planner's edges
+(``entry.swing_plan_edge_batch``: all stance, a single swing, the padded
+tail, no real event, init times on and an ulp before event times); the float32 plain version runs on the card (torch divides
 by a Python number there as the kernel does, by its reciprocal), the
 float64 one on the CPU; inputs shared by expand
 (stride 0) give the same bits as contiguous copies; one launch each per
@@ -131,7 +133,8 @@ from hunter_bipedal_control_tpu_torch.entry import (SimBatch, build_flagship, bu
                                                     build_wbc_batch, centroidal_batch,
                                                     contact_class_batch,
                                                     estimator_batch, projected_lq, qp_batch,
-                                                    sim_step_batch, walking_wbc_batch)
+                                                    sim_step_batch, swing_plan_edge_batch,
+                                                    walking_wbc_batch)
 from hunter_bipedal_control_tpu_torch.estim import contact, kalman
 from hunter_bipedal_control_tpu_torch.gait import mode_schedule as ms
 from hunter_bipedal_control_tpu_torch.models import centroidal
@@ -1625,7 +1628,11 @@ def _prep_inputs(cuda, batch, n_knots, horizon, main_path, seed=0):
     else per scenario a schedule of one of four gaits tiled around t = 0 or
     t = 20 s, an init time mid-phase, on one of its events or near 20 s, a
     cmd_vel target made there, x_init, command and latest stance positions
-    around the standing robot, the yaw lead and velocity feedback on."""
+    around the standing robot, the yaw lead and velocity feedback on; for
+    ``main_path`` None, ``entry.swing_plan_edge_batch``'s schedules at the
+    swing planner's edges (its own batch)."""
+    if main_path is None:
+        return swing_plan_edge_batch(cuda, horizon=horizon)
     flag = build_flagship(n_knots, horizon, batch=batch, device=cuda)
     S = int(horizon / mpc_mod.JOINT_REF_STEP) + 1
     if main_path:
@@ -1723,11 +1730,12 @@ def _prep_check(got, p32, p64, dec_k, d32, d64, windows=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("main_path", [False, True], ids=["seeded", "main_path"])
+@pytest.mark.parametrize("main_path", [False, True, None], ids=["seeded", "main_path", "edges"])
 @pytest.mark.parametrize("batch,n_knots,horizon", [(1, 53, 0.8), (128, 66, 1.0)])
 def test_prep_kernels(cuda, batch, n_knots, horizon, main_path):
     args = _prep_inputs(cuda, batch, n_knots, horizon, main_path)
     model, S = args[0], args[-1]
+    batch = args[6].shape[0]
     plan, dec_k = mpc_mod.swing_plan(*args, with_decisions=True)
     _, jr = ik_mod.leg_ik(model, plan.poses, plan.warm, plan.des, plan.R_des)
     bundle, mod, kdec = mpc_mod.knot_refs(args[3], plan, args[5], horizon, n_knots, jr,

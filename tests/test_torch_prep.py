@@ -259,3 +259,228 @@ def test_kernel_constants_match_the_plain_version():
             "Z_K3L2": zk3 * zl2, "BIG": tms.BIG_TIME, "HALF_BIG": tms.BIG_TIME / 2}
     assert {n: got.get(n) for n in want} == {n: float(np.float32(v)) for n, v in want.items()}
     assert int(re.search(r"constexpr int MAX_T = (\d+);", src).group(1)) == trp.MAX_TARGET_NODES
+
+
+# ---- the swing planner's scan form (kernel B8b1's windows, next phase,
+# tail and fresh tests and fresh phases' indices), mirrored in torch ----
+#
+# csrc/reference_prep.cu's swing_plan_kernel runs a leg's 57 phases on a
+# warp's 32 lanes, two a lane (phase 2l + h on lane l, phantoms from 57
+# on), and finds each phase's window bounds, the fresh test's running
+# maximum and the last two fresh phases by prefix scans over the lanes
+# (shuffles up or down by 1, 2, 4, 8, 16) instead of walks over the phases.
+# ``_scan_form`` repeats those steps on the same layout in float32 with the
+# plain version's operations; the tests hold it to ``swing_plan_plain``'s
+# windows and decisions bit for bit, and its windows to B16's walk
+# (``contact_window``), on seeded schedules and on ``entry.
+# swing_plan_edge_batch``'s.
+LANES = 32
+BIG = tms.BIG_TIME
+
+
+def _lanes(x, fill):
+    """(..., P1) per-phase values -> (..., LANES, 2), phantoms ``fill``."""
+    pad = torch.full((*x.shape[:-1], 2 * LANES - x.shape[-1]), fill, dtype=x.dtype)
+    return torch.cat([x, pad], -1).reshape(*x.shape[:-1], LANES, 2)
+
+
+def _phases(a, b):
+    """Two lanes' values (..., LANES) -> (..., P1) per phase."""
+    return torch.stack([a, b], -1).reshape(*a.shape[:-1], 2 * LANES)[..., :tswp.P1]
+
+
+def _shfl(v, o):
+    """__shfl_up_sync (o > 0) / __shfl_down_sync (o < 0) over the last dim:
+    lane l reads lane l - o, a lane with no such source keeps its own."""
+    lane = torch.arange(LANES)
+    src = (lane - o).clamp(0, LANES - 1)
+    got = v[..., src]
+    return torch.where((lane - o >= 0) & (lane - o < LANES), got, v)
+
+
+def _scan(v, op, up=True):
+    """The kernel's inclusive scan over the lanes: prefix (up) or suffix."""
+    lane = torch.arange(LANES)
+    for o in (1, 2, 4, 8, 16):
+        u = _shfl(v, o if up else -o)
+        v = torch.where(lane >= o if up else lane + o < LANES, op(u, v), v)
+    return v
+
+
+def _excl(incl, first, up=True):
+    """The exclusive scan: the neighbour's inclusive one, ``first`` at the end."""
+    lane = torch.arange(LANES)
+    return torch.where(lane == (0 if up else LANES - 1), torch.as_tensor(first, dtype=incl.dtype),
+                       _shfl(incl, 1 if up else -1))
+
+
+def _scan_form(schedule, init_time, horizon):
+    """B8b1's scan form on CPU float32 tensors (B, ...): the windows (start,
+    stop, contact flag), the next phase, the tail and fresh tests and the
+    fresh phases' indices i1 / i2, each (B, 4, P1)."""
+    ev, P1, M = schedule.event_times, tswp.P1, tms.MAX_PHASES
+    final = init_time + horizon
+    hz = final - init_time
+    h_start, h_end = init_time - hz, final + hz
+    cs = tms.contact_sequence(schedule, ev.dtype)                    # (B, 4, P1)
+    lane = torch.arange(LANES)
+    pa, pb = 2 * lane, 2 * lane + 1
+    va, vb = pa < P1, pb < P1
+    c2 = _lanes(cs, 0.0)
+    ca, cb = c2[..., 0], c2[..., 1]
+    fa = torch.where((pa == 0) | (ca != _shfl(cb, 1)), pa, -1)
+    fb = torch.where(ca != cb, pb, fa)
+    f_ex = _excl(_scan(fb, torch.maximum), -1)
+    qfa, qfb = torch.maximum(f_ex, fa), torch.maximum(f_ex, fb)
+    ba = (pa == P1 - 1) | (ca != cb)
+    bb = vb & ((pb == P1 - 1) | (cb != _shfl(ca, -1)))
+    bb_mark = torch.where(bb, pb, P1)
+    b_lane = torch.where(~va, P1, torch.where(ba, pa, bb_mark))
+    b_ex = _excl(_scan(b_lane, torch.minimum, up=False), P1, up=False)
+    qba, qbb = torch.where(ba, pa, torch.minimum(b_ex, bb_mark)), torch.minimum(b_ex, bb_mark)
+    qf, qb = _phases(qfa, qfb), _phases(qba, qbb)                     # (B, 4, P1)
+    evx = ev[:, None, :].expand(*cs.shape[:-1], M)
+    start = torch.where(qf == 0, h_start[:, None, None],
+                        torch.gather(evx, -1, (qf - 1).clamp(0, M - 1)))
+    stop = torch.minimum(torch.where(qb < M, torch.gather(evx, -1, qb.clamp(0, M - 1)),
+                                     torch.tensor(BIG, dtype=ev.dtype)), h_end[:, None, None])
+    nxt = torch.searchsorted(ev.contiguous(), (stop + 1e-6).reshape(len(ev), -1),
+                             right=True).reshape(stop.shape).clamp(max=P1 - 1)
+    last = torch.where(ev < BIG / 2, ev, torch.full_like(ev, -BIG)).amax(-1)
+    tail = stop >= (last - 1e-9)[:, None, None]
+    elig = (cs < 0.5) & (init_time[:, None, None] < stop)
+    m2 = _lanes(torch.where(elig, stop, torch.full_like(stop, -BIG)), -BIG)
+    e2, el2 = _lanes(stop, 0.0), _lanes(elig, False)
+    ma, mb = m2[..., 0], m2[..., 1]
+    m_ex = _scan(torch.maximum(ma, mb), torch.maximum)
+    m_ex = torch.where(lane == 0, torch.tensor(-BIG), torch.maximum(torch.tensor(-BIG),
+                                                                    _shfl(m_ex, 1)))
+    fra = el2[..., 0] & (e2[..., 0] > m_ex + 1e-9)
+    frb = el2[..., 1] & (e2[..., 1] > torch.maximum(m_ex, ma) + 1e-9)
+    ka = torch.where(fra, pa, -1)
+    kb = torch.where(frb, pb, ka)
+    k_ex = _excl(_scan(kb, torch.maximum), -1)
+    i1a, i1b = torch.maximum(k_ex, ka), torch.maximum(k_ex, kb)
+
+    def second(i1):
+        src = i1.clamp(min=0) // 2
+        s1, sr = torch.gather(i1a, -1, src), torch.gather(k_ex, -1, src)
+        return torch.where(i1 < 0, -1, torch.where(i1 % 2 == 1, s1, sr))
+
+    return {"start": start, "stop": stop, "cs": cs, "next_phase": nxt, "tail": tail,
+            "fresh": _phases(fra, frb), "i1": _phases(i1a, i1b),
+            "i2": _phases(second(i1a), second(i1b))}
+
+
+def _walks(cs, ev, h_start, h_end, fresh):
+    """The walk forms, one (scenario, leg, phase) at a time: B16's
+    contact_window and the first design's backward searches for i1 / i2."""
+    cs, ev, fresh = cs.numpy(), ev.numpy(), fresh.numpy()
+    Bn, L, P1 = cs.shape
+    out = {k: np.zeros((Bn, L, P1), dtype=t) for k, t in
+           (("start", np.float32), ("stop", np.float32), ("i1", np.int64), ("i2", np.int64))}
+    for b in range(Bn):
+        for g in range(L):
+            c, fr = cs[b, g], fresh[b, g]
+            for p in range(P1):
+                qf = p
+                while qf > 0 and c[qf - 1] == c[qf]:
+                    qf -= 1
+                qb = p
+                while qb < P1 - 1 and c[qb + 1] == c[qb]:
+                    qb += 1
+                out["start"][b, g, p] = h_start[b] if qf == 0 else ev[b, qf - 1]
+                out["stop"][b, g, p] = min(ev[b, qb] if qb < P1 - 1 else np.float32(BIG),
+                                           h_end[b])
+                i1 = next((q for q in range(p, -1, -1) if fr[q]), -1)
+                out["i1"][b, g, p] = i1
+                out["i2"][b, g, p] = next((q for q in range(i1 - 1, -1, -1) if fr[q]), -1)
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+def _seeded_plan_args(batch, seed):
+    """``swing_plan_plain``'s arguments on seeded schedules, float32 on the
+    CPU: per scenario 1-40 real phases of 0.02-0.4 s from a start in
+    [-1, 30] s (BIG_TIME beyond), each mode the previous one's with
+    probability 0.4 (the modes beyond the real events kept or cycling), the
+    init time on an event time, a float32 ulp off one, or uniform; the rest
+    as ``entry.swing_plan_edge_batch`` makes it."""
+    from hunter_bipedal_control_tpu_torch.entry import swing_plan_edge_batch
+
+    base = swing_plan_edge_batch("cpu")
+    g = torch.Generator().manual_seed(seed)
+    P = tms.MAX_PHASES
+    t0 = -1.0 + 31.0 * torch.rand(batch, generator=g)
+    dur = 0.02 + 0.38 * torch.rand(batch, P, generator=g)
+    ev = t0[:, None] + torch.cumsum(dur, -1)
+    n_real = torch.randint(1, 41, (batch,), generator=g)
+    ev = torch.where(torch.arange(P) < n_real[:, None], ev, torch.tensor(BIG))
+    modes = torch.randint(0, 4, (batch, P + 1), generator=g)
+    keep = torch.rand(batch, P + 1, generator=g) < 0.4
+    hold = torch.rand(batch, generator=g) < 0.5
+    for p in range(1, P + 1):
+        same = keep[:, p] | (hold & (p > n_real))
+        modes[:, p] = torch.where(same, modes[:, p - 1], modes[:, p])
+    i = torch.minimum(torch.randint(0, 41, (batch,), generator=g), n_real - 1)
+    e = torch.gather(ev, 1, i[:, None])[:, 0]
+    kind = torch.arange(batch) % 4
+    init = torch.where(kind == 1, torch.nextafter(e, torch.tensor(-np.inf)),
+                       torch.where(kind == 2, torch.nextafter(e, torch.tensor(np.inf)), e))
+    init = torch.where(kind == 3, t0 + 2.0 * torch.rand(batch, generator=g), init)
+    x = base[6][:1].expand(batch, -1) + 0.02 * torch.randn(batch, 22, generator=g)
+    target = ttg.cmd_vel_to_target(torch.full((batch, 4), 0.2), x, init, 0.8,
+                                   ttg.default_cmd_vel_config(nj=10, device="cpu"))
+    latest = tswp.PlannerState(0.1 * torch.randn(batch, 4, 3, generator=g))
+    return (base[0], base[1], latest, tms.ModeSchedule(ev, modes), target, init, x,
+            0.2 * torch.randn(batch, 6, generator=g), base[8][:1].expand(batch, -1), 0.8, 6)
+
+
+@pytest.mark.parametrize("case", ["edges", "seeded_0", "seeded_1"])
+def test_scan_form_equals_the_plain_decisions(case):
+    """B8b1's scan form gives swing_plan_plain's windows, next phases, tail
+    and fresh tests bit for bit (float32), and the walks' windows and fresh
+    phases' indices."""
+    from hunter_bipedal_control_tpu_torch.entry import swing_plan_edge_batch
+
+    args = (swing_plan_edge_batch("cpu") if case == "edges"
+            else _seeded_plan_args(24, int(case[-1])))
+    sched, init, H = args[3], args[5], args[9]
+    dec = {}
+    plan = tmpc.swing_plan_plain(*args, decisions=dec)
+    got = _scan_form(sched, init, H)
+    refs = plan.refs
+    for name, want in (("start", refs.window_start), ("stop", refs.window_stop),
+                       ("cs", refs.contact_seq)):
+        assert torch.equal(got[name].view(torch.int32), want.view(torch.int32)), name
+    for name in ("next_phase", "tail", "fresh"):
+        assert torch.equal(got[name], dec[name].to(got[name].dtype)), name
+    final = init + H
+    walk = _walks(refs.contact_seq, sched.event_times, init - (final - init),
+                  final + (final - init), got["fresh"])
+    for name in ("start", "stop", "i1", "i2"):
+        assert torch.equal(got[name], walk[name].to(got[name].dtype)), name
+    # the cases reach the edges: fresh windows and none, the tail, both indices
+    assert got["fresh"].any() and not got["fresh"].all(-1).any()
+    assert got["tail"].any() and (got["i2"] >= 0).any() and (got["i1"] < 0).any()
+    if case == "edges":
+        assert not got["fresh"][0].any() and got["tail"][3, :, 1:].all()
+
+
+def test_scan_form_reaches_every_lane():
+    """The scans carry a fresh phase or a contact change from lane 0 to lane
+    28 (phase 56) and back: one change at phase 0 and one at 56."""
+    args = _seeded_plan_args(2, 2)
+    ev = torch.full((2, tms.MAX_PHASES), BIG)
+    ev[:, 0], ev[:, -1] = 0.05, 0.1
+    modes = torch.full((2, tswp.P1), 3)
+    modes[:, 1:-1] = 1
+    sched = tms.ModeSchedule(ev.contiguous(), modes)
+    args = (*args[:3], sched, *args[4:5], torch.tensor([0.0, 0.07]), *args[6:])
+    dec = {}
+    plan = tmpc.swing_plan_plain(*args, decisions=dec)
+    got = _scan_form(sched, args[5], args[9])
+    assert torch.equal(got["stop"], plan.refs.window_stop)
+    assert torch.equal(got["start"], plan.refs.window_start)
+    assert torch.equal(got["fresh"], dec["fresh"]) and dec["fresh"][:, 0, 1].all()
+    assert (got["i1"][:, 0, 1:] == 1).all() and (got["i2"][:, 0] == -1).all()
+    assert (got["stop"][:, 0, 1:-1] == 0.1).all() and (got["start"][:, 0, 2:-1] == 0.05).all()
