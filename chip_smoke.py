@@ -162,12 +162,13 @@ Phases, each printing one JSON line:
      observer's p_scg_z, est_forces and tau_dist and the filter's x_hat, P,
      position and velocity against the float64 plain version within
      max(tol, 2x the float32 plain version's error), bfloat16 landing above
-     the limit; kernel and plain times, at B=1 each kernel's own device
-     time, the bounds (``observer_cost``, ``kalman_cost``); B12's own device
-     time at B=1 (a walking update of the loop) and B=4096 in a process of
-     its own (``profile_step kalman_times``, ``kalman_own_times``: the
-     launches recorded of those profiled) beside one warp's serial floor of
-     an update (``kalman_floor_ms``);
+     the limit; kernel and plain times, the bounds (``observer_cost``,
+     ``kalman_cost``); each kernel's own device time at B=1 (a walking
+     update of the loop) and B=4096 in a process of its own (``profile_step
+     observer_times``, ``observer_own_times``, with the observer wrapper's
+     host time by part; ``profile_step kalman_times``, ``kalman_own_times``:
+     the launches recorded of those profiled) beside one warp's serial
+     floor of an update (``observer_floor_ms``, ``kalman_floor_ms``);
   4j. B13a (synth_imu), B13b (rbd_to_centroidal), B14a (dummy_step) and
      B14b (state_input_to_v) on every call's inputs of 4g's and 4f's loops
      (B=1: 240 sensings, 200 ticks) and on a seeded walking batch
@@ -828,6 +829,12 @@ def kalman_cost(batch, ns=18, nm=28, nc=4, nj=10, contact_link=(5, 10, 5, 10)):
     solve = nm ** 3 // 3 + (1 + ns) * 2 * nm * nm
     update = ns * nm * 2 + (ns * (ns + 1) // 2) * 2 * nm + ns * ns + 10
     return (n_in + n_out) * 4, batch * (chain + contacts + small + forms + solve + update)
+
+
+def observer_floor_ms():
+    """One warp's serial floor of one observer update: ``observer_cost``'s
+    operations at 32 a clock (a warp's lanes) at SM_CLOCK_HZ, in ms."""
+    return observer_cost(1)[1] / 32 / SM_CLOCK_HZ * 1e3
 
 
 def kalman_floor_ms():
@@ -2897,13 +2904,29 @@ def main():
                        for c, v in kf_own.items()},
           "serial_chain_ms": kalman_floor_ms(), "update_bytes_flops": kalman_cost(1)})
 
+    # B10's own device time likewise (``profile_step observer_times``), with
+    # the wrapper's host time by part and one warp's serial floor
+    done = subprocess.run([sys.executable, "-m", "hunter_bipedal_control_tpu_torch.profile_step",
+                           "observer_times"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600, check=True)
+    obs_times = json.loads(done.stdout.strip().splitlines()[-1])
+    obs_own = {case: runs[0] for case, runs in obs_times["times"]["package"].items()}
+    emit({"phase": "observer_own_times", "cases": obs_own,
+          "recorded": {c: f"{v['profiled_launches']} of {v['profiled_calls']}"
+                       for c, v in obs_own.items()},
+          "host_ms": obs_times["host_ms"], "ptxas": obs_times["ptxas"],
+          "serial_chain_ms": observer_floor_ms(), "update_bytes_flops": observer_cost(1)})
+    own_from = {"momentum_observer": ("observer_own_times", observer_floor_ms),
+                "kalman_update": ("kalman_own_times", kalman_floor_ms)}
+
     def est_case(name, label, cases, row, own=None):
         """The estimator kernel ``name`` on each argument tuple of ``cases``
         (one launch each) against its plain versions in float32, float64 and
         bfloat16 on the card (all cases at once), the errors taken over all
         of them; times on the last case.  ``row``: these fill the kernels
-        line's row, else a kernel_extra line.  ``own``: B12's own device
-        time on such inputs from ``kalman_own_times``."""
+        line's row, else a kernel_extra line.  ``own``: the kernel's own
+        device time on such inputs from ``observer_own_times`` or
+        ``kalman_own_times``."""
         names, run, plain, cost_fn, source, replaces = est[name]
         tol = TOL[name]
         got = [run(a) for a in cases]
@@ -2940,8 +2963,8 @@ def main():
         elif own is not None:
             info.update(kernel_device_ms=own["kernel_device_ms"],
                         profiled_launches=own["profiled_launches"],
-                        profiled_calls=own["profiled_calls"], own_time_from="kalman_own_times",
-                        serial_chain_ms=kalman_floor_ms())
+                        profiled_calls=own["profiled_calls"], own_time_from=own_from[name][0],
+                        serial_chain_ms=own_from[name][1]())
         if row:
             record(name, "cuda", source, replaces, err, tol, times[0], times[1], None,
                    cost_fn(Bn), info)
@@ -2959,12 +2982,14 @@ def main():
     if (len(obs_inputs), len(kf_inputs)) != (s_ticks, s_periods + s_ticks):
         raise AssertionError(f"sim_loop: {len(obs_inputs)} observer and {len(kf_inputs)} "
                              f"filter updates captured")
-    est_case("momentum_observer", "every update of the sim loop, B=1", obs_inputs, True)
+    est_case("momentum_observer", "every update of the sim loop, B=1", obs_inputs, True,
+             obs_own["b1_sim_loop"])
     est_case("kalman_update", "every update of the sim loop, B=1", kf_inputs, True,
              kf_own["b1_sim_loop"])
     eb = estimator_batch(EST_BATCH, dev, seed=0)
     est_case("momentum_observer", f"seeded walking batch, B={EST_BATCH}",
-             [(eb.model, eb.observer_params, eb.observer, eb.rbd, eb.cmd_torque, TICK_DT)], False)
+             [(eb.model, eb.observer_params, eb.observer, eb.rbd, eb.cmd_torque, TICK_DT)], False,
+             obs_own["b4096_estimator_batch"])
     est_case("kalman_update", f"seeded walking batch, B={EST_BATCH}",
              [(eb.model, eb.kalman_params, eb.kalman,
                *(eb.sensors[k] for k in ("zyx", "joint_pos", "joint_vel", "omega_world",

@@ -2,10 +2,11 @@
 contact-state classification / early-late contact detection, batched.
 
 Port of ``hunter_bipedal_control_tpu/estim/contact.py``.  The observer's
-update is kernel B10 (``csrc/momentum_observer.cu``, one launch per update)
-for a CUDA tensor and ``momentum_observer_plain`` for a CPU tensor: M, the
-Coriolis matrix, g and the two legs' damped least-squares wrench solves
-(5 x 5 Gauss-Jordan) in plain torch.  The full-order loop's per-tick
+update is kernel B10 (``csrc/momentum_observer.cu``, one launch per update:
+a warp per scenario, four a block) for a CUDA tensor and
+``momentum_observer_plain`` for a CPU tensor: M, the Coriolis matrix, g
+and the two legs' damped least-squares wrench solves (5 x 5 Gauss-Jordan)
+in plain torch.  The full-order loop's per-tick
 contact classification is kernel B16 (``contact_class``,
 ``csrc/reference_prep.cu::hk_contact_class``) for CUDA tensors and
 ``contact_class_plain`` for CPU tensors.
@@ -28,8 +29,9 @@ from ..ops.linalg import gj_inverse_plain
 NUM_FEET = 4
 NV = 16
 NJ = 10
-# one block per scenario: grid.x
-MAX_BLOCKS = 2 ** 31 - 1
+# a warp per scenario, four a block (grid.x = ceil(B / 4)); the C
+# interface takes B as an int
+MAX_BATCH = 2 ** 31 - 1
 
 
 class ContactObserverParams(NamedTuple):
@@ -107,12 +109,50 @@ def params_buffer(params: ContactObserverParams) -> torch.Tensor:
     return params.cutoff_frequency.reshape(1).to(torch.float32)
 
 
+def observer_inputs(rbd_measured, cmd_torque, p_scg_z_last):
+    """The kernel's inputs checked and made contiguous: (B, rbd, tau,
+    p_last)."""
+    if rbd_measured.dim() != 2:
+        raise ValueError(f"rbd_measured: expected (B, 32), got {tuple(rbd_measured.shape)}")
+    Bn, dev, f32 = rbd_measured.shape[0], rbd_measured.device, torch.float32
+    if not 0 < Bn <= MAX_BATCH:
+        raise ValueError(f"momentum_observer: B = {Bn} scenarios, the kernel takes 1..{MAX_BATCH}")
+    rbd, tau, p_last = (t.contiguous() for t in (rbd_measured, cmd_torque, p_scg_z_last))
+    for t, name, shape in ((rbd, "rbd_measured", (Bn, 2 * NV)), (tau, "cmd_torque", (Bn, NJ)),
+                           (p_last, "p_scg_z_last", (Bn, NV))):
+        _build.require(t, name, f32, shape, dev)
+    return Bn, rbd, tau, p_last
+
+
+def observer_params(params: ContactObserverParams, dev) -> torch.Tensor:
+    """``params_buffer`` checked for the kernel on ``dev``; kept, with its
+    check, for the same cutoff tensor on the same device until the tensor
+    is changed in place (its version moves)."""
+    c = params.cutoff_frequency
+    hit = _PARAMS.get("last")
+    if hit is not None and hit[0] is c and hit[1] == c._version and hit[2] == dev:
+        return hit[3]
+    P = params_buffer(params)
+    _build.require(P, "params", torch.float32, (1,), dev)
+    _PARAMS["last"] = (c, c._version, dev, P)
+    return P
+
+
+_PARAMS = {}
+
+
+def observer_buffers(Bn: int, dev):
+    """The kernel's three outputs (B, 16): views of one allocation, new on
+    every call (p_scg_z goes on as the next update's p_scg_z_last)."""
+    return torch.empty((3, Bn, NV), dtype=torch.float32, device=dev).unbind(0)
+
+
 def momentum_observer_update(model: RobotModel, params: ContactObserverParams,
                              state: ContactObserverState, rbd_measured, cmd_torque, dt):
     """Kernel B10: one observer update.
 
     CPU: ``momentum_observer_plain``.  CUDA: one launch of
-    ``hk_momentum_observer``, one block per scenario, or an error:
+    ``hk_momentum_observer``, a warp per scenario, or an error:
     rbd_measured (B, 32), cmd_torque (B, 10) and the state's (B, 16) fields
     float32 on the card (made contiguous here); the model's constants from
     B1's buffer (``soa_kernel.consts_buffer``, which refuses a model of
@@ -120,19 +160,11 @@ def momentum_observer_update(model: RobotModel, params: ContactObserverParams,
     Python float."""
     if rbd_measured.device.type == "cpu":
         return momentum_observer_plain(model, params, state, rbd_measured, cmd_torque, dt)
-    if rbd_measured.dim() != 2:
-        raise ValueError(f"rbd_measured: expected (B, 32), got {tuple(rbd_measured.shape)}")
-    Bn, dev, f32 = rbd_measured.shape[0], rbd_measured.device, torch.float32
-    if not 0 < Bn <= MAX_BLOCKS:
-        raise ValueError(f"momentum_observer: B = {Bn} blocks, the grid takes 1..{MAX_BLOCKS}")
-    rbd, tau, p_last = (t.contiguous() for t in (rbd_measured, cmd_torque, state.p_scg_z_last))
-    for t, name, shape in ((rbd, "rbd_measured", (Bn, 2 * NV)), (tau, "cmd_torque", (Bn, NJ)),
-                           (p_last, "p_scg_z_last", (Bn, NV))):
-        _build.require(t, name, f32, shape, dev)
+    Bn, rbd, tau, p_last = observer_inputs(rbd_measured, cmd_torque, state.p_scg_z_last)
+    dev = rbd.device
     K = soa_kernel.consts_buffer(model, dev)
-    P = params_buffer(params)
-    _build.require(P, "params", f32, (1,), dev)
-    p_scg_z, est, tau_dist = (torch.empty((Bn, NV), dtype=f32, device=dev) for _ in range(3))
+    P = observer_params(params, dev)
+    p_scg_z, est, tau_dist = observer_buffers(Bn, dev)
     lib = _build.library()
     _build.check(lib.hk_momentum_observer(*(t.data_ptr() for t in (K, P, rbd, tau, p_last, p_scg_z,
                                                                   est, tau_dist)),

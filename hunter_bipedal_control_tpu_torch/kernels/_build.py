@@ -175,19 +175,19 @@ def library():
     return _lib
 
 
-def measurement_library(source: str, define: str | None, names):
+def measurement_library(source: str, define: str | None, names, extra=()):
     """``csrc/<source>`` (or the file at the path ``source``) alone,
-    compiled with ``-D<define>`` (none when define is None) into a library
-    of its own in BUILD_DIR (a measurement build, beside the package's),
-    loaded, with the entry points ``names`` of SIGNATURES bound; built once
-    a process."""
+    compiled with ``-D<define>`` (none when define is None) and the nvcc
+    flags ``extra`` (e.g. ``-fmad=false``) into a library of its own in
+    BUILD_DIR (a measurement build, beside the package's), loaded, with the
+    entry points ``names`` of SIGNATURES bound; built once a process."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(CSRC, source)
-    tag = hashlib.sha256(os.path.abspath(path).encode()).hexdigest()[:8]
+    tag = hashlib.sha256((os.path.abspath(path) + " ".join(extra)).encode()).hexdigest()[:8]
     so = os.path.join(BUILD_DIR, f"{os.path.splitext(os.path.basename(source))[0]}_"
                                  f"{(define or 'plain').lower()}_{tag}.so")
     if so not in _measured:
-        flags = [f"-D{define}"] if define else []
+        flags = ([f"-D{define}"] if define else []) + list(extra)
         done = subprocess.run([_nvcc(), *NVCC_FLAGS, *flags, "-I", CSRC, "-shared", "-o", so,
                                path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if done.returncode != 0:

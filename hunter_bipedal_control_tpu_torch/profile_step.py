@@ -27,6 +27,8 @@ of a period of the dummy closed loop goes on the card.
     python -m hunter_bipedal_control_tpu_torch.profile_step project_times [other/project_knot.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step kalman_phases [B] [kalman_update.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step kalman_times [other/kalman_update.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step observer_phases [B] [loop|batch] [momentum_observer.cu]
+    python -m hunter_bipedal_control_tpu_torch.profile_step observer_times [other/momentum_observer.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step swing_plan_phases [B] [S] [reference_prep.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step swing_plan_times [other/reference_prep.cu]
     python -m hunter_bipedal_control_tpu_torch.profile_step own_times [solves] [periods]
@@ -114,6 +116,14 @@ loop (B=1) or on ``entry.estimator_batch(4096)`` the same way
 KF_PHASE_NAMES), optionally for another ``kalman_update.cu``;
 ``kalman_times`` times B12 on both beside another ``kalman_update.cu`` if
 given (``profile_kalman_times``);
+``observer_phases`` splits kernel B10 on a walking update of the
+full-order loop (B=1, "loop") or on ``entry.estimator_batch(B)``
+("batch") the same way (``profile_observer_phases``: block 0's cycles per
+update by OBS_PHASE_NAMES), optionally for another
+``momentum_observer.cu``; ``observer_times`` times B10 on both at B=1 and
+B=4096 beside another ``momentum_observer.cu`` if given, compares the two
+sources' outputs, and splits the wrapper's host time
+(``profile_observer_times``);
 ``swing_plan_phases`` splits kernel B8b1 on the warm MPC step's inputs
 (B=1 with 6 samples, the product shape, or B=128 with 7, the bench shape)
 the same way (``profile_swing_plan_phases``: block 0's cycles by
@@ -943,17 +953,19 @@ def _event_ms(fn, reps: int = 15):
 
 def _outputs_apart(a, b):
     """Per output of two runs: whether they agree bit for bit (NaN where
-    NaN) and their largest absolute difference where both are finite."""
+    NaN), how many entries do not, their largest absolute difference where
+    both are finite and the first run's largest finite magnitude."""
     import torch
 
     out = {}
     for i, (x, y) in enumerate(zip(a, b)):
-        same = bool(torch.equal(x.view(torch.int32) if x.dtype == torch.float32 else x,
-                                y.view(torch.int32) if y.dtype == torch.float32 else y))
+        bits = (x.view(torch.int32), y.view(torch.int32)) if x.dtype == torch.float32 else (x, y)
         fin = torch.isfinite(x.double()) & torch.isfinite(y.double())
         diff = (x.double() - y.double()).abs()[fin]
-        out[str(i)] = {"bit_equal": same,
+        out[str(i)] = {"bit_equal": bool(torch.equal(*bits)),
+                       "entries_apart": int((bits[0] != bits[1]).sum()),
                        "max_abs_diff": float(diff.max()) if diff.numel() else 0.0,
+                       "scale": float(x.double()[fin].abs().max()) if diff.numel() else 0.0,
                        "finite_equal": bool(torch.equal(torch.isfinite(x.double()),
                                                         torch.isfinite(y.double())))}
     return out
@@ -1510,6 +1522,171 @@ def profile_kalman_times(other: str | None = None):
     return res
 
 
+# kernel B10's phases (csrc/momentum_observer.cu, -DMO_PHASE_CLOCKS): block
+# 0's cycles on thread 0 (scenario 0's lane 0) by the loads, the chain, the
+# links' columns and momenta, the (link, column) terms and the toes' A
+# rows, the sums and the filter, A A' and the tableau, the two solves, the
+# wrenches, their norms and the stores
+OBS_PHASE_NAMES = ("load", "chain", "columns", "terms", "sums_filter", "aat", "solve",
+                   "wrench_stores")
+# kernel calls under the profiler for B10's own device time
+OBS_PROFILED_CALLS = 20
+
+
+def _observer_args(batch: int = 1, mode: str | None = None):
+    """``contact.momentum_observer_update``'s arguments on the card: in
+    mode "loop" (B=1) the last of the full-order loop's observer updates
+    over KF_WALK_PERIODS walking periods (past ``_walking_sim_loop``'s gait
+    switch, captured as chip_smoke 4i captures them), in mode "batch"
+    ``entry.estimator_batch(batch, seed=0)``; the mode by default "loop" at
+    B=1, else "batch"."""
+    import torch
+
+    from .entry import TICK_DT, estimator_batch, run_sim_loop
+    from .runtime import sim_loop as sim_loop_mod
+
+    mode = mode or ("loop" if batch == 1 else "batch")
+    if mode == "batch":
+        eb = estimator_batch(batch, torch.device("cuda"), seed=0)
+        return (eb.model, eb.observer_params, eb.observer, eb.rbd, eb.cmd_torque, TICK_DT)
+    if batch != 1:
+        raise ValueError(f"observer: the loop's updates are at B=1, not {batch}")
+    setup = _walking_sim_loop(False, "soa")
+    seen, real = [], sim_loop_mod.momentum_observer_update
+
+    def keep(*a):
+        seen.append(a)
+        return real(*a)
+
+    sim_loop_mod.momentum_observer_update = keep
+    try:
+        run_sim_loop(setup, [WALK] * KF_WALK_PERIODS)
+    finally:
+        sim_loop_mod.momentum_observer_update = real
+    torch.cuda.synchronize()
+    return seen[-1]
+
+
+def _observer_call(args):
+    from .estim import contact
+
+    return lambda: contact.momentum_observer_update(*args)
+
+
+def _observer_outputs(args):
+    """B10's three outputs on ``args``: p_scg_z, est_forces, tau_dist."""
+    from .estim import contact
+
+    st, dist = contact.momentum_observer_update(*args)
+    return [st.p_scg_z_last.clone(), st.est_forces.clone(), dist.clone()]
+
+
+def _observer_host(args, calls: int = 200):
+    """The host time of one ``momentum_observer_update`` call, the calls
+    enqueued back to back, and of its parts alone: the checks with the
+    inputs made contiguous (``observer_inputs``), the constants' lookup
+    (``soa_kernel.consts_buffer``), the cutoff's checked buffer
+    (``observer_params``), the output allocations (``observer_buffers``), the
+    whole wrapper with its C call stubbed out; the C call is the wrapper
+    less the stubbed wrapper."""
+    import torch
+
+    from .estim import contact
+    from .ocp import soa_kernel
+
+    model, params, state, rbd, tau, _ = args
+    dev = rbd.device
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        ms = (time.perf_counter() - t) * 1e3 / calls
+        torch.cuda.synchronize()
+        return ms
+
+    out = {"wrapper": per_call(_observer_call(args)),
+           "checks": per_call(lambda: contact.observer_inputs(rbd, tau, state.p_scg_z_last)),
+           "consts_buffer": per_call(lambda: soa_kernel.consts_buffer(model, dev)),
+           "params_buffer": per_call(lambda: contact.observer_params(params, dev)),
+           "outputs": per_call(lambda: contact.observer_buffers(rbd.shape[0], dev))}
+    with _entry_from(_Stub(), "hk_momentum_observer"):
+        out["wrapper_without_launch"] = per_call(_observer_call(args))
+    out["c_call"] = out["wrapper"] - out["wrapper_without_launch"]
+    out["calls"] = calls
+    return out
+
+
+def profile_observer_phases(batch: int = 1, mode: str | None = None,
+                            source: str = "momentum_observer.cu"):
+    """Kernel B10 (``csrc/<source>``, or the file at the path ``source``,
+    e.g. a parent checkout's with the same clock marks) on
+    ``_observer_args(batch, mode)``, measured by ``_kernel_phases`` with
+    ``-DMO_PHASE_CLOCKS``: block 0's clock64 cycles per update by
+    OBS_PHASE_NAMES, the kernel's times with and without the clocks, and
+    the ptxas lines of both builds."""
+    import torch
+
+    args = _observer_args(batch, mode)
+    run = _observer_call(args)
+    run()  # the constants on the card, by the package's library
+    m = _kernel_phases(source, "MO_PHASE_CLOCKS", "hk_momentum_observer", OBS_PHASE_NAMES, run,
+                       "momentum_observer", OBS_PROFILED_CALLS)
+    return {"phase": "profile_observer_phases", "batch": batch,
+            "mode": mode or ("loop" if batch == 1 else "batch"), "source": source,
+            "device": torch.cuda.get_device_name(0), **m}
+
+
+def profile_observer_times(other: str | None = None):
+    """Kernel B10 as the package builds it, timed by ``_kernel_times``
+    (OBS_PROFILED_CALLS calls) at B=1 (a walking update of the full-order
+    loop) and B=4096 (``entry.estimator_batch``), beside another
+    ``momentum_observer.cu`` of the same C interface if given
+    (``_compare_sources``: package, other, other, package; and each case's
+    outputs of the two compared, "outputs_vs_other", and once more with
+    both sources built with ``-fmad=false``, "outputs_vs_other_unfused":
+    no multiply and add contracted into an FMA); the wrapper's host time by
+    part (``_observer_host``).  chip_smoke runs this in a process of its
+    own, whose profiler records every launch."""
+    import torch
+
+    from .kernels import _build
+
+    entry = "hk_momentum_observer"
+    cases = {"b1_sim_loop": _observer_args(1), "b4096_estimator_batch": _observer_args(4096)}
+    order, out = _compare_sources(
+        cases, entry, other,
+        lambda args: _kernel_times(_observer_call(args), "momentum_observer",
+                                   OBS_PROFILED_CALLS, entry))
+    res = {"phase": "profile_observer_times", "device": torch.cuda.get_device_name(0),
+           "profiled_calls": OBS_PROFILED_CALLS, "order": order, "times": out,
+           "host_ms": {n: _observer_host(a) for n, a in cases.items()}}
+
+    def apart(mine_lib, their_lib):
+        got = {}
+        for n, args in cases.items():
+            with (_entry_from(mine_lib, entry) if mine_lib is not None
+                  else contextlib.nullcontext()):
+                mine = _observer_outputs(args)
+            with _entry_from(their_lib, entry):
+                theirs = _observer_outputs(args)
+            torch.cuda.synchronize()
+            got[n] = {name: v for name, v in zip(("p_scg_z", "est_forces", "tau_dist"),
+                                                 _outputs_apart(mine, theirs).values())}
+        return got
+
+    if other is not None:
+        unfused = ("-fmad=false",)
+        res["outputs_vs_other"] = apart(None, _build.measurement_library(other, None, [entry]))
+        res["outputs_vs_other_unfused"] = apart(
+            _build.measurement_library("momentum_observer.cu", None, [entry], unfused),
+            _build.measurement_library(other, None, [entry], unfused))
+    res["ptxas"] = _ptxas("momentum_observer")
+    return res
+
+
 # kernel B8b1's phases (csrc/reference_prep.cu, -DSP_PHASE_CLOCKS): block 0's
 # cycles on thread 0 (leg 0's lane 0) by the loads, the waits for the FK of
 # x_init and for update_planner's head, the windows, the candidates, the
@@ -1935,6 +2112,12 @@ if __name__ == "__main__":
     elif a and a[0] == "kalman_phases":
         print(json.dumps(profile_kalman_phases(int(a[1]) if len(a) > 1 else 1,
                                                a[2] if len(a) > 2 else "kalman_update.cu")))
+    elif a and a[0] == "observer_phases":
+        print(json.dumps(profile_observer_phases(int(a[1]) if len(a) > 1 else 1,
+                                                 a[2] if len(a) > 2 else None,
+                                                 a[3] if len(a) > 3 else "momentum_observer.cu")))
+    elif a and a[0] == "observer_times":
+        print(json.dumps(profile_observer_times(a[1] if len(a) > 1 else None)))
     elif a and a[0] == "swing_plan_phases":
         print(json.dumps(profile_swing_plan_phases(int(a[1]) if len(a) > 1 else 1,
                                                    int(a[2]) if len(a) > 2 else 6,
